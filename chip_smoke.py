@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line each (every time printed beside the card's name and power
+limit):
+  1. build   compile both CUDA kernels (paella_tpu_torch/csrc) from source
+  2. K1      fused ResBlock(+FiLM) kernel against its plain torch version at
+             the flagship's shapes, f32 (TF32 off) and bf16
+  3. K2      fused sampling head against its plain torch version at the
+             flagship's shape, and with a zero head (tokens from the hash alone)
+  4. e2e     the flagship config (PaellaConfig.v1_byt5_xl_inference, seeded
+             random weights): 8-step CFG sampling at batch 1 and the codec
+             decode to a uint8 256x256 image, with launch counts, output checks
+             and p50 times; and a small f32 model and codec on the card against
+             the same model on the CPU (plain versions)
+Then a JSON line of the kernels, the card's name and power limit, and, last,
+{"ok": true, "device": {...}}. Any failed check raises; without a CUDA device
+the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+STEPS = 8
+LATENT = (1, 64, 64)
+BYT5_LEN = 64
+RESBLOCK_SHAPES = [  # (B, H, W, C, skip): the flagship's CFG batch-2 levels
+    (2, 32, 32, 640, False),
+    (2, 32, 32, 640, True),
+    (2, 16, 16, 1280, False),
+    (2, 8, 8, 1280, False),
+]
+K1_SHAPE = (2, 16, 16, 1280, False)  # 31 of the 56 calls per forward
+TIMED_RUNS = 5
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one fn() call, from CUDA events around `iters` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def alternate(kernel, plain) -> tuple[float, float]:
+    """Times of kernel and plain, measured plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = cuda_time_ms(plain), cuda_time_ms(kernel), cuda_time_ms(kernel), cuda_time_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase_build(tag: str) -> dict:
+    from paella_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    regs = {}
+    for name in ("resblock", "sampling"):
+        path = _build.build(name)
+        _build.load_library(name)
+        log = path.with_suffix(".log").read_text()
+        regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    secs = time.perf_counter() - t0
+    print(f"[build] resblock.cu + sampling.cu built and loaded in {secs:.1f} s ({tag})")
+    for name, lines in regs.items():
+        for ln in lines:
+            print(f"[build]   {name}: {ln}")
+    return {"build_s": secs}
+
+
+def random_resblock(c: int, cpg: int, dtype, gen):
+    import torch
+
+    from paella_tpu_torch.kernels.resblock import prepare_resblock_weights
+
+    dev = "cuda"
+    r = lambda *s, std: torch.randn(*s, generator=gen, device=dev) * std  # noqa: E731
+    return prepare_resblock_weights(
+        r(c, cpg, 3, 3, std=0.2), r(c, std=0.1),
+        r(4 * c, c, std=c**-0.5), r(4 * c, std=0.1),
+        r(4 * c, std=0.2), r(4 * c, std=0.2),
+        r(c, 4 * c, std=(4 * c) ** -0.5), r(c, std=0.1),
+        dtype,
+    )
+
+
+def phase_k1(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.kernels.resblock import fused_resblock, resblock_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    result = {"max_abs_err": 0.0}
+    for b, hh, ww, c, with_skip in RESBLOCK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            w = random_resblock(c, 2 if with_skip else 1, dtype, gen)
+            x = torch.randn(b, hh, ww, c, generator=gen, device="cuda").to(dtype)
+            skip = torch.randn(b, hh, ww, c, generator=gen, device="cuda").to(dtype) if with_skip else None
+            film = (torch.randn(b, 2 * c, generator=gen, device="cuda") * 0.2).to(dtype)
+            got = fused_resblock(x, w, film=film, skip=skip).float()
+            want = resblock_plain(x, w, film=film, skip=skip).float()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "K1 output not finite")
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            ms, plain_ms = alternate(
+                lambda: fused_resblock(x, w, film=film, skip=skip),
+                lambda: resblock_plain(x, w, film=film, skip=skip),
+            )
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            print(
+                f"[K1] fused_resblock ({b},{hh},{ww},{c}) skip={with_skip} {dname}: "
+                f"max_abs_err {err:.3e} rel {rel:.3e} (limit {'abs 1e-3' if dtype == torch.float32 else 'rel 2e-2'}); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({tag})"
+            )
+            if dtype == torch.float32:
+                check(err <= 1e-3, f"K1 f32 max abs error {err} > 1e-3")
+            else:
+                check(rel <= 2e-2, f"K1 bf16 relative error {rel} > 2e-2")
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                if (b, hh, ww, c, with_skip) == K1_SHAPE:
+                    result.update(ms=ms, plain_ms=plain_ms)
+    return result
+
+
+def phase_k2(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.kernels.sampling import (
+        fused_head_categorical,
+        hash_uniform,
+        head_categorical_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    seeds = torch.tensor([[0x9E3779B9, 12345]], dtype=torch.int64)
+    result = {}
+    k, c = 8192, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        fc = torch.randn(1, 64, 64, c, generator=gen, device="cuda").to(dtype)
+        fu = torch.randn(1, 64, 64, c, generator=gen, device="cuda").to(dtype)
+        w_out = (torch.randn(k, c, generator=gen, device="cuda") * (1.0 / k) ** 0.5).to(dtype)
+        args = (seeds, fc, fu, 8.0, w_out, 0.7)
+        got = fused_head_categorical(*args)
+        want = head_categorical_plain(*args)
+        torch.cuda.synchronize()
+        agree = (got == want).float().mean().item()
+        # size of the flips: the plain scores' gap between the two choices
+        f = (fc.float() * 8.0 + fu.float() * -7.0).to(dtype).float().reshape(-1, c)
+        score = (f @ w_out.float().t()) * (1 / 0.7) - torch.log(-torch.log(hash_uniform(seeds.cuda(), (64 * 64, k))[0]))
+        flips = (got != want).reshape(-1)
+        gap = 0.0
+        if flips.any():
+            rows = score[flips]
+            gap = (rows.gather(1, want.reshape(-1, 1)[flips].long()) - rows.gather(1, got.reshape(-1, 1)[flips].long())).abs().max().item()
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        ms, plain_ms = alternate(lambda: fused_head_categorical(*args), lambda: head_categorical_plain(*args))
+        print(
+            f"[K2] fused_head_categorical (1,64,64,{c})x({k},{c}) cfg 8 T 0.7 {dname}: "
+            f"tokens agree {agree:.6f} (limit 0.999), max score gap at flips {gap:.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({tag})"
+        )
+        check(agree >= 0.999, f"K2 {dname} token agreement {agree} < 0.999")
+        check(bool(((got >= 0) & (got < k)).all()), "K2 tokens out of range")
+        if dtype == torch.bfloat16:
+            result.update(agree=agree, max_abs_err=gap, ms=ms, plain_ms=plain_ms)
+        zero = torch.zeros_like(w_out)
+        z_args = (seeds, fc, fu, 8.0, zero, 0.7)
+        z_agree = (fused_head_categorical(*z_args) == head_categorical_plain(*z_args)).float().mean().item()
+        print(f"[K2] W_out = 0 (hash alone) {dname}: tokens agree {z_agree:.6f} (limit 0.9999) ({tag})")
+        check(z_agree >= 0.9999, f"K2 {dname} hash-only agreement {z_agree} < 0.9999")
+    return result
+
+
+def perturb_(module, gen, scale: float = 0.02) -> None:
+    """Add scale * N(0, 1) to every parameter: the zero-initialized clf and
+    FiLM mappers (and codec gammas) would otherwise make outputs trivial."""
+    import torch
+
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device=p.device, dtype=p.dtype) * scale)
+    if hasattr(module, "drop_derived"):
+        module.drop_derived()
+
+
+def build_flagship(gen):
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+
+    p_cfg = PaellaConfig.v1_byt5_xl_inference()
+    with torch.device("cuda"):
+        model = Paella(p_cfg)
+        vq = VQModel(dataclasses.replace(VQConfig(), dtype="bfloat16"))
+    model.reset_parameters(gen)
+    perturb_(model, gen)
+    vq.reset_parameters(gen)
+    perturb_(vq, gen)
+    # inference weights in bf16, as the JAX package's bench.py does
+    return model.to(torch.bfloat16).eval(), vq.to(torch.bfloat16).eval(), p_cfg
+
+
+def flagship_conditioning(p_cfg, gen):
+    import torch
+
+    from paella_tpu_torch.sampling import Conditioning
+
+    def r(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+
+    cond = Conditioning(byt5=r(1, BYT5_LEN, p_cfg.byt5_embd), clip=r(1, p_cfg.clip_embd), clip_image=r(1, p_cfg.clip_embd))
+    uncond = Conditioning(byt5=r(1, 2, p_cfg.byt5_embd), clip=r(1, p_cfg.clip_embd), clip_image=None)
+    return cond, uncond
+
+
+def to_uint8(img):
+    import torch
+
+    return (img.float().clamp(0, 1) * 255).to(torch.uint8)
+
+
+def phase_e2e(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.kernels import resblock as k_res
+    from paella_tpu_torch.kernels import sampling as k_samp
+    from paella_tpu_torch.sampling import sample
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model, vq, p_cfg = build_flagship(gen)
+    cond, uncond = flagship_conditioning(p_cfg, gen)
+    s_cfg = SampleConfig(steps=STEPS, categorical_impl="pallas")
+    torch.cuda.synchronize()
+    print(f"[e2e] flagship weights built on the card in {time.perf_counter() - t0:.1f} s")
+
+    def seeds_for(i: int):
+        return torch.tensor([[i, 0x5EED]], dtype=torch.int64)
+
+    counters = (k_res.fused_resblock, k_res.resblock_plain, k_samp.fused_head_categorical, k_samp.head_categorical_plain)
+    for fn in counters:
+        fn.launches = 0
+    tokens = sample(model, seeds_for(42), cond, LATENT, uncond, s_cfg)
+    img = vq.decode_indices(tokens)
+    image = to_uint8(img)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"[e2e] launches in one generation: {json.dumps(launches)}")
+    check(launches["fused_resblock"] == 56 * STEPS, f"K1 launched {launches['fused_resblock']} times, want {56 * STEPS}")
+    check(launches["fused_head_categorical"] == STEPS, f"K2 launched {launches['fused_head_categorical']} times, want {STEPS}")
+    check(launches["resblock_plain"] == 0 and launches["head_categorical_plain"] == 0, "a plain version ran on the card")
+    check(tuple(tokens.shape) == LATENT and tokens.dtype == torch.int32, f"tokens {tuple(tokens.shape)} {tokens.dtype}")
+    check(bool(((tokens >= 0) & (tokens < p_cfg.num_labels)).all()), "tokens out of [0, num_labels)")
+    check(bool(torch.isfinite(img.float()).all()), "decoded image not finite")
+    check(tuple(image.shape) == (1, 256, 256, 3) and image.dtype == torch.uint8, f"image {tuple(image.shape)} {image.dtype}")
+    n_distinct = int(torch.unique(tokens).numel())
+    print(f"[e2e] tokens {tuple(tokens.shape)} in [0, {p_cfg.num_labels}), {n_distinct} distinct; image {tuple(image.shape)} uint8, finite")
+    check(n_distinct > 1, "all tokens equal")
+
+    def generate(i):
+        return to_uint8(vq.decode_indices(sample(model, seeds_for(i), cond, LATENT, uncond, s_cfg))).cpu()
+
+    def sample_only(i):
+        return sample(model, seeds_for(i), cond, LATENT, uncond, s_cfg).cpu()
+
+    generate(1000)  # warm-up
+    e2e, samp = [], []
+    for i in range(TIMED_RUNS):
+        t1 = time.perf_counter()
+        generate(i)
+        e2e.append(time.perf_counter() - t1)
+    for i in range(TIMED_RUNS):
+        t1 = time.perf_counter()
+        sample_only(100 + i)
+        samp.append(time.perf_counter() - t1)
+    e2e_p50 = sorted(e2e)[TIMED_RUNS // 2] * 1e3
+    samp_p50 = sorted(samp)[TIMED_RUNS // 2] * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"[e2e] 256x256 text-to-image, {STEPS} steps CFG, batch 1, bf16: p50 end-to-end {e2e_p50:.2f} ms "
+        f"(min {min(e2e) * 1e3:.2f}, max {max(e2e) * 1e3:.2f}), p50 sampling only {samp_p50:.2f} ms "
+        f"(min {min(samp) * 1e3:.2f}, max {max(samp) * 1e3:.2f}) over {TIMED_RUNS} runs; "
+        f"peak device memory {peak:.1f} GiB ({tag})"
+    )
+    del model, vq
+    torch.cuda.empty_cache()
+    return {"launches": launches, "e2e_p50_ms": e2e_p50, "sample_p50_ms": samp_p50}
+
+
+def phase_small_reference(tag: str) -> None:
+    """A small f32 model and codec on the card (kernels) against the same
+    weights on the CPU (plain versions): features, tokens and image."""
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, SampleConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import Conditioning, sample
+
+    cfg = dataclasses.replace(
+        PaellaConfig.tiny(), c_in=32, c_out=32, c_hidden=(64, 128, 128), nhead=(-1, 4, 4), num_labels=256
+    )
+    gen = torch.Generator().manual_seed(3)
+    cpu = Paella(cfg)
+    cpu.reset_parameters(gen)
+    perturb_(cpu, gen, scale=0.05)
+    dev = Paella(cfg).cuda()
+    dev.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    cond = Conditioning(torch.randn(2, 6, cfg.byt5_embd, generator=g), torch.randn(2, cfg.clip_embd, generator=g),
+                        torch.randn(2, cfg.clip_embd, generator=g))
+    uncond = Conditioning(torch.randn(2, 3, cfg.byt5_embd, generator=g), torch.randn(2, cfg.clip_embd, generator=g))
+    x = torch.randint(0, cfg.num_labels, (2, 16, 16), generator=g)
+    r = torch.rand(2, generator=g)
+    f_cpu = cpu(x, r, cond.byt5, cond.clip, cond.clip_image, return_features=True)
+    f_dev = dev(x.cuda(), r.cuda(), cond.byt5.cuda(), cond.clip.cuda(), cond.clip_image.cuda(), return_features=True).cpu()
+    ferr = (f_cpu - f_dev).abs().max().item()
+    seeds = torch.tensor([[1, 2], [3, 4]])
+    s_cfg = SampleConfig(steps=4, temperature=(1.0, 0.5), cfg=(3.0, 3.0))
+    t_cpu = sample(cpu, seeds, cond, (2, 16, 16), uncond, s_cfg)
+    t_dev = sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg).cpu()
+    agree = (t_cpu == t_dev).float().mean().item()
+    vcfg = dataclasses.replace(VQConfig.tiny(), codebook_size=cfg.num_labels)
+    vq_cpu = VQModel(vcfg)
+    vq_cpu.reset_parameters(gen)
+    perturb_(vq_cpu, gen, scale=0.05)
+    vq_dev = VQModel(vcfg).cuda()
+    vq_dev.load_state_dict(vq_cpu.state_dict())
+    i_cpu = vq_cpu.decode_indices(t_cpu)
+    i_dev = vq_dev.decode_indices(t_cpu.cuda()).cpu()
+    ierr = (i_cpu - i_dev).abs().max().item()
+    print(
+        f"[e2e] small f32 model, card vs CPU: features max_abs_err {ferr:.3e} (limit 1e-3), 4-step CFG "
+        f"tokens agree {agree:.4f} (limit 0.95), decode max_abs_err {ierr:.3e} (limit 1e-3) ({tag})"
+    )
+    check(ferr <= 1e-3, f"small model features differ by {ferr}")
+    check(agree >= 0.95, f"small model tokens agree {agree} < 0.95")
+    check(ierr <= 1e-3, f"small codec decode differs by {ierr}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import paella_tpu_torch
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
+        return 1
+    if not os.path.abspath(paella_tpu_torch.__file__).startswith(os.path.join(REPO, "")):
+        print(f"chip_smoke: paella_tpu_torch comes from {paella_tpu_torch.__file__}, not this checkout", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = card()
+    build = phase_build(tag)
+    k1 = phase_k1(tag)
+    k2 = phase_k2(tag)
+    e2e = phase_e2e(tag)
+    phase_small_reference(tag)
+    kernels = [
+        {
+            "name": "fused_resblock", "route": "cuda", "source": "paella_tpu_torch/csrc/resblock.cu",
+            "replaces": "paella_tpu/kernels/resblock.py:316",
+            "launches": e2e["launches"]["fused_resblock"], "max_abs_err": k1["max_abs_err"],
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "shape": "x (2,16,16,1280) bf16 + FiLM",
+        },
+        {
+            "name": "fused_head_categorical", "route": "cuda", "source": "paella_tpu_torch/csrc/sampling.cu",
+            "replaces": "paella_tpu/kernels/sampling.py:151",
+            "launches": e2e["launches"]["fused_head_categorical"], "max_abs_err": k2["max_abs_err"],
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "shape": "feat (1,64,64,256) x2, W_out (8192,256) bf16",
+        },
+    ]
+    print(json.dumps({"kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"], "build_s": build["build_s"]}))
+    print(tag)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
