@@ -5,16 +5,26 @@
 
 Phases, one line each (every time printed beside the card's name and power
 limit):
-  1. build   compile both CUDA kernels (paella_tpu_torch/csrc) from source
-  2. K1      fused ResBlock(+FiLM) kernel against its plain torch version at
-             the flagship's shapes, f32 (TF32 off) and bf16
-  3. K2      fused sampling head against its plain torch version at the
-             flagship's shape, and with a zero head (tokens from the hash alone)
-  4. e2e     the flagship config (PaellaConfig.v1_byt5_xl_inference, seeded
-             random weights): 8-step CFG sampling at batch 1 and the codec
-             decode to a uint8 256x256 image, with launch counts, output checks
-             and p50 times; and a small f32 model and codec on the card against
-             the same model on the CPU (plain versions)
+  1. build     compile the three CUDA libraries (paella_tpu_torch/csrc:
+               resblock, sampling, quantize) from source, in parallel
+  2. K1        fused ResBlock(+FiLM) kernel against its plain torch version
+               at the flagship's shapes, f32 (TF32 off) and bf16
+  3. K2        fused sampling head against its plain torch version at the
+               flagship's shape, and with a zero head (tokens from the hash alone)
+  4. K3        Gumbel categorical against its plain version over flagship
+               logits (1,64,64,8192), bf16 and f32
+  5. K4        codebook lookup against its plain version at the codec's
+               encode shape, two codebooks
+  6. e2e       the flagship config (PaellaConfig.v1_byt5_xl_inference, seeded
+               random weights): 8-step CFG sampling through the fused head at
+               batch 1 and the codec decode to a uint8 256x256 image, with
+               launch counts, output checks and p50 times
+  7. pipeline  PaellaPipeline at the flagship width with VQConfig() and its
+               encoder: text_to_image (default SampleConfig, 12 steps, "xla"
+               route), img2img, inpaint, outpaint, interpolate and a phrase
+               reweight, each with its launch counts, output checks and p50
+  8. small     a small f32 model and codec on the card against the same
+               weights on the CPU (plain versions), encoder included
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed check raises; without a CUDA device
 the script exits non-zero and prints no result.
@@ -27,6 +37,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 8
@@ -40,6 +51,8 @@ RESBLOCK_SHAPES = [  # (B, H, W, C, skip): the flagship's CFG batch-2 levels
 ]
 K1_SHAPE = (2, 16, 16, 1280, False)  # 31 of the 56 calls per forward
 TIMED_RUNS = 5
+PIPELINE_RUNS = 3  # timed runs of each pipeline call, after its counted run
+LIBRARIES = ("resblock", "sampling", "quantize")
 
 
 class CheckFailed(RuntimeError):
@@ -84,14 +97,15 @@ def phase_build(tag: str) -> dict:
     from paella_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, all at once
+        paths = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
     regs = {}
-    for name in ("resblock", "sampling"):
-        path = _build.build(name)
+    for name, path in paths.items():
         _build.load_library(name)
         log = path.with_suffix(".log").read_text()
         regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     secs = time.perf_counter() - t0
-    print(f"[build] resblock.cu + sampling.cu built and loaded in {secs:.1f} s ({tag})")
+    print(f"[build] {' + '.join(n + '.cu' for n in LIBRARIES)} built and loaded in {secs:.1f} s ({tag})")
     for name, lines in regs.items():
         for ln in lines:
             print(f"[build]   {name}: {ln}")
@@ -202,6 +216,99 @@ def phase_k2(tag: str) -> dict:
     return result
 
 
+def score_gap(logits, seeds, got, want, temperature: float) -> float:
+    """The plain scores' largest gap between the two choices where the
+    kernel and the plain version picked different tokens (0.0 if none); one
+    image, seeds (1, 2)."""
+    import torch
+
+    from paella_tpu_torch.kernels.sampling import _f32_inv, hash_uniform
+
+    flips = (got != want).reshape(-1)
+    if not flips.any():
+        return 0.0
+    k = logits.shape[-1]
+    rows = logits.reshape(-1, k)[flips].float() * _f32_inv(temperature)
+    u = hash_uniform(seeds.to(logits.device), (logits.numel() // k, k))[0][flips]
+    score = rows - torch.log(-torch.log(u))
+    pick = lambda t: score.gather(1, t.reshape(-1, 1)[flips].long())  # noqa: E731
+    return (pick(want) - pick(got)).abs().max().item()
+
+
+def phase_k3(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.kernels.sampling import gumbel_categorical, gumbel_categorical_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    seeds = torch.tensor([[0x9E3779B9, 54321]], dtype=torch.int64)
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        logits = (torch.randn(1, 64, 64, 8192, generator=gen, device="cuda") * 2.0).to(dtype)
+        got = gumbel_categorical(seeds, logits, 0.7)
+        want = gumbel_categorical_plain(seeds, logits, 0.7)
+        torch.cuda.synchronize()
+        agree = (got == want).float().mean().item()
+        gap = score_gap(logits, seeds, got, want, 0.7)
+        ms, plain_ms = alternate(lambda: gumbel_categorical(seeds, logits, 0.7), lambda: gumbel_categorical_plain(seeds, logits, 0.7))
+        nbytes = logits.numel() * logits.element_size() + got.numel() * 4
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        print(
+            f"[K3] gumbel_categorical (1,64,64,8192) T 0.7 {dname}: tokens agree {agree:.6f} (limit 1.000000), "
+            f"max score gap at flips {gap:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"{nbytes / 1e6:.1f} MB moved, {nbytes / ms / 1e6:.1f} GB/s = {nbytes / ms / 3.35e9:.3f} of 3.35 TB/s HBM ({tag})"
+        )
+        check(agree == 1.0, f"K3 {dname} token agreement {agree} < 1")
+        check(bool(((got >= 0) & (got < 8192)).all()), "K3 tokens out of range")
+        if dtype == torch.bfloat16:
+            result.update(max_abs_err=gap, ms=ms, plain_ms=plain_ms)
+    return result
+
+
+def phase_k4(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
+    codebooks = {
+        "U(+-1/8192)": (torch.rand(8192, 4, generator=gen, device="cuda") * 2 - 1) / 8192,
+        "N(0,1)": torch.randn(8192, 4, generator=gen, device="cuda"),
+    }
+    result = {"max_abs_err": 0.0}
+    for name, cb in codebooks.items():
+        got, want = fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb)
+        torch.cuda.synchronize()
+        bad = (got != want).reshape(-1)
+        gap = 0.0
+        if bad.any():  # each mismatch must be a near-tie: distances (f64) within 1e-6 * max(1, |d|)
+            zz, cbd = z.reshape(-1, 4)[bad].double(), cb.double()
+
+            def dist(idx):
+                e = cbd[idx.reshape(-1)[bad].long()]
+                return (e * e).sum(-1) - 2 * (zz * e).sum(-1)
+
+            d_got, d_want = dist(got), dist(want)
+            gap = ((d_got - d_want).abs() / d_want.abs().clamp(min=1.0)).max().item()
+        ms, plain_ms = alternate(lambda: fused_codebook_lookup(z, cb), lambda: codebook_lookup_plain(z, cb))
+        nbytes = (z.numel() + cb.numel()) * 4 + got.numel() * (4 + 2 * 8)  # + the 64-bit merge words
+        flops = z.numel() // 4 * 8192 * 10
+        print(
+            f"[K4] fused_codebook_lookup z (1,64,64,4) vs {name} codebook (8192,4) f32: "
+            f"{int(bad.sum())} mismatches of 4096, max relative distance gap {gap:.3e} (limit 1e-6); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {nbytes / 1e6:.3f} MB moved "
+            f"({nbytes / ms / 3.35e9:.5f} of 3.35 TB/s), {flops / 1e9:.2f} GFLOP "
+            f"({flops / ms / 67e9:.3f} of 67 TFLOP/s f32) ({tag})"
+        )
+        check(gap <= 1e-6, f"K4 {name}: a mismatch is not a near-tie (gap {gap})")
+        check(bool(((got >= 0) & (got < 8192)).all()), "K4 indices out of range")
+        result["max_abs_err"] = max(result["max_abs_err"], gap)
+        if name == "N(0,1)":
+            result.update(ms=ms, plain_ms=plain_ms, mismatches=int(bad.sum()))
+    return result
+
+
 def perturb_(module, gen, scale: float = 0.02) -> None:
     """Add scale * N(0, 1) to every parameter: the zero-initialized clf and
     FiLM mappers (and codec gammas) would otherwise make outputs trivial."""
@@ -229,8 +336,13 @@ def build_flagship(gen):
     perturb_(model, gen)
     vq.reset_parameters(gen)
     perturb_(vq, gen)
-    # inference weights in bf16, as the JAX package's bench.py does
-    return model.to(torch.bfloat16).eval(), vq.to(torch.bfloat16).eval(), p_cfg
+    # inference weights in bf16, as the JAX package's bench.py does; the
+    # encoder's BatchNorm and the codebook stay f32, as the JAX codec keeps
+    # its statistics and its lookup in f32
+    vq = vq.to(torch.bfloat16)
+    vq.down_blocks[-1][1].float()
+    vq.vquantizer.float()
+    return model.to(torch.bfloat16).eval(), vq.eval(), p_cfg
 
 
 def flagship_conditioning(p_cfg, gen):
@@ -321,6 +433,115 @@ def phase_e2e(tag: str) -> dict:
     return {"launches": launches, "e2e_p50_ms": e2e_p50, "sample_p50_ms": samp_p50}
 
 
+def flagship_towers(p_cfg, gen):
+    """Seeded stand-ins for the text towers (not ported yet), on the card: a
+    table from byte ids to (B, S, byt5_embd) states, and CLIP-text features
+    summed from a table over each prompt's bytes."""
+    import torch
+
+    table = torch.randn(260, p_cfg.byt5_embd, generator=gen, device="cuda").to(torch.bfloat16)
+    text_proj = torch.randn(256, p_cfg.clip_embd, generator=gen, device="cuda") / 16
+
+    def byt5_encode_fn(ids, mask):
+        return table[ids.long()]
+
+    def clip_text_fn(prompts):
+        rows = [text_proj[torch.tensor(list(p.encode("utf-8")), dtype=torch.long, device="cuda")].sum(0) for p in prompts]
+        return torch.stack(rows).to(torch.bfloat16)
+
+    return byt5_encode_fn, clip_text_fn
+
+
+def phase_pipeline(tag: str) -> dict:
+    """PaellaPipeline's entry points at the flagship width, each run once with
+    every launch count set to 0 just before and read just after, then timed."""
+    import torch
+
+    from paella_tpu_torch import PaellaPipeline
+    from paella_tpu_torch.kernels import quantize as k_q
+    from paella_tpu_torch.kernels import resblock as k_res
+    from paella_tpu_torch.kernels import sampling as k_samp
+    from paella_tpu_torch.sampling.editing import reweight_for_phrase
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    model, vq, p_cfg = build_flagship(gen)
+    byt5_encode_fn, clip_text_fn = flagship_towers(p_cfg, gen)
+    pipe = PaellaPipeline(model, vq, byt5_encode_fn, clip_text_fn=clip_text_fn)
+    torch.cuda.synchronize()
+    print(f"[pipeline] flagship denoiser + VQConfig() codec (encoder included) built on the card in {time.perf_counter() - t0:.1f} s")
+    steps = 12  # SampleConfig() as users call it: 12 steps, cfg 8, the "xla" route
+    forward = 56 * steps
+    kernels = (k_res.fused_resblock, k_samp.fused_head_categorical, k_samp.gumbel_categorical, k_q.fused_codebook_lookup)
+    plains = (k_res.resblock_plain, k_samp.head_categorical_plain, k_samp.gumbel_categorical_plain, k_q.codebook_lookup_plain)
+    taps = []  # token grids on their way to the decoder
+    decode_clipped = pipe._decode_clipped
+    pipe._decode_clipped = lambda tokens: (taps.append(tokens), decode_clipped(tokens))[1]
+    prompt = "a red car on a beach"
+    result = {"calls": {}, "launches": {fn.__name__: 0 for fn in kernels}}
+
+    def seeds(i: int):
+        return torch.tensor([[i, 0xC0FFEE]], dtype=torch.int64)
+
+    def run(name, fn, expect: dict, shape: tuple):
+        for f in kernels + plains:
+            f.launches = 0
+        taps.clear()
+        out = fn(0)
+        torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in kernels + plains}
+        tokens = taps[0] if taps else None
+        times = []
+        for i in range(PIPELINE_RUNS):
+            t1 = time.perf_counter()
+            fn(1 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        p50 = sorted(times)[PIPELINE_RUNS // 2] * 1e3
+        ok = tuple(out.shape) == shape and bool(torch.isfinite(out).all()) and 0.0 <= out.min().item() and out.max().item() <= 1.0
+        print(
+            f"[pipeline] {name}: launches {json.dumps(launches)}; image {tuple(out.shape)} in [0, 1], finite: {ok}; "
+            f"p50 {p50:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) over {PIPELINE_RUNS} runs ({tag})"
+        )
+        check(ok, f"{name}: image {tuple(out.shape)} (want {shape}), finite and in [0, 1]")
+        for f in plains:
+            check(launches[f.__name__] == 0, f"{name}: {f.__name__} ran on the card")
+        for k, n in expect.items():
+            check(launches[k] == n, f"{name}: {k} launched {launches[k]} times, want {n}")
+        for f in kernels:
+            result["launches"][f.__name__] += launches[f.__name__]
+        result["calls"][name] = {"p50_ms": p50, "launches": {f.__name__: launches[f.__name__] for f in kernels}}
+        return out, tokens
+
+    gen_counts = {"fused_resblock": forward, "fused_head_categorical": 0, "gumbel_categorical": steps}
+    image, _ = run("text_to_image", lambda i: pipe.text_to_image([prompt], seeds(i)),
+                   {**gen_counts, "fused_codebook_lookup": 0}, (1, 256, 256, 3))
+    edited, _ = run("img2img strength 0.8", lambda i: pipe.img2img([prompt], image, seeds(i), strength=0.8),
+                    {**gen_counts, "fused_codebook_lookup": 1}, (1, 256, 256, 3))
+    tokens0 = pipe.encode_image_tokens(image)
+    keep = torch.zeros(1, 64, 64, dtype=torch.bool, device="cuda")
+    keep[:, :, :32] = True  # keep the left half
+    _, tokens = run("inpaint (left half kept)", lambda i: pipe.inpaint([prompt], image, keep, seeds(i)),
+                    {**gen_counts, "fused_codebook_lookup": 1}, (1, 256, 256, 3))
+    check(torch.equal(tokens[keep], tokens0[keep]), "inpaint: kept tokens differ from the encoded ones")
+    print(f"[pipeline] inpaint: the {int(keep.sum())} kept tokens equal the encoded tokens exactly")
+    _, tokens = run("outpaint 256x256 -> 256x384 at (0, 64)",
+                    lambda i: pipe.outpaint([prompt], image, (256, 384), (0, 64), seeds(i)),
+                    {**gen_counts, "fused_codebook_lookup": 1}, (1, 256, 384, 3))
+    check(tuple(tokens.shape) == (1, 64, 96) and torch.equal(tokens[:, :, 16:80], tokens0),
+          "outpaint: the placed region differs from the encoded tokens")
+    print("[pipeline] outpaint: canvas tokens (1, 64, 96), the placed 64x64 region equals the encoded tokens exactly")
+    frames, _ = run("interpolate n=4", lambda i: pipe.interpolate(image[0], edited[0], 4),
+                    {"fused_resblock": 0, "gumbel_categorical": 0, "fused_codebook_lookup": 3}, (4, 256, 256, 3))
+    rew = torch.from_numpy(reweight_for_phrase(prompt, "red", 3.0, byt5_len=64, has_clip=True))
+    reweighted, _ = run("text_to_image, 'red' x3", lambda i: pipe.text_to_image([prompt], seeds(i), cond_reweight=rew),
+                        {**gen_counts, "fused_codebook_lookup": 0}, (1, 256, 256, 3))
+    check(not torch.equal(reweighted, image), "the phrase reweight changed nothing")
+    del pipe, model, vq
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_small_reference(tag: str) -> None:
     """A small f32 model and codec on the card (kernels) against the same
     weights on the CPU (plain versions): features, tokens and image."""
@@ -364,12 +585,26 @@ def phase_small_reference(tag: str) -> None:
     i_dev = vq_dev.decode_indices(t_cpu.cuda()).cpu()
     ierr = (i_cpu - i_dev).abs().max().item()
     print(
-        f"[e2e] small f32 model, card vs CPU: features max_abs_err {ferr:.3e} (limit 1e-3), 4-step CFG "
+        f"[small] small f32 model, card vs CPU: features max_abs_err {ferr:.3e} (limit 1e-3), 4-step CFG "
         f"tokens agree {agree:.4f} (limit 0.95), decode max_abs_err {ierr:.3e} (limit 1e-3) ({tag})"
     )
     check(ferr <= 1e-3, f"small model features differ by {ferr}")
     check(agree >= 0.95, f"small model tokens agree {agree} < 0.95")
     check(ierr <= 1e-3, f"small codec decode differs by {ierr}")
+    # the encoder (BatchNorm statistics away from (0, 1)) and encode, K4 on the card
+    norm = vq_cpu.down_blocks[-1][1]
+    norm.running_mean.uniform_(-0.5, 0.5, generator=gen)
+    norm.running_var.uniform_(0.5, 2.0, generator=gen)
+    vq_dev.load_state_dict(vq_cpu.state_dict())
+    x = torch.rand(4, 128, 128, 3, generator=g)
+    zerr = (vq_cpu.encoder(x) - vq_dev.encoder(x.cuda()).cpu()).abs().max().item()
+    idx_agree = (vq_cpu.encode(x)[2] == vq_dev.encode(x.cuda())[2].cpu()).float().mean().item()
+    print(
+        f"[small] small f32 codec, card vs CPU: encoder z max_abs_err {zerr:.3e} (limit 1e-3), "
+        f"encode indices agree {idx_agree:.4f} of 4x32x32 (limit 0.999) ({tag})"
+    )
+    check(zerr <= 1e-3, f"small codec encoder differs by {zerr}")
+    check(idx_agree >= 0.999, f"small codec encode indices agree {idx_agree} < 0.999")
 
 
 def main() -> int:
@@ -396,23 +631,43 @@ def main() -> int:
     build = phase_build(tag)
     k1 = phase_k1(tag)
     k2 = phase_k2(tag)
+    k3 = phase_k3(tag)
+    k4 = phase_k4(tag)
     e2e = phase_e2e(tag)
+    pipe = phase_pipeline(tag)
     phase_small_reference(tag)
+    launches = {k: n + pipe["launches"].get(k, 0) for k, n in e2e["launches"].items()}
+    launches.update({k: n for k, n in pipe["launches"].items() if k not in launches})
     kernels = [
         {
             "name": "fused_resblock", "route": "cuda", "source": "paella_tpu_torch/csrc/resblock.cu",
             "replaces": "paella_tpu/kernels/resblock.py:316",
-            "launches": e2e["launches"]["fused_resblock"], "max_abs_err": k1["max_abs_err"],
+            "launches": launches["fused_resblock"], "max_abs_err": k1["max_abs_err"],
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "shape": "x (2,16,16,1280) bf16 + FiLM",
         },
         {
             "name": "fused_head_categorical", "route": "cuda", "source": "paella_tpu_torch/csrc/sampling.cu",
             "replaces": "paella_tpu/kernels/sampling.py:151",
-            "launches": e2e["launches"]["fused_head_categorical"], "max_abs_err": k2["max_abs_err"],
+            "launches": launches["fused_head_categorical"], "max_abs_err": k2["max_abs_err"],
             "ms": k2["ms"], "plain_ms": k2["plain_ms"], "shape": "feat (1,64,64,256) x2, W_out (8192,256) bf16",
         },
+        {
+            "name": "gumbel_categorical", "route": "cuda", "source": "paella_tpu_torch/csrc/sampling.cu",
+            "replaces": "paella_tpu/kernels/sampling.py:224",
+            "launches": launches["gumbel_categorical"], "max_abs_err": k3["max_abs_err"],
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "shape": "logits (1,64,64,8192) bf16",
+        },
+        {
+            "name": "fused_codebook_lookup", "route": "cuda", "source": "paella_tpu_torch/csrc/quantize.cu",
+            "replaces": "paella_tpu/kernels/quantize.py:53",
+            "launches": launches["fused_codebook_lookup"], "max_abs_err": k4["max_abs_err"],
+            "ms": k4["ms"], "plain_ms": k4["plain_ms"], "shape": "z (1,64,64,4) f32, codebook (8192,4) f32",
+        },
     ]
-    print(json.dumps({"kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"], "build_s": build["build_s"]}))
+    print(json.dumps({
+        "kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"],
+        "pipeline_p50_ms": {name: c["p50_ms"] for name, c in pipe["calls"].items()}, "build_s": build["build_s"],
+    }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

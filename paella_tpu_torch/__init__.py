@@ -10,7 +10,8 @@ from source on first use on a CUDA tensor.
 """
 
 from .config import PaellaConfig, SampleConfig, VQConfig
+from .pipeline import PaellaPipeline
 
 __version__ = "0.1.0"
 
-__all__ = ["PaellaConfig", "SampleConfig", "VQConfig", "__version__"]
+__all__ = ["PaellaConfig", "PaellaPipeline", "SampleConfig", "VQConfig", "__version__"]

@@ -1,11 +1,13 @@
-"""VQGAN f4 codec, decoder side: a 64x64 token grid -> 256x256x3 image, the
-counterpart of `paella_tpu/codec/vqgan.py` (decode_indices and decoder).
+"""VQGAN f4 codec: 256x256x3 image <-> 64x64 grid of tokens, the counterpart
+of `paella_tpu/codec/vqgan.py` (encoder, encode, decoder, decode,
+decode_indices).
 
 Parameters keep the reference torch model's names (src/vqgan.py:45-112), so a
-reference-layout state dict, encoder included, loads with `strict=True`. The
-encoder's parameters are declared for that reason; encoding itself is not
-ported yet (ROADMAP A4). No Pallas kernel runs on the decode path, so this is
-plain torch.
+reference-layout state dict loads with `strict=True`. The encoder ends in a
+BatchNorm evaluated with its running statistics in float32; its latents go to
+the quantizer (codec/quantize.py), whose nearest-code search is the port's
+CUDA kernel K4. The convolutions, blocks and decoder are plain torch: no
+Pallas kernel runs there in the JAX package either.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from torch import nn
 
 from ..config import VQConfig
 from ..nn import init
-from ..nn.functional import depth_to_space, gelu, layer_norm, replication_pad_2d
+from ..nn.functional import depth_to_space, gelu, layer_norm, replication_pad_2d, space_to_depth
+from .quantize import VectorQuantize
 
 
 def _lin(m: nn.Module, x: torch.Tensor, dt) -> torch.Tensor:
@@ -56,19 +59,13 @@ class VQResBlock(nn.Module):
         return x + h.float() * g[5]
 
 
-class _Quantizer(nn.Module):
-    """Holds the reference's `vquantizer.codebook.weight` (K, c_latent)."""
-
-    def __init__(self, c: int, k: int):
-        super().__init__()
-        self.codebook = nn.Embedding(k, c)
-
-    def idx2vq(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.codebook.weight[idx.long()]
-
-
 class VQModel(nn.Module):
-    """f4 codec (reference: src/vqgan.py:45-112); decode_indices and decoder."""
+    """f4 codec (reference: src/vqgan.py:45-112).
+
+      encode(x)          -> (qe/scale, z/scale, indices, vq_loss + 0.25*commit)
+      decode(z)          -> image from continuous (scaled) latents
+      decode_indices(ix) -> image from a token grid
+    """
 
     def __init__(self, config: VQConfig):
         super().__init__()
@@ -77,7 +74,7 @@ class VQModel(nn.Module):
         c_levels = [cfg.c_hidden // (2**i) for i in reversed(range(cfg.levels))]
         self.c_levels = c_levels
 
-        # -- encoder parameters (forward not ported yet) --
+        # -- encoder --
         self.in_block = nn.Sequential(nn.Identity(), nn.Conv2d(3 * 4, c_levels[0], kernel_size=1))
         down = []
         for i in range(cfg.levels):
@@ -91,7 +88,7 @@ class VQModel(nn.Module):
             )
         )
         self.down_blocks = nn.Sequential(*down)
-        self.vquantizer = _Quantizer(cfg.c_latent, cfg.codebook_size)
+        self.vquantizer = VectorQuantize(cfg.c_latent, cfg.codebook_size)
 
         # -- decoder --
         up = [nn.Sequential(nn.Conv2d(cfg.c_latent, c_levels[-1], kernel_size=1))]
@@ -108,8 +105,9 @@ class VQModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """The JAX package's decoder init and codebook U(+-1/K), from `gen`
-        (encoder parameters keep torch's defaults: encode is not ported)."""
+        """The JAX package's init (paella_tpu/codec/vqgan.py:103-175), drawn
+        from `gen`: decoder, codebook U(+-1/K), then encoder; BatchNorm at
+        scale 1, bias 0 and running statistics (0, 1)."""
         cfg = self.config
         from_latent = self.up_blocks[0][0]
         init.kaiming_uniform_leaky_(from_latent.weight, gen)
@@ -123,10 +121,50 @@ class VQModel(nn.Module):
         out = self.out_block[0]
         init.kaiming_uniform_leaky_(out.weight, gen)
         init.torch_default_bias_(out.bias, self.c_levels[0], gen)
-        init.uniform_(self.vquantizer.codebook.weight, 1.0 / cfg.codebook_size, gen)
+        self.vquantizer.reset_parameters(gen)
+        in_conv = self.in_block[1]
+        init.kaiming_uniform_leaky_(in_conv.weight, gen)
+        init.torch_default_bias_(in_conv.bias, 3 * 4, gen)
+        for m in self.down_blocks[:-1]:
+            if isinstance(m, VQResBlock):
+                m.reset_parameters(gen)
+            else:  # the stride-2 4x4 conv
+                init.kaiming_uniform_leaky_(m.weight, gen)
+                init.torch_default_bias_(m.bias, m.in_channels * 4 * 4, gen)
+        to_latent, norm = self.down_blocks[-1]
+        init.kaiming_uniform_leaky_(to_latent.weight, gen)
+        norm.reset_parameters()
 
+    @torch.no_grad()
+    def encoder(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) image -> (B, H/f, W/f, c_latent) float32 pre-quantization
+        latents, f = config.downscale; BatchNorm in eval mode (running
+        statistics, eps 1e-5)."""
+        dt = self.config.compute_dtype
+        h = _lin(self.in_block[1], space_to_depth(x.to(dt), 2), dt)
+        for m in self.down_blocks[:-1]:
+            if isinstance(m, VQResBlock):
+                h = m(h)
+            else:
+                y = F.conv2d(
+                    h.to(dt).permute(0, 3, 1, 2), m.weight.to(dt), m.bias.to(dt),
+                    stride=m.stride, padding=m.padding,
+                )
+                h = y.permute(0, 2, 3, 1)
+        to_latent, norm = self.down_blocks[-1]
+        h = _lin(to_latent, h, dt).float()
+        # flax BatchNorm's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        mul = torch.rsqrt(norm.running_var.float() + norm.eps) * norm.weight.float()
+        return (h - norm.running_mean.float()) * mul + norm.bias.float()
+
+    @torch.no_grad()
     def encode(self, x: torch.Tensor):
-        raise NotImplementedError("the codec encoder is not ported yet (ROADMAP A4)")
+        """Image -> (qe / s, z / s, indices, vq_loss + 0.25 * commit_loss), s the
+        scale_factor (reference: src/vqgan.py:91-95)."""
+        z = self.encoder(x)
+        qe, (vq_loss, commit_loss), idx = self.vquantizer.quantize(z)
+        s = self.config.scale_factor
+        return qe / s, z / s, idx, vq_loss + commit_loss * 0.25
 
     @torch.no_grad()
     def decoder(self, z: torch.Tensor) -> torch.Tensor:
@@ -143,6 +181,10 @@ class VQModel(nn.Module):
                 )
                 h = y.permute(0, 2, 3, 1)
         return depth_to_space(_lin(self.out_block[0], h, dt), 2)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Continuous (scaled) latents -> image (reference: src/vqgan.py:97-101)."""
+        return self.decoder(z * self.config.scale_factor)
 
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Token grid (B, h, w) -> image (reference: src/vqgan.py:103-107).

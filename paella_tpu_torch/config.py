@@ -6,11 +6,16 @@ Fields that steer TPU-only workarounds or training are kept so that configs
 stay interchangeable, but the port reads none of them: `remat`,
 `remat_levels`, `attention_impl`, `attn_block_kernel`, `attn_qkvo_2d`,
 `split_skip_levels`, `act_quant`, `fused_blocks` (PaellaConfig),
-`lookup_impl` (VQConfig), `categorical_impl` and `cond_cache`
-(SampleConfig). The port has one path: every ResBlock(+FiLM) pair goes
-through kernels/resblock.py and every sampling step through
-kernels/sampling.py, whose wrappers launch the CUDA kernel on a CUDA tensor
-and take the plain torch version only on a CPU tensor.
+`lookup_impl` (VQConfig) and `cond_cache` (SampleConfig). Where the JAX
+package chooses between its XLA path and a Pallas kernel there, the port has
+one path: every ResBlock(+FiLM) pair goes through kernels/resblock.py and
+every codebook lookup through kernels/quantize.py, whose wrappers launch the
+CUDA kernel on a CUDA tensor and take the plain torch version only on a CPU
+tensor. `SampleConfig.categorical_impl` IS read, because its two routes draw
+from differently rounded logits: "pallas" takes the fused head
+(kernels/sampling.py::fused_head_categorical, f32 logits), "xla" the head
+product in the compute dtype and then the Gumbel kernel
+(kernels/sampling.py::gumbel_categorical), as the JAX sampler does.
 """
 from __future__ import annotations
 
@@ -95,7 +100,7 @@ class VQConfig:
     codebook_size: int = 8192
     scale_factor: float = 0.3764
     dtype: str = "float32"
-    lookup_impl: str = "xla"  # inert: the encoder is not ported yet
+    lookup_impl: str = "xla"  # inert: every lookup takes kernels/quantize.py
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -127,7 +132,7 @@ class SampleConfig:
     t_start: float = 1.0
     t_end: float = 0.0
     sampling_conditional_steps: Optional[int] = None
-    categorical_impl: str = "xla"  # inert: the fused head is the only path
+    categorical_impl: str = "xla"  # "xla": head product + Gumbel kernel; "pallas": fused head
     cond_cache: bool = True  # inert: the port always builds the cond cache
 
     def resolved(self) -> "SampleConfig":

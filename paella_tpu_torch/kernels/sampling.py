@@ -1,16 +1,19 @@
-"""Fused sampling head — the port of the Pallas kernel
-`paella_tpu/kernels/sampling.py::fused_head_categorical` — and the per-image
-counter hash the sampler draws all its randomness from.
+"""The sampler's two kernels — the fused sampling head (the port of the Pallas
+kernel `paella_tpu/kernels/sampling.py::fused_head_categorical`) and the
+Gumbel categorical over materialized logits (`::gumbel_categorical`) — and
+the per-image counter hash the sampler draws all its randomness from.
 
 tokens = argmax_k((mix(feat) @ W_out^T)_k / T + G_k), G = -log(-log(U)): the
 Gumbel reparameterization of categorical(softmax(logits / T)). U comes from
 the murmur3 counter hash of (image-local row * K + k) and the image's seed
 pair, so each image's draw depends on its own seeds only.
 
-`fused_head_categorical` launches the CUDA kernel (csrc/sampling.cu) on CUDA
-tensors and runs `head_categorical_plain` on CPU tensors only. Both keep the
-logits in f32 (like the JAX kernel, which differs there from the JAX XLA head
-that rounds logits to the compute dtype; at f32 the two are the same).
+`fused_head_categorical` and `gumbel_categorical` launch their CUDA kernels
+(csrc/sampling.cu) on CUDA tensors and run `head_categorical_plain` /
+`gumbel_categorical_plain` on CPU tensors only. The fused head keeps the
+logits in f32 (like the JAX kernel); the sampler's "xla" route rounds them to
+the compute dtype first, as the JAX XLA head does, and then draws with
+`gumbel_categorical`. At f32 the two routes are the same.
 
 The hash is uint32 arithmetic. torch has no uint32 shift on the CPU, so the
 plain hash runs in int64 and masks to 32 bits after every multiply, xor and
@@ -63,11 +66,17 @@ def hash_uniform(seeds: torch.Tensor, shape: tuple) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (2.0**-24) + (2.0**-25)
 
 
+def _f32_inv(temperature: float) -> float:
+    """1 / T rounded as f32 arithmetic (as the JAX kernels form it from an f32
+    scalar), so a kernel and its plain version share it."""
+    return float(np.float32(1.0) / np.float32(temperature))
+
+
 def _f32_scalars(cfg_weight: float, temperature: float) -> tuple[float, float, float]:
     """w, 1 - w and 1 / T rounded as f32 arithmetic (as the JAX kernel forms
     them from f32 scalars), so the kernel and the plain version share them."""
     w = np.float32(cfg_weight)
-    return float(w), float(np.float32(1.0) - w), float(np.float32(1.0) / np.float32(temperature))
+    return float(w), float(np.float32(1.0) - w), _f32_inv(temperature)
 
 
 def head_categorical_plain(
@@ -134,7 +143,7 @@ def fused_head_categorical(
         raise ValueError(f"fused_head_categorical: seeds {tuple(seeds.shape)} do not split {m} rows")
     if feat_u is not None and (feat_u.shape != feat_c.shape or feat_u.dtype != dt):
         raise ValueError("fused_head_categorical: feat_u must match feat_c")
-    seeds32 = (seeds.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).to(feat_c.device).contiguous()
+    seeds32 = (seeds.to(torch.int64) & _M32).to(torch.int32).to(feat_c.device).contiguous()
     operands = {"feat_c": feat_c, "feat_u": feat_u, "w_out": w_out}
     for name, t in operands.items():
         if t is None:
@@ -158,15 +167,78 @@ def fused_head_categorical(
 fused_head_categorical.launches = 0
 
 
+def gumbel_categorical_plain(seeds: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The Gumbel kernel's computation in torch ops. seeds (n_img, 2) uint32
+    values (any integer dtype); logits (..., K) float32 or bfloat16, whose
+    rows split evenly into n_img images, each drawing with image-local
+    counter indices. score = f32(logit) * f32(1/T) + (-log(-log u)); returns
+    the (...) int32 argmax, the first index on ties."""
+    gumbel_categorical_plain.launches += 1
+    orig = logits.shape[:-1]
+    k = logits.shape[-1]
+    flat = logits.reshape(-1, k).float()
+    m = flat.shape[0]
+    n_img = seeds.shape[0]
+    inv_temp = _f32_inv(temperature)
+    u = hash_uniform(seeds.to(logits.device), (m // n_img, k)).reshape(m, k)
+    score = flat * inv_temp + (-torch.log(-torch.log(u)))
+    return torch.argmax(score, dim=-1).to(torch.int32).reshape(orig)
+
+
+gumbel_categorical_plain.launches = 0
+
+
+def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """tokens ~ categorical(softmax(logits / T)) by the Gumbel argmax with the
+    per-image counter hash: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor. Arguments as for :func:`gumbel_categorical_plain`."""
+    if logits.device.type == "cpu":
+        return gumbel_categorical_plain(seeds, logits, temperature)
+    if logits.device.type != "cuda":
+        raise ValueError(f"gumbel_categorical: no kernel for device {logits.device}")
+    dt = logits.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gumbel_categorical: dtype {dt} (kernel takes float32 or bfloat16)")
+    orig = logits.shape[:-1]
+    k = logits.shape[-1]
+    m = logits.numel() // k if k else 0
+    n_img = seeds.shape[0]
+    if k == 0 or k % (16 // logits.element_size()) or not logits.is_contiguous() or logits.data_ptr() % 16:
+        raise ValueError(
+            f"gumbel_categorical: logits must be contiguous and 16-byte aligned with K={k} "
+            "a multiple of 8 (bf16) or 4 (f32)"
+        )
+    if seeds.shape != (n_img, 2) or n_img == 0 or m == 0 or m % n_img:
+        raise ValueError(f"gumbel_categorical: seeds {tuple(seeds.shape)} do not split {m} rows")
+    seeds32 = (seeds.to(torch.int64) & _M32).to(torch.int32).to(logits.device).contiguous()
+    inv_temp = _f32_inv(temperature)
+    out = torch.empty(m, dtype=torch.int32, device=logits.device)
+    rc = _library().paella_gumbel_categorical(
+        logits.data_ptr(), seeds32.data_ptr(), inv_temp, out.data_ptr(), m, k, m // n_img,
+        int(dt == torch.bfloat16), stream_handle(logits),
+    )
+    check_rc(rc, "gumbel_categorical")
+    gumbel_categorical.launches += 1
+    return out.reshape(orig)
+
+
+gumbel_categorical.launches = 0
+
+
 def _library() -> ctypes.CDLL:
     lib = load_library("sampling")
-    fn = lib.paella_head_categorical
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [
+    head, gumbel = lib.paella_head_categorical, lib.paella_gumbel_categorical
+    if head.restype is not ctypes.c_int or not head.argtypes:
+        head.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
-        fn.restype = ctypes.c_int
+        head.restype = ctypes.c_int
+        gumbel.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        gumbel.restype = ctypes.c_int
     return lib

@@ -1,3 +1,3 @@
-from .sampler import Conditioning, derive_seeds, merge_cfg_pair, sample
+from .sampler import Conditioning, derive_seeds, interpolate_latents, merge_cfg_pair, outpaint_canvas, sample
 
-__all__ = ["Conditioning", "derive_seeds", "merge_cfg_pair", "sample"]
+__all__ = ["Conditioning", "derive_seeds", "interpolate_latents", "merge_cfg_pair", "outpaint_canvas", "sample"]

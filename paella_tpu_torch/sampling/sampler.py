@@ -1,5 +1,7 @@
 """Iterative renoising sampler with classifier-free guidance, the counterpart
-of `paella_tpu/sampling/sampler.py::sample` in its per-image mode.
+of `paella_tpu/sampling/sampler.py::sample` in its per-image mode, with the
+editing inputs (`init_x`, `fixed_mask`/`fixed_tokens`, `cond_reweight`) and
+the latent helpers `interpolate_latents` and `outpaint_canvas`.
 
 Every random draw comes from the per-image counter hash
 (kernels/sampling.py), keyed by each image's (2,) uint32 seed pair — the
@@ -8,10 +10,17 @@ an image's tokens depend on its own seeds only, and the port's tokens can be
 held token for token against the JAX package given the same seed pairs.
 
 Per step: one batch-2B forward (cond and uncond merged by masks) returning
-the pre-head features; the fused head kernel mixes CFG, projects, applies the
-temperature and draws a Gumbel argmax; then the tokens are renoised toward the
-fixed init noise. The schedules are plain values, so changing a cfg weight or
-a temperature changes no compiled or captured state.
+the pre-head features (batch B, conditional inputs only, past
+`sampling_conditional_steps`); then the head and draw by
+`SampleConfig.categorical_impl`, as in the JAX package:
+  "pallas"  the fused head kernel mixes CFG, projects, applies the
+            temperature and draws a Gumbel argmax, with f32 logits;
+  "xla"     (the default) the CFG mix in f32, the head as a product in the
+            compute dtype (its logits rounded to it, as the JAX XLA head's
+            are), then the Gumbel kernel over those logits;
+then the tokens are renoised toward the fixed init noise, and pinned positions
+are reset. The schedules are plain values, so changing a cfg weight or a
+temperature changes no compiled or captured state.
 """
 from __future__ import annotations
 
@@ -23,12 +32,17 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SampleConfig
-from ..kernels.sampling import fused_head_categorical
+from ..kernels.quantize import fused_codebook_lookup
+from ..kernels.sampling import fused_head_categorical, gumbel_categorical
 from ..kernels.sampling import hash_bits as _hash_bits
 from ..kernels.sampling import hash_uniform as _hash_uniform
 from ..kernels.sampling import mix32 as _mix32
 
 _M32 = 0xFFFFFFFF
+# draw tags of derive_seeds: 0 init noise, 1 categorical, 2 renoise (the JAX
+# sampler's); 3 the outpainting canvas, which the JAX package draws from
+# jax.random instead
+_CANVAS_TAG = 3
 
 
 @dataclasses.dataclass
@@ -116,6 +130,34 @@ def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
     return np.linspace(np.float32(start), np.float32(stop), num, dtype=np.float64).astype(np.float32)
 
 
+def draw_tokens(
+    categorical_impl: str,
+    seeds: torch.Tensor,
+    feat_c: torch.Tensor,
+    feat_u: Optional[torch.Tensor],
+    cfg_weight: float,
+    w_out: torch.Tensor,
+    temperature: float,
+) -> torch.Tensor:
+    """One step's head and categorical draw from the pre-head features
+    (B, h, w, C) (feat_u None: no CFG mix), w_out (K, C) in the compute
+    dtype; (B, h, w) int32 tokens, by the JAX sampler's two routes
+    (paella_tpu/sampling/sampler.py:401-426):
+      "pallas"  the fused head kernel, f32 logits;
+      "xla"     the CFG mix in f32, the head product in the compute dtype (the
+                JAX XLA head's rounding point, sampler.py:361-362), then the
+                Gumbel kernel over those logits.
+    """
+    if categorical_impl == "pallas":
+        return fused_head_categorical(seeds, feat_c, feat_u, cfg_weight, w_out, temperature)
+    feat = feat_c
+    if feat_u is not None:
+        w = np.float32(cfg_weight)  # f32, as the JAX sampler's traced weight and 1 - w
+        feat = feat_c.float() * float(w) + feat_u.float() * float(np.float32(1.0) - w)
+    logits = torch.matmul(feat.to(w_out.dtype), w_out.t())
+    return gumbel_categorical(seeds, logits, temperature)
+
+
 def sample(
     model: Any,
     seeds: torch.Tensor,
@@ -131,14 +173,12 @@ def sample(
     """Generate a (B, h, w) int32 token grid on the model's device.
 
     seeds: (B, 2) uint32 values (any integer dtype), one seed pair per image.
-    CFG runs when both `unconditional` and config.cfg are given.
+    CFG runs when both `unconditional` and config.cfg are given, for the first
+    config.sampling_conditional_steps steps. init_x (B, h, w) is the img2img
+    start (with config.t_start the strength); fixed_mask (B, h, w) bool pins
+    fixed_tokens where True, at the start and after every step; cond_reweight
+    (B or 1, S_cond) multiplies the attention paid to each conditioning token.
     """
-    if init_x is not None:
-        raise NotImplementedError("init_x (img2img) is not ported yet (ROADMAP A5)")
-    if fixed_mask is not None or fixed_tokens is not None:
-        raise NotImplementedError("fixed_mask / fixed_tokens (inpainting) are not ported yet (ROADMAP A5)")
-    if cond_reweight is not None:
-        raise NotImplementedError("cond_reweight through the sampler is not ported yet (ROADMAP A7)")
     cfg = config.resolved()
     b, h, w = latent_shape
     mcfg = model.config
@@ -150,11 +190,12 @@ def sample(
         )
     if tuple(seeds.shape) != (b, 2):
         raise ValueError(f"seeds must be ({b}, 2), got {tuple(seeds.shape)}")
+    if (fixed_mask is None) != (fixed_tokens is None):
+        raise ValueError("fixed_mask and fixed_tokens must be passed together")
+    if cfg.categorical_impl not in ("xla", "pallas"):
+        raise ValueError(f"categorical_impl {cfg.categorical_impl!r}: 'xla' or 'pallas'")
     do_cfg = cfg.cfg is not None and unconditional is not None
-    if do_cfg and cfg.sampling_conditional_steps < cfg.steps:
-        raise NotImplementedError(
-            "a sampling_conditional_steps cutoff below steps is not ported yet (ROADMAP A5)"
-        )
+    n_cfg = min(cfg.sampling_conditional_steps, cfg.steps) if do_cfg else 0
     device = model.head_weight().device
     seeds = seeds.to(device=device, dtype=torch.int64) & _M32
 
@@ -168,33 +209,85 @@ def sample(
     temperatures = linspace_f32(*cfg.temperature, cfg.steps)
     cfgs = linspace_f32(*(cfg.cfg if do_cfg else (0.0, 0.0)), cfg.steps)
 
-    merged = merge_cfg_pair(conditioning, unconditional) if do_cfg else conditioning
-    merged = merged.to(device)
-    cache = model.gen_cond_cache(
-        merged.byt5, merged.clip, merged.clip_image,
-        byt5_mask=merged.byt5_mask, clip_mask=merged.clip_mask,
-        clip_image_mask=merged.clip_image_mask,
-    )
+    def cond_cache(c: Conditioning) -> dict:
+        c = c.to(device)
+        return model.gen_cond_cache(
+            c.byt5, c.clip, c.clip_image,
+            byt5_mask=c.byt5_mask, clip_mask=c.clip_mask, clip_image_mask=c.clip_image_mask,
+        )
+
+    # the cond-only phase past the cutoff runs batch B on the conditional
+    # inputs alone, with its own cache (built only when that phase has steps)
+    cache_cfg = cond_cache(merge_cfg_pair(conditioning, unconditional)) if n_cfg > 0 else None
+    cache_cond = cond_cache(conditioning) if n_cfg < cfg.steps else None
+    if cond_reweight is not None:
+        cond_reweight = cond_reweight.to(device=device, dtype=torch.float32)
     w_out = model.head_weight()
 
-    sampled = init_noise
+    sampled = init_noise if init_x is None else init_x.to(device=device, dtype=torch.int32)
+    if fixed_mask is not None:
+        fixed_mask = fixed_mask.to(device=device, dtype=torch.bool)
+        fixed_tokens = fixed_tokens.to(device=device, dtype=torch.int32)
+        sampled = torch.where(fixed_mask, fixed_tokens, sampled)
     for i in range(cfg.steps):
         t = torch.full((b,), float(t_list[i]), dtype=torch.float32, device=device)
-        if do_cfg:
+        if i < n_cfg:
             feats = model(
                 torch.cat([sampled, sampled]), torch.cat([t, t]),
-                return_features=True, cond_cache=cache,
+                cond_reweight=cond_reweight, return_features=True, cond_cache=cache_cfg,
             )
             feat_c, feat_u = feats[:b].contiguous(), feats[b:].contiguous()
         else:
-            feat_c = model(sampled, t, return_features=True, cond_cache=cache).contiguous()
+            feat_c = model(
+                sampled, t, cond_reweight=cond_reweight, return_features=True, cond_cache=cache_cond,
+            ).contiguous()
             feat_u = None
-        tokens = fused_head_categorical(
-            cat_seeds[i], feat_c, feat_u, float(cfgs[i]), w_out, float(temperatures[i])
+        tokens = draw_tokens(
+            cfg.categorical_impl, cat_seeds[i], feat_c, feat_u, float(cfgs[i]), w_out, float(temperatures[i])
         )
         if i < cfg.renoise_steps:
             # renoise toward the SAME init noise (src_distributed/utils.py:123-125)
             u = _hash_uniform(noise_seeds[i], (h, w))
             tokens = torch.where(u <= float(t_list[i + 1]), init_noise, tokens)
+        if fixed_mask is not None:
+            tokens = torch.where(fixed_mask, fixed_tokens, tokens)
         sampled = tokens
     return sampled
+
+
+def interpolate_latents(
+    idx_a: torch.Tensor, idx_b: torch.Tensor, codebook: torch.Tensor, alphas: torch.Tensor
+) -> torch.Tensor:
+    """Latent interpolation between two token grids (a reference-notebook
+    capability, readme.md:41): embed both grids with the codebook, lerp, and
+    re-quantize each blend to the nearest code (kernel K4).
+
+    idx_a/idx_b: (h, w) int. alphas: (n,) in [0, 1]. Returns (n, h, w) int32.
+    """
+    cb = codebook.float()
+    za, zb = cb[idx_a.long()], cb[idx_b.long()]
+    a = alphas.to(device=cb.device, dtype=torch.float32)[:, None, None, None]
+    blends = za[None] * (1 - a) + zb[None] * a
+    return fused_codebook_lookup(blends.contiguous(), cb.contiguous())
+
+
+def outpaint_canvas(
+    tokens: torch.Tensor, canvas_hw: tuple[int, int], offset: tuple[int, int], num_labels: int,
+    seeds: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Build (init_x, fixed_mask) for outpainting: place `tokens` (B, h, w) on
+    a canvas of random tokens at `offset`; the placed region is pinned every
+    step. The canvas comes from each image's seed pair (B, 2) under a draw tag
+    of its own; the JAX package draws it from jax.random, a stream the port
+    cannot reproduce, so the canvas matches it in distribution only."""
+    b, h, w = tokens.shape
+    ch, cw = canvas_hw
+    oy, ox = offset
+    dev = tokens.device
+    seeds = seeds.to(device=dev, dtype=torch.int64) & _M32
+    canvas_seeds = derive_seeds(seeds, _CANVAS_TAG, torch.zeros(1, dtype=torch.int64, device=dev))[0]
+    canvas = (_hash_bits(canvas_seeds, (ch, cw)) % num_labels).to(torch.int32)
+    canvas[:, oy : oy + h, ox : ox + w] = tokens.to(torch.int32)
+    mask = torch.zeros((b, ch, cw), dtype=torch.bool, device=dev)
+    mask[:, oy : oy + h, ox : ox + w] = True
+    return canvas, mask

@@ -9,8 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
 from paella_tpu_torch.kernels.resblock import fused_resblock, prepare_resblock_weights, resblock_plain
-from paella_tpu_torch.kernels.sampling import fused_head_categorical, head_categorical_plain
+from paella_tpu_torch.kernels.sampling import (
+    fused_head_categorical,
+    gumbel_categorical,
+    gumbel_categorical_plain,
+    head_categorical_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,3 +67,26 @@ def test_head_kernel_matches_plain(cuda, dtype, with_cfg):
     got, want = fused_head_categorical(*args), head_categorical_plain(*args)
     assert got.dtype == torch.int32 and got.shape == (2, 16, 16)
     assert (got == want).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 512), (3, 5, 7, 200)])  # two images / a ragged row count
+def test_gumbel_kernel_matches_plain(cuda, dtype, shape):
+    """The same hash bits and score rounding: tokens equal."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    logits = (torch.randn(*shape, generator=g, device=cuda) * 3.0).to(dtype)
+    seeds = torch.tensor(np.array([[5, 0xDEADBEEF], [0xFFFFFFFF, 7], [1, 2]][: shape[0]], np.int64))
+    got, want = gumbel_categorical(seeds, logits, 0.7), gumbel_categorical_plain(seeds, logits, 0.7)
+    assert got.dtype == torch.int32 and got.shape == shape[:-1]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,k", [(4096, 8192), (1000, 300), (7, 1)])
+def test_codebook_lookup_kernel_matches_plain(cuda, m, k):
+    """Sequential round-to-nearest sums in both: indices equal."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    z = torch.randn(m, 4, generator=g, device=cuda)
+    cb = torch.randn(k, 4, generator=g, device=cuda)
+    got, want = fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb)
+    assert got.dtype == torch.int32 and got.shape == (m,)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
