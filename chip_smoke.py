@@ -5,10 +5,12 @@
 
 Phases, one line each (every time printed beside the card's name and power
 limit):
-  1. build     compile the three CUDA libraries (paella_tpu_torch/csrc:
-               resblock, sampling, quantize) from source, in parallel
+  1. build     compile the five CUDA libraries (paella_tpu_torch/csrc:
+               resblock, sampling, quantize, attention, attn_block) from
+               source, in parallel
   2. K1        fused ResBlock(+FiLM) kernel against its plain torch version
-               at the flagship's shapes, f32 (TF32 off) and bf16
+               at the flagship's shapes, f32 (TF32 off) and bf16, and two runs
+               bitwise equal
   3. K2        fused sampling head against its plain torch version at the
                flagship's shape, and with a zero head (tokens from the hash alone)
   4. K3        Gumbel categorical against its plain version over flagship
@@ -25,6 +27,18 @@ limit):
                reweight, each with its launch counts, output checks and p50
   8. small     a small f32 model and codec on the card against the same
                weights on the CPU (plain versions), encoder included
+  9. K5, K6    fused attention core and fused attention block against their
+               plain versions at the flagship's level-1 and level-2 shapes,
+               bf16 and f32, and two runs bitwise equal
+ 10. attn e2e  the flagship config with attention_impl="pallas" and
+               attn_block_kernel=True: one forward's launch counts and
+               features against the same weights' plain-attention forward,
+               then 8-step CFG sampling and decode, with launch counts and
+               p50s beside the plain-attention config's
+ 11. serve     PaellaServer at the attention config on 127.0.0.1: /healthz,
+               single requests whose PNGs equal the pipeline's images, a
+               repeated request byte-identical, a micro-batch of three
+               concurrent requests against the single path, HTTP p50
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed check raises; without a CUDA device
 the script exits non-zero and prints no result.
@@ -52,7 +66,15 @@ RESBLOCK_SHAPES = [  # (B, H, W, C, skip): the flagship's CFG batch-2 levels
 K1_SHAPE = (2, 16, 16, 1280, False)  # 31 of the 56 calls per forward
 TIMED_RUNS = 5
 PIPELINE_RUNS = 3  # timed runs of each pipeline call, after its counted run
-LIBRARIES = ("resblock", "sampling", "quantize")
+LIBRARIES = ("resblock", "sampling", "quantize", "attention", "attn_block")
+ATTN_LEVELS = [  # (B, N, S_cond, heads, head dim) of attention levels 1 and 2 at CFG batch 2
+    (2, 256, 72, 16, 80),  # 16x16 pixels; S_cond = ByT5 64 + CLIP 4 + CLIP-image 4
+    (2, 64, 72, 16, 80),  # 8x8
+]
+ATTN_FLAGS = dict(attention_impl="pallas", attn_block_kernel=True)
+# launches per flagship forward in the attention config: K5 at repetition 0
+# of levels 1 and 2 each way, K6 at the other 15 + 5 repetitions each way
+K5_PER_FORWARD, K6_PER_FORWARD, K1_PER_FORWARD = 4, 40, 56
 
 
 class CheckFailed(RuntimeError):
@@ -91,6 +113,42 @@ def alternate(kernel, plain) -> tuple[float, float]:
     """Times of kernel and plain, measured plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = cuda_time_ms(plain), cuda_time_ms(kernel), cuda_time_ms(kernel), cuda_time_ms(plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def launch_counters():
+    """(kernel wrappers, plain versions), each with its `launches` count."""
+    from paella_tpu_torch.kernels import attention as k_att
+    from paella_tpu_torch.kernels import attn_block as k_blk
+    from paella_tpu_torch.kernels import quantize as k_q
+    from paella_tpu_torch.kernels import resblock as k_res
+    from paella_tpu_torch.kernels import sampling as k_samp
+
+    kernels = (k_res.fused_resblock, k_samp.fused_head_categorical, k_samp.gumbel_categorical,
+               k_q.fused_codebook_lookup, k_att.fused_attention, k_blk.fused_attn_block)
+    plains = (k_res.resblock_plain, k_samp.head_categorical_plain, k_samp.gumbel_categorical_plain,
+              k_q.codebook_lookup_plain, k_att.attention_plain, k_blk.attn_block_plain)
+    return kernels, plains
+
+
+def counted(fn):
+    """Run fn() with every launch count set to 0 just before; return its
+    result and the counts read just after (synchronized)."""
+    import torch
+
+    kernels, plains = launch_counters()
+    for f in kernels + plains:
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in kernels + plains}
+    for f in plains:
+        check(launches[f.__name__] == 0, f"{f.__name__} ran on the card")
+    return out, launches
+
+
+def check_launches(what: str, launches: dict, expect: dict) -> None:
+    for k, n in expect.items():
+        check(launches[k] == n, f"{what}: {k} launched {launches[k]} times, want {n}")
 
 
 def phase_build(tag: str) -> dict:
@@ -157,6 +215,11 @@ def phase_k1(tag: str) -> dict:
                 f"max_abs_err {err:.3e} rel {rel:.3e} (limit {'abs 1e-3' if dtype == torch.float32 else 'rel 2e-2'}); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({tag})"
             )
+            if (b, hh, ww, c, with_skip, dtype) == (2, 32, 32, 640, False, torch.bfloat16):
+                same = torch.equal(fused_resblock(x, w, film=film), fused_resblock(x, w, film=film))
+                print(f"[K1] ({b},{hh},{ww},{c}) bf16 + FiLM, two runs bitwise equal: {same} ({tag})")
+                check(same, "K1 gave different outputs on two runs of the same input")
+                result["deterministic"] = same
             if dtype == torch.float32:
                 check(err <= 1e-3, f"K1 f32 max abs error {err} > 1e-3")
             else:
@@ -321,14 +384,14 @@ def perturb_(module, gen, scale: float = 0.02) -> None:
         module.drop_derived()
 
 
-def build_flagship(gen):
+def build_flagship(gen, **flags):
     import torch
 
     from paella_tpu_torch.codec import VQModel
     from paella_tpu_torch.config import PaellaConfig, VQConfig
     from paella_tpu_torch.models import Paella
 
-    p_cfg = PaellaConfig.v1_byt5_xl_inference()
+    p_cfg = dataclasses.replace(PaellaConfig.v1_byt5_xl_inference(), **flags)
     with torch.device("cuda"):
         model = Paella(p_cfg)
         vq = VQModel(dataclasses.replace(VQConfig(), dtype="bfloat16"))
@@ -368,8 +431,6 @@ def phase_e2e(tag: str) -> dict:
     import torch
 
     from paella_tpu_torch.config import SampleConfig
-    from paella_tpu_torch.kernels import resblock as k_res
-    from paella_tpu_torch.kernels import sampling as k_samp
     from paella_tpu_torch.sampling import sample
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -383,18 +444,14 @@ def phase_e2e(tag: str) -> dict:
     def seeds_for(i: int):
         return torch.tensor([[i, 0x5EED]], dtype=torch.int64)
 
-    counters = (k_res.fused_resblock, k_res.resblock_plain, k_samp.fused_head_categorical, k_samp.head_categorical_plain)
-    for fn in counters:
-        fn.launches = 0
-    tokens = sample(model, seeds_for(42), cond, LATENT, uncond, s_cfg)
+    tokens, launches = counted(lambda: sample(model, seeds_for(42), cond, LATENT, uncond, s_cfg))
     img = vq.decode_indices(tokens)
     image = to_uint8(img)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
     print(f"[e2e] launches in one generation: {json.dumps(launches)}")
-    check(launches["fused_resblock"] == 56 * STEPS, f"K1 launched {launches['fused_resblock']} times, want {56 * STEPS}")
-    check(launches["fused_head_categorical"] == STEPS, f"K2 launched {launches['fused_head_categorical']} times, want {STEPS}")
-    check(launches["resblock_plain"] == 0 and launches["head_categorical_plain"] == 0, "a plain version ran on the card")
+    check_launches("8-step generation", launches, {
+        "fused_resblock": K1_PER_FORWARD * STEPS, "fused_head_categorical": STEPS, "gumbel_categorical": 0,
+        "fused_attention": 0, "fused_attn_block": 0,
+    })
     check(tuple(tokens.shape) == LATENT and tokens.dtype == torch.int32, f"tokens {tuple(tokens.shape)} {tokens.dtype}")
     check(bool(((tokens >= 0) & (tokens < p_cfg.num_labels)).all()), "tokens out of [0, num_labels)")
     check(bool(torch.isfinite(img.float()).all()), "decoded image not finite")
@@ -458,9 +515,6 @@ def phase_pipeline(tag: str) -> dict:
     import torch
 
     from paella_tpu_torch import PaellaPipeline
-    from paella_tpu_torch.kernels import quantize as k_q
-    from paella_tpu_torch.kernels import resblock as k_res
-    from paella_tpu_torch.kernels import sampling as k_samp
     from paella_tpu_torch.sampling.editing import reweight_for_phrase
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -471,9 +525,8 @@ def phase_pipeline(tag: str) -> dict:
     torch.cuda.synchronize()
     print(f"[pipeline] flagship denoiser + VQConfig() codec (encoder included) built on the card in {time.perf_counter() - t0:.1f} s")
     steps = 12  # SampleConfig() as users call it: 12 steps, cfg 8, the "xla" route
-    forward = 56 * steps
-    kernels = (k_res.fused_resblock, k_samp.fused_head_categorical, k_samp.gumbel_categorical, k_q.fused_codebook_lookup)
-    plains = (k_res.resblock_plain, k_samp.head_categorical_plain, k_samp.gumbel_categorical_plain, k_q.codebook_lookup_plain)
+    forward = K1_PER_FORWARD * steps
+    kernels, _ = launch_counters()
     taps = []  # token grids on their way to the decoder
     decode_clipped = pipe._decode_clipped
     pipe._decode_clipped = lambda tokens: (taps.append(tokens), decode_clipped(tokens))[1]
@@ -484,12 +537,8 @@ def phase_pipeline(tag: str) -> dict:
         return torch.tensor([[i, 0xC0FFEE]], dtype=torch.int64)
 
     def run(name, fn, expect: dict, shape: tuple):
-        for f in kernels + plains:
-            f.launches = 0
         taps.clear()
-        out = fn(0)
-        torch.cuda.synchronize()
-        launches = {f.__name__: f.launches for f in kernels + plains}
+        out, launches = counted(lambda: fn(0))
         tokens = taps[0] if taps else None
         times = []
         for i in range(PIPELINE_RUNS):
@@ -504,16 +553,14 @@ def phase_pipeline(tag: str) -> dict:
             f"p50 {p50:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) over {PIPELINE_RUNS} runs ({tag})"
         )
         check(ok, f"{name}: image {tuple(out.shape)} (want {shape}), finite and in [0, 1]")
-        for f in plains:
-            check(launches[f.__name__] == 0, f"{name}: {f.__name__} ran on the card")
-        for k, n in expect.items():
-            check(launches[k] == n, f"{name}: {k} launched {launches[k]} times, want {n}")
+        check_launches(name, launches, expect)
         for f in kernels:
             result["launches"][f.__name__] += launches[f.__name__]
         result["calls"][name] = {"p50_ms": p50, "launches": {f.__name__: launches[f.__name__] for f in kernels}}
         return out, tokens
 
-    gen_counts = {"fused_resblock": forward, "fused_head_categorical": 0, "gumbel_categorical": steps}
+    gen_counts = {"fused_resblock": forward, "fused_head_categorical": 0, "gumbel_categorical": steps,
+                  "fused_attention": 0, "fused_attn_block": 0}
     image, _ = run("text_to_image", lambda i: pipe.text_to_image([prompt], seeds(i)),
                    {**gen_counts, "fused_codebook_lookup": 0}, (1, 256, 256, 3))
     edited, _ = run("img2img strength 0.8", lambda i: pipe.img2img([prompt], image, seeds(i), strength=0.8),
@@ -607,6 +654,288 @@ def phase_small_reference(tag: str) -> None:
     check(idx_agree >= 0.999, f"small codec encode indices agree {idx_agree} < 0.999")
 
 
+def attention_error(got, want) -> tuple[float, float, bool]:
+    """(max abs error, its limit, within it): f32 1e-5 + 1e-5 |want| (f32
+    arithmetic in another order); bf16 2^-7 of the largest output, two bf16
+    ulps (the output is rounded to bf16, and a p or q/k/v value on a rounding
+    boundary may round to the neighbouring value)."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    if want.dtype == torch.float32:
+        limit = 1e-5 + 1e-5 * want.float().abs().max().item()
+    else:
+        limit = 2**-7 * want.float().abs().max().item()
+    return err, limit, err <= limit
+
+
+def attention_masks(b: int, n: int, s_c: int, gen):
+    """A CFG pair's cond mask (B, S_cond): the conditional half attends to
+    every token, the unconditional half to its first two ByT5 tokens and its
+    CLIP-text tokens (merge_cfg_pair masks the rest), and its K5 mask over
+    [pixels ; cond]."""
+    import torch
+
+    cmask = torch.ones(b, s_c, dtype=torch.bool, device="cuda")
+    cmask[b // 2 :, 2:64] = False
+    cmask[b // 2 :, 68:] = False
+    return cmask, torch.cat([torch.ones(b, n, dtype=torch.bool, device="cuda"), cmask], dim=1)
+
+
+def phase_k5(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.kernels.attention import attention_plain, fused_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    result = {"max_abs_err": 0.0}
+    for level, (b, n, s_c, h, d) in enumerate(ATTN_LEVELS, start=1):
+        s = n + s_c
+        _, mask = attention_masks(b, n, s_c, gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(b, ln, h, d, generator=gen, device="cuda").to(dtype) for ln in (n, s, s))
+            got = fused_attention(q, k, v, mask)
+            want = attention_plain(q, k, v, mask)
+            again = fused_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "K5 output not finite")
+            err, limit, ok = attention_error(got, want)
+            same = torch.equal(got, again)
+            ms, plain_ms = alternate(lambda: fused_attention(q, k, v, mask), lambda: attention_plain(q, k, v, mask))
+            flops = 4 * b * h * n * s * d
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            print(
+                f"[K5] fused_attention level {level} q ({b},{n},{h},{d}) k/v ({b},{s},{h},{d}) masked {dname}: "
+                f"max_abs_err {err:.3e} (limit {limit:.3e}), two runs bitwise equal: {same}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {flops / 1e9:.3f} GFLOP "
+                f"= {flops / ms / 1e9:.2f} TFLOP/s ({tag})"
+            )
+            check(ok, f"K5 level {level} {dname} max abs error {err} > {limit}")
+            check(same, f"K5 level {level} {dname} gave different outputs on two runs")
+            if dtype == torch.bfloat16:
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                result.setdefault("levels", {})[level] = {"ms": ms, "plain_ms": plain_ms}
+    result.update(result["levels"][1])
+    return result
+
+
+def phase_k6(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.kernels.attn_block import attn_block_plain, fused_attn_block, prepare_attn_block_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    result = {"max_abs_err": 0.0}
+    for level, (b, n, s_c, h, d) in enumerate(ATTN_LEVELS, start=1):
+        c, side = h * d, int(n**0.5)
+        cmask, _ = attention_masks(b, n, s_c, gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            r = lambda *shape, std: torch.randn(*shape, generator=gen, device="cuda") * std  # noqa: E731
+            w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), dtype)
+            x = r(b, side, side, c, std=1.0).to(dtype)
+            kv = r(b, s_c, c, std=1.0).to(dtype)
+            got = fused_attn_block(x, kv, w, h, cmask)
+            want = attn_block_plain(x, kv, w, h, cmask)
+            again = fused_attn_block(x, kv, w, h, cmask)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "K6 output not finite")
+            err = (got.float() - want.float()).abs().max().item()
+            limit = 1e-4 if dtype == torch.float32 else 2e-2 * want.float().abs().max().item()
+            same = torch.equal(got, again)
+            ms, plain_ms = alternate(lambda: fused_attn_block(x, kv, w, h, cmask), lambda: attn_block_plain(x, kv, w, h, cmask))
+            m_q, m_kv = b * n, b * (n + s_c)
+            flops = 2 * c * c * (2 * m_q + 2 * m_kv) + 4 * b * h * n * (n + s_c) * d
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            print(
+                f"[K6] fused_attn_block level {level} x ({b},{side},{side},{c}) kv ({b},{s_c},{c}) {h} heads masked {dname}: "
+                f"max_abs_err {err:.3e} (limit {limit:.3e}), two runs bitwise equal: {same}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; M_q {m_q}, M_kv {m_kv}, {flops / 1e9:.3f} GFLOP "
+                f"= {flops / ms / 1e9:.2f} TFLOP/s ({tag})"
+            )
+            check(err <= limit, f"K6 level {level} {dname} max abs error {err} > {limit}")
+            check(same, f"K6 level {level} {dname} gave different outputs on two runs")
+            if dtype == torch.bfloat16:
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                result.setdefault("levels", {})[level] = {"ms": ms, "plain_ms": plain_ms}
+    result.update(result["levels"][1])
+    return result
+
+
+def phase_attention_e2e(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import sample
+    from paella_tpu_torch.sampling.sampler import merge_cfg_pair
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model, vq, p_cfg = build_flagship(gen, **ATTN_FLAGS)
+    cond, uncond = flagship_conditioning(p_cfg, gen)
+    with torch.device("cuda"):
+        plain = Paella(dataclasses.replace(p_cfg, attention_impl="xla", attn_block_kernel=False))
+    plain.load_state_dict(model.state_dict())
+    plain = plain.to(torch.bfloat16).eval()
+
+    # one CFG forward: launch counts, and features against the same weights'
+    # plain-attention forward in f32. The two bf16 routes round at different
+    # points, so each lies about its bf16 rounding error from the f32 forward
+    # (and the two about sqrt(2) times that apart): the attention route must
+    # come within 1.5x the plain bf16 route's distance to it.
+    pair = merge_cfg_pair(cond, uncond)
+    cache_args = (pair.byt5, pair.clip, pair.clip_image)
+    cache_kw = dict(byt5_mask=pair.byt5_mask, clip_mask=pair.clip_mask, clip_image_mask=pair.clip_image_mask)
+    x = torch.randint(0, p_cfg.num_labels, (2, 64, 64), generator=gen, device="cuda")
+    r = torch.full((2,), 0.6, device="cuda")
+    cache = model.gen_cond_cache(*cache_args, **cache_kw)
+    feats, launches = counted(lambda: model(x, r, return_features=True, cond_cache=cache))
+    print(f"[attn e2e] launches in one CFG forward: {json.dumps(launches)}")
+    check_launches("attention-config forward", launches,
+                   {"fused_resblock": K1_PER_FORWARD, "fused_attention": K5_PER_FORWARD, "fused_attn_block": K6_PER_FORWARD})
+    want = plain(x, r, return_features=True, cond_cache=plain.gen_cond_cache(*cache_args, **cache_kw)).float()
+    with torch.device("cuda"):
+        f32 = Paella(dataclasses.replace(plain.config, dtype="float32"))
+    f32.load_state_dict(plain.state_dict())
+    ref = f32.eval()(x, r, return_features=True,
+                     cond_cache=f32.gen_cond_cache(*(t.float() for t in cache_args), **cache_kw))
+    del f32
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    err, floor, apart = rel(feats.float(), ref), rel(want, ref), rel(feats.float(), want)
+    print(
+        f"[attn e2e] features (2,64,64,{p_cfg.c_out}), relative L2 to the plain-attention f32 forward: attention "
+        f"config bf16 {err:.3e} (limit 1.5 x {floor:.3e}, the plain bf16 route's), max_abs_err "
+        f"{(feats.float() - ref).abs().max().item():.3e}; the two bf16 routes {apart:.3e} apart ({tag})"
+    )
+    check(bool(torch.isfinite(feats).all()), "attention-config features not finite")
+    check(err <= 1.5 * floor, f"attention-config features {err} from the f32 forward > 1.5 x {floor}")
+
+    s_cfg = SampleConfig(steps=STEPS)  # the default "xla" draw: head product, then K3
+
+    def seeds_for(i: int):
+        return torch.tensor([[i, 0xA77E]], dtype=torch.int64)
+
+    def generate(m, i):
+        return to_uint8(vq.decode_indices(sample(m, seeds_for(i), cond, LATENT, uncond, s_cfg)))
+
+    tokens, launches = counted(lambda: sample(model, seeds_for(42), cond, LATENT, uncond, s_cfg))
+    image = to_uint8(vq.decode_indices(tokens))
+    print(f"[attn e2e] launches in one {STEPS}-step CFG generation: {json.dumps(launches)}")
+    check_launches("attention-config generation", launches, {
+        "fused_resblock": K1_PER_FORWARD * STEPS, "gumbel_categorical": STEPS, "fused_head_categorical": 0,
+        "fused_attention": K5_PER_FORWARD * STEPS, "fused_attn_block": K6_PER_FORWARD * STEPS,
+    })
+    check(tuple(tokens.shape) == LATENT and bool(((tokens >= 0) & (tokens < p_cfg.num_labels)).all()), "tokens out of range")
+    check(int(torch.unique(tokens).numel()) > 1, "all tokens equal")
+    check(tuple(image.shape) == (1, 256, 256, 3) and image.dtype == torch.uint8, f"image {tuple(image.shape)}")
+    generate(model, 1000), generate(plain, 1000)  # warm-up
+    times = {"attention": [], "plain": []}
+    for i in range(TIMED_RUNS):  # in turns: plain, attention, attention, plain, ...
+        for name, m in (("plain", plain), ("attention", model)) if i % 2 == 0 else (("attention", model), ("plain", plain)):
+            t1 = time.perf_counter()
+            generate(m, i).cpu()
+            times[name].append(time.perf_counter() - t1)
+    p50 = {k: sorted(v)[TIMED_RUNS // 2] * 1e3 for k, v in times.items()}
+    print(
+        f"[attn e2e] 256x256 text-to-image, {STEPS} steps CFG, batch 1, bf16, in turns: p50 attention config "
+        f"{p50['attention']:.2f} ms (min {min(times['attention']) * 1e3:.2f}), plain attention {p50['plain']:.2f} ms "
+        f"(min {min(times['plain']) * 1e3:.2f}) over {TIMED_RUNS} runs each ({tag})"
+    )
+    result = {"launches": launches, "p50_ms": p50, "feature_rel_l2": err, "feature_plain_rel_l2": floor}
+    del model, plain, vq
+    torch.cuda.empty_cache()
+    return result
+
+
+def http_get(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        check(resp.status == 200, f"GET {url}: {resp.status}")
+        return resp.read()
+
+
+def http_generate(port: int, req: dict) -> bytes:
+    import urllib.request
+
+    body = json.dumps(req).encode()
+    r = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=600) as resp:
+        check(resp.status == 200 and resp.headers["Content-Type"] == "image/png", f"POST /generate: {resp.status}")
+        return resp.read()
+
+
+def phase_serve(tag: str) -> dict:
+    import torch
+
+    from paella_tpu_torch import PaellaPipeline
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.serve import PaellaServer, png_pixels, request_seeds
+    from paella_tpu_torch.serve import to_uint8 as serve_uint8
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    model, vq, p_cfg = build_flagship(gen, **ATTN_FLAGS)
+    byt5_encode_fn, clip_text_fn = flagship_towers(p_cfg, gen)
+    pipe = PaellaPipeline(model, vq, byt5_encode_fn, clip_text_fn=clip_text_fn)
+    prompts = ["a red car on a beach", "a lighthouse in a storm, oil on canvas", "a corgi"]
+    seeds = [11, 12, 13]
+
+    def req(i):
+        return {"prompt": prompts[i], "seed": seeds[i], "steps": STEPS, "height": 256, "width": 256}
+
+    def pipeline_image(i):
+        img = pipe.text_to_image([prompts[i]], request_seeds([seeds[i]]), (256, 256), SampleConfig(steps=STEPS, cfg=8.0))
+        return serve_uint8(img[0]).cpu().numpy()
+
+    srv = PaellaServer(pipe, host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        check(http_get(f"http://127.0.0.1:{srv.port}/healthz") == b"ok", "/healthz")
+        http_generate(srv.port, req(0))  # warm-up
+        png0, launches = counted(lambda: http_generate(srv.port, req(0)))
+        print(f"[serve] launches in one {STEPS}-step request: {json.dumps(launches)}")
+        check_launches("served request", launches, {
+            "fused_resblock": K1_PER_FORWARD * STEPS, "gumbel_categorical": STEPS,
+            "fused_attention": K5_PER_FORWARD * STEPS, "fused_attn_block": K6_PER_FORWARD * STEPS,
+        })
+        singles, times = [], []
+        for i in range(3):
+            t1 = time.perf_counter()
+            png = http_generate(srv.port, req(i))
+            times.append(time.perf_counter() - t1)
+            got = png_pixels(png)
+            check(got.shape == (256, 256, 3), f"PNG {got.shape}")
+            check(bool((got == pipeline_image(i)).all()), f"request {i}: the PNG differs from pipeline.text_to_image")
+            singles.append(got)
+        repeat = http_generate(srv.port, req(0))
+        check(repeat == png0, "a repeated request gave other bytes")
+        http_p50 = sorted(times)[1] * 1e3
+        print(
+            f"[serve] /healthz ok; 3 single requests ({STEPS} steps, 256x256): each PNG equals "
+            f"pipeline.text_to_image for its seed pair exactly; a repeated request is byte-identical; "
+            f"HTTP p50 {http_p50:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) ({tag})"
+        )
+    finally:
+        srv.stop()
+
+    batched = PaellaServer(pipe, host="127.0.0.1", port=0, max_batch=4, batch_window_ms=200)
+    batched.start()
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            pngs = list(pool.map(lambda i: http_generate(batched.port, req(i)), range(3)))
+    finally:
+        batched.stop()
+    same = [float((png_pixels(p) == s).mean()) for p, s in zip(pngs, singles)]
+    exact = all(v == 1.0 for v in same)
+    print(
+        f"[serve] max_batch=4, 3 concurrent requests (one batch of 4): share of pixels equal to the single path "
+        f"{', '.join(f'{v:.6f}' for v in same)} (limit 0.99; {'exact' if exact else 'not exact'}) ({tag})"
+    )
+    check(min(same) >= 0.99, f"micro-batched images agree {min(same)} < 0.99 with the single path")
+    del pipe, model, vq
+    torch.cuda.empty_cache()
+    return {"launches": launches, "http_p50_ms": http_p50, "batch_pixel_share": same, "batch_exact": exact}
+
+
 def main() -> int:
     try:
         import torch
@@ -636,8 +965,14 @@ def main() -> int:
     e2e = phase_e2e(tag)
     pipe = phase_pipeline(tag)
     phase_small_reference(tag)
-    launches = {k: n + pipe["launches"].get(k, 0) for k, n in e2e["launches"].items()}
-    launches.update({k: n for k, n in pipe["launches"].items() if k not in launches})
+    k5 = phase_k5(tag)
+    k6 = phase_k6(tag)
+    attn = phase_attention_e2e(tag)
+    served = phase_serve(tag)
+    launches = {}
+    for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"]):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
     kernels = [
         {
             "name": "fused_resblock", "route": "cuda", "source": "paella_tpu_torch/csrc/resblock.cu",
@@ -663,10 +998,24 @@ def main() -> int:
             "launches": launches["fused_codebook_lookup"], "max_abs_err": k4["max_abs_err"],
             "ms": k4["ms"], "plain_ms": k4["plain_ms"], "shape": "z (1,64,64,4) f32, codebook (8192,4) f32",
         },
+        {
+            "name": "fused_attention", "route": "cuda", "source": "paella_tpu_torch/csrc/attention.cu",
+            "replaces": "paella_tpu/kernels/attention.py:56",
+            "launches": launches["fused_attention"], "max_abs_err": k5["max_abs_err"],
+            "ms": k5["ms"], "plain_ms": k5["plain_ms"], "shape": "q (2,256,16,80), k/v (2,328,16,80) bf16, masked",
+        },
+        {
+            "name": "fused_attn_block", "route": "cuda", "source": "paella_tpu_torch/csrc/attn_block.cu",
+            "replaces": "paella_tpu/kernels/attn_block.py:178",
+            "launches": launches["fused_attn_block"], "max_abs_err": k6["max_abs_err"],
+            "ms": k6["ms"], "plain_ms": k6["plain_ms"], "shape": "x (2,16,16,1280), kv (2,72,1280) bf16, 16 heads, masked",
+        },
     ]
     print(json.dumps({
         "kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"],
         "pipeline_p50_ms": {name: c["p50_ms"] for name, c in pipe["calls"].items()}, "build_s": build["build_s"],
+        "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k6_levels": k6["levels"],
+        "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -4,18 +4,26 @@ the other.
 
 Fields that steer TPU-only workarounds or training are kept so that configs
 stay interchangeable, but the port reads none of them: `remat`,
-`remat_levels`, `attention_impl`, `attn_block_kernel`, `attn_qkvo_2d`,
-`split_skip_levels`, `act_quant`, `fused_blocks` (PaellaConfig),
-`lookup_impl` (VQConfig) and `cond_cache` (SampleConfig). Where the JAX
-package chooses between its XLA path and a Pallas kernel there, the port has
-one path: every ResBlock(+FiLM) pair goes through kernels/resblock.py and
-every codebook lookup through kernels/quantize.py, whose wrappers launch the
-CUDA kernel on a CUDA tensor and take the plain torch version only on a CPU
-tensor. `SampleConfig.categorical_impl` IS read, because its two routes draw
-from differently rounded logits: "pallas" takes the fused head
-(kernels/sampling.py::fused_head_categorical, f32 logits), "xla" the head
-product in the compute dtype and then the Gumbel kernel
-(kernels/sampling.py::gumbel_categorical), as the JAX sampler does.
+`remat_levels`, `attn_qkvo_2d`, `split_skip_levels`, `act_quant`,
+`fused_blocks` (PaellaConfig), `lookup_impl` (VQConfig) and `cond_cache`
+(SampleConfig). Where the JAX package chooses between its XLA path and a
+Pallas kernel there, the port has one path: every ResBlock(+FiLM) pair goes
+through kernels/resblock.py (the port always runs the JAX forward of
+fused_blocks=True) and every codebook lookup through kernels/quantize.py,
+whose wrappers launch the CUDA kernel on a CUDA tensor and take the plain
+torch version only on a CPU tensor.
+
+Read, because their routes round differently:
+- `SampleConfig.categorical_impl`: "pallas" takes the fused head
+  (kernels/sampling.py::fused_head_categorical, f32 logits), "xla" the head
+  product in the compute dtype and then the Gumbel kernel
+  (kernels/sampling.py::gumbel_categorical), as the JAX sampler does.
+- `PaellaConfig.attention_impl` and `attn_block_kernel`: "pallas" makes
+  repetition 0 of each attention level take kernel K5
+  (kernels/attention.py) as its attention core; `attn_block_kernel` runs the
+  AttnBlock of every later repetition as kernel K6 (kernels/attn_block.py).
+  Otherwise attention is plain torch, as in the JAX forward at
+  fused_blocks=True (models/denoiser.py).
 """
 from __future__ import annotations
 
@@ -48,9 +56,9 @@ class PaellaConfig:
     dtype: str = "float32"  # compute dtype
     remat: bool = False  # inert in the port (inference only)
     remat_levels: Optional[Tuple[bool, ...]] = None  # inert
-    attention_impl: str = "xla"  # inert: attention is plain torch
+    attention_impl: str = "xla"  # "xla": plain torch attention; "pallas": K5 in repetition 0
     fused_blocks: bool = False  # inert: the fused kernel is the only path
-    attn_block_kernel: bool = False  # inert
+    attn_block_kernel: bool = False  # K6 for the AttnBlock of repetitions >= 1
     attn_qkvo_2d: bool = False  # inert
     split_skip_levels: Tuple[int, ...] = ()  # inert
     act_quant: bool = False  # inert until the int8 modes are ported

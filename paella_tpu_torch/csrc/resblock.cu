@@ -18,9 +18,12 @@
 //                    reads concat channels 2c, 2c+1 straight from x and skip),
 //                    bias and LayerNorm -> xn (M, C).
 //   2. fc1_kernel    64x64 tiles of xn @ W1^T with a bias + GELU epilogue that
-//                    writes h (M, 4C) and atomically adds each column's f32
-//                    sum of squares per batch item into gx (B, 4C).
-//   3. grn_scale_kernel  one block per batch item: gx -> scale (B, 4C).
+//                    writes h (M, 4C) and, for each batch item the M-tile
+//                    touches, each column's f32 sum of squares over the
+//                    tile's rows into a partials buffer (no atomics).
+//   3. grn_scale_kernel  one block per batch item: sums its partials in tile
+//                    order (so the GRN scale is the same on every run, as the
+//                    Pallas kernel's sequential grid makes it) -> scale (B, 4C).
 //   4. fc2_kernel    64x64 tiles of (h * scale) @ W2^T, the scale applied as
 //                    the A tile is loaded, with a beta@W2 + b2 + residual +
 //                    FiLM epilogue. Its grid is only (C/64) x (M/64) blocks
@@ -105,12 +108,13 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) fc1_kernel(const T* __restrict__ xn,
                                                        const T* __restrict__ w1,
                                                        const T* __restrict__ b1,
-                                                       T* __restrict__ h, float* __restrict__ gx,
-                                                       int M, int K, int N, int hw) {
+                                                       T* __restrict__ h, float* __restrict__ gx_part,
+                                                       int M, int K, int N, int hw, int slots) {
   constexpr int LDS = BK + smem_pad<T>(), LDC = BN + 4;
   __shared__ __align__(16) T As[BM * LDS];
   __shared__ __align__(16) T Bs[BN * LDS];
   __shared__ float Cs[BM * LDC];
+  __shared__ float half_sq[kThreads];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   TileProduct<T, BM, BN> tile;
   tile.zero();
@@ -123,38 +127,76 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const T* __restrict__ xn,
   }
   tile.store(Cs, LDC);
   __syncthreads();
-  // epilogue: one column per thread, rows strided by kThreads / BN
+  // epilogue: one column per thread, rows strided by kThreads / BN; the f32
+  // GELU output stays in Cs for the GRN statistics
   const int c = threadIdx.x % BN, n = n0 + c;
   const float bias = to_f<T>(b1[n]);
-  int cur_b = -1;
-  float sq = 0.f;
   for (int r = threadIdx.x / BN; r < BM; r += kThreads / BN) {
     const int m = m0 + r;
     if (m >= M) break;
     float v = Cs[r * LDC + c] + bias;
     v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
     h[(size_t)m * N + n] = from_f<T>(v);
-    const int bi = m / hw;
-    if (bi != cur_b) {
-      if (cur_b >= 0) atomicAdd(gx + (size_t)cur_b * N + n, sq);
-      cur_b = bi;
-      sq = 0.f;
-    }
-    sq += v * v;  // GRN statistics from the f32 value, before rounding
+    Cs[r * LDC + c] = v;
   }
-  if (cur_b >= 0) atomicAdd(gx + (size_t)cur_b * N + n, sq);
+  __syncthreads();
+  // GRN statistics from the f32 values, before rounding, one partial per
+  // batch item the tile touches, at slot (tile, batch item - the tile's first
+  // batch item). A tile inside one batch item (every tile at the flagship's
+  // shapes): two threads per column sum rows [0, 32) and [32, 64), added in
+  // that order. Otherwise one thread per column walks the rows in order.
+  const int first_b = m0 / hw, rows = min(BM, M - m0);
+  if ((m0 + rows - 1) / hw == first_b) {
+    const int half = threadIdx.x / BN;
+    float sq = 0.f;
+#pragma unroll 8
+    for (int r = half * (BM / 2); r < (half + 1) * (BM / 2); ++r) {
+      const float v = r < rows ? Cs[r * LDC + c] : 0.f;
+      sq += v * v;
+    }
+    half_sq[threadIdx.x] = sq;
+    __syncthreads();
+    if (threadIdx.x < BN) gx_part[(size_t)blockIdx.y * slots * N + n] = half_sq[c] + half_sq[BN + c];
+  } else if (threadIdx.x < BN) {
+    float* part = gx_part + (size_t)blockIdx.y * slots * N + n;
+    int cur_b = first_b;
+    float sq = 0.f;
+    for (int r = 0; r < BM && m0 + r < M; ++r) {
+      const int bi = (m0 + r) / hw;
+      if (bi != cur_b) {
+        part[(size_t)(cur_b - first_b) * N] = sq;
+        cur_b = bi;
+        sq = 0.f;
+      }
+      const float v = Cs[r * LDC + c];
+      sq += v * v;
+    }
+    part[(size_t)(cur_b - first_b) * N] = sq;
+  }
 }
 
-__global__ void grn_scale_kernel(const float* __restrict__ gx, const float* __restrict__ gamma,
-                                 float* __restrict__ scale, int N) {
+// One block of 1024 threads per batch item b: each column's gx = sum of its
+// partials, tile by tile in order, kept in shared memory (N floats), then
+// the GRN scale gamma * gx / (mean_N gx + 1e-6) + 1.
+__global__ void __launch_bounds__(1024) grn_scale_kernel(const float* __restrict__ gx_part,
+                                                         const float* __restrict__ gamma,
+                                                         float* __restrict__ scale, int N, int hw,
+                                                         int slots) {
+  extern __shared__ float s_norm[];
   __shared__ float red[32];
   const int b = blockIdx.x;
-  const float* g = gx + (size_t)b * N;
+  const int t0 = b * hw / BM, t1 = ((b + 1) * hw - 1) / BM;
   float s = 0.f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) s += sqrtf(g[n]);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float g = 0.f;
+#pragma unroll 4
+    for (int t = t0; t <= t1; ++t) g += gx_part[((size_t)t * slots + b - t * BM / hw) * N + n];
+    s_norm[n] = sqrtf(g);
+    s += s_norm[n];
+  }
   const float denom = block_sum(s, red) / N + 1e-6f;
   for (int n = threadIdx.x; n < N; n += blockDim.x)
-    scale[(size_t)b * N + n] = gamma[n] * (sqrtf(g[n]) / denom) + 1.f;
+    scale[(size_t)b * N + n] = gamma[n] * (s_norm[n] / denom) + 1.f;
 }
 
 // y = acc + beta@W2 + b2 + x, then FiLM, in the Pallas kernel's order
@@ -226,18 +268,17 @@ __global__ void fc2_reduce_kernel(const float* __restrict__ part, int splits,
 template <typename T>
 int launch(const void* x, const void* skip, const void* dw_w, const void* dw_b, const void* w1,
            const void* b1, const float* gamma, const void* w2, const float* bw2, const void* b2,
-           const void* film, void* out, void* xn, void* h, float* gx, float* scale, float* part,
-           int splits, int B, int H, int W, int C, cudaStream_t st) {
+           const void* film, void* out, void* xn, void* h, float* gx_part, int slots, float* scale,
+           float* part, int splits, int B, int H, int W, int C, cudaStream_t st) {
   const int hw = H * W, M = B * hw, N1 = 4 * C;
-  cudaError_t err = cudaMemsetAsync(gx, 0, sizeof(float) * B * N1, st);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   dw_ln_kernel<T><<<M, kThreads, C * sizeof(float), st>>>(
       (const T*)x, (const T*)skip, (const T*)dw_w, (const T*)dw_b, (T*)xn, H, W, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   fc1_kernel<T><<<dim3(N1 / BN, (M + BM - 1) / BM), kThreads, 0, st>>>(
-      (const T*)xn, (const T*)w1, (const T*)b1, (T*)h, gx, M, C, N1, hw);
+      (const T*)xn, (const T*)w1, (const T*)b1, (T*)h, gx_part, M, C, N1, hw, slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<B, 256, 0, st>>>(gx, gamma, scale, N1);
+  grn_scale_kernel<<<B, 1024, N1 * sizeof(float), st>>>(gx_part, gamma, scale, N1, hw, slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   fc2_kernel<T><<<dim3(C / BN, (M + BM - 1) / BM, splits), kThreads, 0, st>>>(
       (const T*)h, scale, (const T*)w2, bw2, (const T*)b2, (const T*)x, (const T*)film, (T*)out,
@@ -254,23 +295,24 @@ int launch(const void* x, const void* skip, const void* dw_w, const void* dw_b, 
 
 // C interface for ctypes. Shapes: x, skip, out (B,H,W,C); dw_w (3,3,cpg,C);
 // dw_b, b2 (C); w1 (4C,C); b1 (4C); gamma (4C) f32; w2 (C,4C); bw2 (C) f32;
-// film (B,2C) [a | b]; scratch xn (B*H*W, C), h (B*H*W, 4C), gx and scale
-// (B, 4C) f32, and with splits > 1 part (splits, B*H*W, C) f32, the fc2
-// split-K partials (4C / splits a multiple of 32). skip and film may be null.
-// C % 64 == 0. Returns a cudaError_t.
+// film (B,2C) [a | b]; scratch xn (B*H*W, C), h (B*H*W, 4C), gx_part
+// (ceil(B*H*W / 64) * slots, 4C) f32 with slots the most batch items one
+// 64-row tile touches, scale (B, 4C) f32, and with splits > 1 part (splits,
+// B*H*W, C) f32, the fc2 split-K partials (4C / splits a multiple of 32).
+// skip and film may be null. C % 64 == 0. Returns a cudaError_t.
 extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w,
                                const void* dw_b, const void* w1, const void* b1,
                                const void* gamma, const void* w2, const void* bw2,
                                const void* b2, const void* film, void* out, void* xn, void* h,
-                               void* gx, void* scale, void* part, int splits, int B, int H,
-                               int W, int C, int is_bf16, void* stream) {
+                               void* gx_part, void* scale, void* part, int slots, int splits,
+                               int B, int H, int W, int C, int is_bf16, void* stream) {
   using namespace paella;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2,
-                                 (const float*)bw2, b2, film, out, xn, h, (float*)gx,
+                                 (const float*)bw2, b2, film, out, xn, h, (float*)gx_part, slots,
                                  (float*)scale, (float*)part, splits, B, H, W, C, st);
   return launch<float>(x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2,
-                       b2, film, out, xn, h, (float*)gx, (float*)scale, (float*)part, splits, B,
-                       H, W, C, st);
+                       b2, film, out, xn, h, (float*)gx_part, slots, (float*)scale, (float*)part,
+                       splits, B, H, W, C, st);
 }

@@ -72,6 +72,20 @@ def stream_handle(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_operands(what: str, device, tensors: dict) -> None:
+    """Raise unless every tensor given (None skips) lies on `device`, is
+    contiguous and starts 16-byte aligned, as the kernels' vector loads need."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
 def check_rc(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

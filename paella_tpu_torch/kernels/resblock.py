@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ._build import check_rc, load_library, stream_handle
+from ._build import check_operands, check_rc, load_library, stream_handle
 
 
 class ResBlockWeights(NamedTuple):
@@ -118,10 +118,12 @@ resblock_plain.launches = 0
 
 
 def fc2_splits(m: int, c: int, n_sm: int) -> int:
-    """How many K splits the kernel's fc2 phase runs: its (C/64) x (M/64)
-    grid is doubled until it holds about two blocks per SM, while each split
-    keeps at least 4 of the 32-deep K tiles. At the flagship's shapes on 132
-    SMs: 1 at M 2048 x C 640, 2 at 512 x 1280, 8 at 128 x 1280."""
+    """How many K splits the kernel's fc2 phase runs for M rows: its
+    (C/64) x (M/64) grid is doubled until it holds about two blocks per SM,
+    while each split keeps at least 4 of the 32-deep K tiles. The wrapper
+    passes the M of one CFG pair (two images), whatever the batch, so an
+    image's sums do not depend on its batchmates. At the flagship's shapes on
+    132 SMs: 1 at M 2048 x C 640, 2 at 512 x 1280, 8 at 128 x 1280."""
     blocks = (c // 64) * -(-m // 64)
     k_tiles = 4 * c // 32
     s = 1
@@ -130,21 +132,18 @@ def fc2_splits(m: int, c: int, n_sm: int) -> int:
     return s
 
 
+def grn_slots(b: int, hw: int) -> int:
+    """The most batch items one 64-row M-tile of the kernel's fc1 phase
+    touches: its GRN partials buffer holds that many slots per tile, so the
+    per-(batch item, column) sums are written without atomics and added in
+    tile order. 1 at the flagship's shapes (hw 1024, 256, 64)."""
+    m = b * hw
+    return max(min(m0 + 63, m - 1) // hw - m0 // hw + 1 for m0 in range(0, m, 64))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _check_cuda_operands(x: torch.Tensor, tensors: dict) -> None:
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device != x.device:
-            raise ValueError(f"fused_resblock: {name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_resblock: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"fused_resblock: {name} must be 16-byte aligned")
 
 
 def fused_resblock(
@@ -180,14 +179,15 @@ def fused_resblock(
             raise ValueError(f"fused_resblock: weight {name} is not {dt}")
     if w.gamma.dtype != torch.float32 or w.bw2.dtype != torch.float32:
         raise ValueError("fused_resblock: gamma and bw2 must be float32")
-    _check_cuda_operands(x, {"x": x, "skip": skip, "film": film, **w._asdict()})
+    check_operands("fused_resblock", x.device, {"x": x, "skip": skip, "film": film, **w._asdict()})
 
     m = b * hh * ww
-    splits = fc2_splits(m, c, _sm_count(x.device))
+    splits = fc2_splits(2 * hh * ww, c, _sm_count(x.device))
     out = torch.empty_like(x)
     xn = torch.empty((m, c), dtype=dt, device=x.device)
     h = torch.empty((m, 4 * c), dtype=dt, device=x.device)
-    gx = torch.empty((b, 4 * c), dtype=torch.float32, device=x.device)
+    slots = grn_slots(b, hh * ww)
+    gx_part = torch.empty((-(-m // 64) * slots, 4 * c), dtype=torch.float32, device=x.device)
     scale = torch.empty((b, 4 * c), dtype=torch.float32, device=x.device)
     part = torch.empty((splits, m, c), dtype=torch.float32, device=x.device) if splits > 1 else None
 
@@ -195,8 +195,8 @@ def fused_resblock(
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.paella_resblock(
         ptr(x), ptr(skip), ptr(w.dw), ptr(w.dw_b), ptr(w.w1), ptr(w.b1), ptr(w.gamma),
-        ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(out), ptr(xn), ptr(h), ptr(gx),
-        ptr(scale), ptr(part), splits, b, hh, ww, c, int(dt == torch.bfloat16), stream_handle(x),
+        ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(out), ptr(xn), ptr(h), ptr(gx_part),
+        ptr(scale), ptr(part), slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), stream_handle(x),
     )
     check_rc(rc, "fused_resblock")
     fused_resblock.launches += 1
@@ -210,6 +210,6 @@ def _library() -> ctypes.CDLL:
     lib = load_library("resblock")
     fn = lib.paella_resblock
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -16,6 +16,10 @@ Activations are NHWC; logits come out channels-last (B, H, W, num_labels).
 
 Every ResBlock with a TimestepBlock after it runs as one fused kernel call
 with the FiLM (a, b) from that TimestepBlock's mapper (kernels/resblock.py).
+The AttnBlocks follow the JAX forward at fused_blocks=True: repetition 0 of a
+level takes kernel K5 as its attention core under attention_impl="pallas",
+repetitions 1 and up run whole as kernel K6 under attn_block_kernel=True, and
+every other case (and any call with cond_reweight) takes plain torch attention.
 """
 from __future__ import annotations
 
@@ -63,6 +67,19 @@ class Paella(DerivedWeights):
             nn.Conv2d(cfg.c_in * cfg.patch_size**2, cfg.c_hidden[0], kernel_size=1),
         )
 
+        if cfg.attention_impl not in ("xla", "pallas"):
+            raise ValueError(f"attention_impl {cfg.attention_impl!r}: 'xla' or 'pallas'")
+
+        def attn_route(rep: int) -> Optional[str]:
+            # the JAX forward at fused_blocks=True: repetition 0 runs the AttnBlock
+            # module, whose core is K5 under attention_impl="pallas"; the others
+            # run in rest_reps_fused, as K6 under attn_block_kernel and otherwise
+            # with plain attention whatever attention_impl says
+            # (paella_tpu/models/denoiser.py:487-498, 603-704)
+            if rep > 0:
+                return "attn_block" if cfg.attn_block_kernel else None
+            return "attention" if cfg.attention_impl == "pallas" else None
+
         def level(i: int, with_skip: bool) -> list:
             blocks = []
             for rep in range(cfg.blocks[i]):
@@ -74,7 +91,9 @@ class Paella(DerivedWeights):
                     elif bt == "T":
                         blocks.append(TimestepBlock(c, cfg.c_r, dtype=dt))
                     elif bt == "A":
-                        blocks.append(AttnBlock(c, cfg.c_cond, cfg.nhead[i], cfg.self_attn, dtype=dt))
+                        blocks.append(
+                            AttnBlock(c, cfg.c_cond, cfg.nhead[i], cfg.self_attn, dtype=dt, kernel=attn_route(rep))
+                        )
                     else:
                         raise ValueError(f"block type {bt!r} is not ported")
             return blocks

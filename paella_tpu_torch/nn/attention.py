@@ -3,7 +3,7 @@ runs this in XLA on the main path: attention_impl="xla"), the counterpart
 of `paella_tpu/nn/attention.py`."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +40,9 @@ def dot_product_attention(
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention(c, nhead, bias=True, batch_first=True)'s
     parameters (in_proj_weight (3c, c) packed q|k|v, in_proj_bias, out_proj),
-    so a reference state dict loads as it is, evaluated with
-    :func:`dot_product_attention` in the module's compute dtype."""
+    so a reference state dict loads as it is, evaluated in the module's
+    compute dtype with `attention_fn` as the core (dot_product_attention's
+    contract; kernels/attention.py::fused_attention is the other)."""
 
     def __init__(self, c: int, nhead: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -64,6 +65,7 @@ class MultiheadAttention(nn.Module):
         kv: torch.Tensor,
         kv_mask: Optional[torch.Tensor] = None,
         reweight: Optional[torch.Tensor] = None,
+        attention_fn: Callable = dot_product_attention,
     ) -> torch.Tensor:
         dt = self.dtype
         c, nh = self.c, self.nhead
@@ -73,7 +75,7 @@ class MultiheadAttention(nn.Module):
         xk, xv = xkv.split(c, dim=-1)
         b, n, _ = xq.shape
         s = xk.shape[1]
-        out = dot_product_attention(
+        out = attention_fn(
             xq.reshape(b, n, nh, c // nh),
             xk.reshape(b, s, nh, c // nh),
             xv.reshape(b, s, nh, c // nh),

@@ -15,9 +15,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import fused_attention
+from ..kernels.attn_block import AttnBlockWeights, fused_attn_block, prepare_attn_block_weights
 from ..kernels.resblock import ResBlockWeights, fused_resblock, prepare_resblock_weights
 from . import init
-from .attention import MultiheadAttention
+from .attention import MultiheadAttention, dot_product_attention
 from .functional import layer_norm
 
 
@@ -159,7 +161,7 @@ class _Attention2D(nn.Module):
         self.attn = MultiheadAttention(c, nhead, dtype=dtype)
 
 
-class AttnBlock(nn.Module):
+class AttnBlock(DerivedWeights):
     """Joint self+cross attention over the spatial map (reference:
     src/modules.py:65-79): LN(x) pixel tokens followed by the mapped
     conditioning tokens form the kv sequence of one attention call.
@@ -167,11 +169,29 @@ class AttnBlock(nn.Module):
     cond_mask (B, S_cond) masks absent conditioning tokens; cond_reweight
     multiplies post-softmax attention toward conditioning tokens. `kv` takes
     the precomputed kv_mapper output (Paella.gen_cond_cache); without it the
-    block maps `cond` itself."""
+    block maps `cond` itself.
 
-    def __init__(self, c: int, c_cond: int, nhead: int, self_attn: bool = True, dtype=torch.float32):
+    `kernel` is the block's route, fixed when the model is built
+    (models/denoiser.py, as the JAX forward picks it at fused_blocks=True):
+      None          the module path with plain torch attention
+      "attention"   the module path with kernel K5 as the attention core
+                    (kernels/attention.py, the JAX attention_impl="pallas")
+      "attn_block"  the whole block as kernel K6 (kernels/attn_block.py, the
+                    JAX attn_block_kernel=True), kv from the cond cache
+    A call with cond_reweight takes the plain module path whatever the route,
+    and a block without self-attention has no kernel route."""
+
+    ROUTES = (None, "attention", "attn_block")
+
+    def __init__(
+        self, c: int, c_cond: int, nhead: int, self_attn: bool = True, dtype=torch.float32,
+        kernel: Optional[str] = None,
+    ):
         super().__init__()
-        self.self_attn, self.dtype = self_attn, dtype
+        if kernel not in self.ROUTES:
+            raise ValueError(f"AttnBlock kernel {kernel!r}: one of {self.ROUTES}")
+        self.self_attn, self.dtype, self.nhead = self_attn, dtype, nhead
+        self.kernel = kernel if self_attn else None
         self.kv_mapper = nn.Sequential(nn.SiLU(), nn.Linear(c_cond, c))
         self.attention = _Attention2D(c, nhead, dtype)
 
@@ -185,6 +205,15 @@ class AttnBlock(nn.Module):
         lin = self.kv_mapper[1]
         return F.linear(F.silu(cond).to(dt), lin.weight.to(dt), lin.bias.to(dt))
 
+    def kernel_weights(self) -> AttnBlockWeights:
+        a = self.attention.attn
+        return self.derived(
+            "kernel",
+            lambda: prepare_attn_block_weights(
+                a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias, self.dtype
+            ),
+        )
+
     def forward(
         self,
         x: torch.Tensor,
@@ -196,6 +225,12 @@ class AttnBlock(nn.Module):
         b, h, w, c = x.shape
         if kv is None:
             kv = self.map_cond(cond)
+        kernel = self.kernel if cond_reweight is None else None
+        if kernel == "attn_block":
+            dt = self.dtype
+            return fused_attn_block(
+                x.to(dt).contiguous(), kv.to(dt).contiguous(), self.kernel_weights(), self.nhead, cond_mask
+            )
         tokens = layer_norm(x).reshape(b, h * w, c)
         n_pix = h * w if self.self_attn else 0
         kv_full = torch.cat([tokens.to(kv.dtype), kv], dim=1) if self.self_attn else kv
@@ -208,7 +243,8 @@ class AttnBlock(nn.Module):
             cw = torch.broadcast_to(cond_reweight, (b, kv.shape[1]))
             pix_w = torch.ones((b, n_pix), dtype=cw.dtype, device=x.device)
             reweight = torch.cat([pix_w, cw], dim=-1)[:, None, None, :]
-        out = self.attention.attn(tokens, kv_full, kv_mask=kv_mask, reweight=reweight)
+        attention_fn = fused_attention if kernel == "attention" else dot_product_attention
+        out = self.attention.attn(tokens, kv_full, kv_mask=kv_mask, reweight=reweight, attention_fn=attention_fn)
         return x + out.reshape(b, h, w, c).to(x.dtype)
 
 

@@ -107,6 +107,14 @@ def test_fc2_split_policy():
     assert kres.fc2_splits(64, 64, 132) == 2  # K = 256: 8 tiles, at least 4 per split
 
 
+def test_grn_slots():
+    """How many batch items one 64-row M-tile of fc1 touches, the slots per
+    tile of the kernel's GRN partials: one at the flagship's shapes (tiles
+    never straddle two images), more where hw is not a multiple of 64."""
+    assert [kres.grn_slots(2, hw) for hw in (1024, 256, 64)] == [1, 1, 1]
+    assert [kres.grn_slots(*a) for a in ((1, 35), (3, 35), (2, 16), (16, 4))] == [1, 2, 2, 16]
+
+
 def test_wrapper_refuses_devices_without_a_kernel():
     a = make_inputs(0, b=1, hw=4)
     with pytest.raises(ValueError, match="no kernel"):
