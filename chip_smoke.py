@@ -39,14 +39,31 @@ limit):
                single requests whose PNGs equal the pipeline's images, a
                repeated request byte-identical, a micro-batch of three
                concurrent requests against the single path, HTTP p50
-Then a JSON line of the kernels, the card's name and power limit, and, last,
-{"ok": true, "device": {...}}. Any failed check raises; without a CUDA device
-the script exits non-zero and prints no result.
+ 12. K1b       the ResBlock kernel with int8 fc weights (quantized as
+               quant.quantize_paella_int8 does), weight-only and W8A8, at the
+               four K1 shapes in bf16 (weight-only also f32 at one): against
+               its plain version, two runs bitwise equal, an image's output
+               equal at batch 2 and 8, and timed beside the float K1
+ 13. int8 e2e  the flagship with every ResBlock quantized
+               (quantize_paella_int8 over fuse_eligible_levels, include_first),
+               weight-only and W8A8: one CFG forward's launch counts (56 K1b,
+               no K1) and features against the plain versions on the card;
+               the ByT5-XL encoder (seeded, bf16, and quantize_t5_int8 in
+               both modes) encode p50s; text_to_image at 8 steps with each
+               mode's encoder as byt5_encode_fn, in turns with the bf16
+               pipeline; the W8A8 quality proxies' rows
+Then a JSON line of the kernels (each with its time, plain version's time,
+bound and, where one PyTorch call computes the same function, that call's
+time), the card's name and power limit, and, last, {"ok": true, "device":
+{...}}. Any failed check raises; without a CUDA device the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -123,8 +140,8 @@ def launch_counters():
     from paella_tpu_torch.kernels import resblock as k_res
     from paella_tpu_torch.kernels import sampling as k_samp
 
-    kernels = (k_res.fused_resblock, k_samp.fused_head_categorical, k_samp.gumbel_categorical,
-               k_q.fused_codebook_lookup, k_att.fused_attention, k_blk.fused_attn_block)
+    kernels = (k_res.fused_resblock, k_samp.fused_head_categorical,
+               k_samp.gumbel_categorical, k_q.fused_codebook_lookup, k_att.fused_attention, k_blk.fused_attn_block)
     plains = (k_res.resblock_plain, k_samp.head_categorical_plain, k_samp.gumbel_categorical_plain,
               k_q.codebook_lookup_plain, k_att.attention_plain, k_blk.attn_block_plain)
     return kernels, plains
@@ -132,15 +149,22 @@ def launch_counters():
 
 def counted(fn):
     """Run fn() with every launch count set to 0 just before; return its
-    result and the counts read just after (synchronized)."""
+    result and the counts read just after (synchronized). fused_resblock's
+    launches are also read per mode, as `fused_resblock[float]` (K1),
+    `fused_resblock[int8]` and `fused_resblock[w8a8]` (K1b)."""
     import torch
+
+    from paella_tpu_torch.kernels.resblock import fused_resblock
 
     kernels, plains = launch_counters()
     for f in kernels + plains:
         f.launches = 0
+    by_mode = fused_resblock.launches_by_mode
+    by_mode.update(dict.fromkeys(by_mode, 0))
     out = fn()
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in kernels + plains}
+    launches.update({f"fused_resblock[{m}]": n for m, n in by_mode.items()})
     for f in plains:
         check(launches[f.__name__] == 0, f"{f.__name__} ran on the card")
     return out, launches
@@ -170,20 +194,54 @@ def phase_build(tag: str) -> dict:
     return {"build_s": secs}
 
 
-def random_resblock(c: int, cpg: int, dtype, gen):
+def random_resblock(c: int, cpg: int, dtype, gen, mode: str = "float"):
+    """Random ResBlock weights in the kernel's layout; mode "int8" or "w8a8"
+    quantizes fc1 and fc2 as quant.quantize_paella_int8 does."""
     import torch
 
     from paella_tpu_torch.kernels.resblock import prepare_resblock_weights
+    from paella_tpu_torch.quant import quantize_dense_int8
 
     dev = "cuda"
     r = lambda *s, std: torch.randn(*s, generator=gen, device=dev) * std  # noqa: E731
-    return prepare_resblock_weights(
-        r(c, cpg, 3, 3, std=0.2), r(c, std=0.1),
-        r(4 * c, c, std=c**-0.5), r(4 * c, std=0.1),
-        r(4 * c, std=0.2), r(4 * c, std=0.2),
-        r(c, 4 * c, std=(4 * c) ** -0.5), r(c, std=0.1),
-        dtype,
-    )
+    dw, dw_b, w1, b1 = r(c, cpg, 3, 3, std=0.2), r(c, std=0.1), r(4 * c, c, std=c**-0.5), r(4 * c, std=0.1)
+    gamma, beta, w2, b2 = r(4 * c, std=0.2), r(4 * c, std=0.2), r(c, 4 * c, std=(4 * c) ** -0.5), r(c, std=0.1)
+    scales = {}
+    if mode != "float":
+        (w1, s1), (w2, s2) = quantize_dense_int8(w1), quantize_dense_int8(w2)
+        scales = dict(fc1_scale=s1, fc2_scale=s2, act_quant=mode == "w8a8")
+    return prepare_resblock_weights(dw, dw_b, w1, b1, gamma, beta, w2, b2, dtype, **scales)
+
+
+# published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): the
+# bound of a kernel is the larger of its bytes over HBM and its operations
+# over the peak of their type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """bound_ms and bound_by for a call that must move `nbytes` (each input
+    read once, each output written once) and do `ops` operations of `kind`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def resblock_bound(x, w, film, skip) -> dict:
+    """K1/K1b: inputs, weights and output bytes; the two products' 16 M C^2
+    operations (the depthwise conv, LN, GELU and GRN add under 1%), at the
+    rate of the type they run in: bf16 or f32 over the codes widened to x's
+    dtype (float and weight-only), int8 (W8A8)."""
+    import torch
+
+    b, hh, ww, c = x.shape
+    weights = [v for v in w if isinstance(v, torch.Tensor)]
+    kind = "int8" if w.act_quant else ("bf16" if x.dtype == torch.bfloat16 else "f32")
+    return bound(nbytes_of(x, film, skip, *weights) + nbytes_of(x), 16 * b * hh * ww * c * c, kind)
 
 
 def phase_k1(tag: str) -> dict:
@@ -192,7 +250,7 @@ def phase_k1(tag: str) -> dict:
     from paella_tpu_torch.kernels.resblock import fused_resblock, resblock_plain
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    result = {"max_abs_err": 0.0}
+    result = {"max_abs_err": 0.0, "shapes": {}}
     for b, hh, ww, c, with_skip in RESBLOCK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             w = random_resblock(c, 2 if with_skip else 1, dtype, gen)
@@ -210,10 +268,11 @@ def phase_k1(tag: str) -> dict:
                 lambda: resblock_plain(x, w, film=film, skip=skip),
             )
             dname = "f32" if dtype == torch.float32 else "bf16"
+            bd = resblock_bound(x, w, film, skip)
             print(
                 f"[K1] fused_resblock ({b},{hh},{ww},{c}) skip={with_skip} {dname}: "
                 f"max_abs_err {err:.3e} rel {rel:.3e} (limit {'abs 1e-3' if dtype == torch.float32 else 'rel 2e-2'}); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({tag})"
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({tag})"
             )
             if (b, hh, ww, c, with_skip, dtype) == (2, 32, 32, 640, False, torch.bfloat16):
                 same = torch.equal(fused_resblock(x, w, film=film), fused_resblock(x, w, film=film))
@@ -225,8 +284,9 @@ def phase_k1(tag: str) -> dict:
             else:
                 check(rel <= 2e-2, f"K1 bf16 relative error {rel} > 2e-2")
                 result["max_abs_err"] = max(result["max_abs_err"], err)
+                result["shapes"][f"({b},{hh},{ww},{c}) skip={with_skip}"] = {"ms": ms, "plain_ms": plain_ms, **bd}
                 if (b, hh, ww, c, with_skip) == K1_SHAPE:
-                    result.update(ms=ms, plain_ms=plain_ms)
+                    result.update(ms=ms, plain_ms=plain_ms, **bd)
     return result
 
 
@@ -270,7 +330,9 @@ def phase_k2(tag: str) -> dict:
         check(agree >= 0.999, f"K2 {dname} token agreement {agree} < 0.999")
         check(bool(((got >= 0) & (got < k)).all()), "K2 tokens out of range")
         if dtype == torch.bfloat16:
-            result.update(agree=agree, max_abs_err=gap, ms=ms, plain_ms=plain_ms)
+            # the head product 2 x 4096 x 256 x 8192 (the CFG mix and the draw are elementwise)
+            result.update(agree=agree, max_abs_err=gap, ms=ms, plain_ms=plain_ms,
+                          **bound(nbytes_of(fc, fu, w_out, got), 2 * 64 * 64 * c * k, "bf16"))
         zero = torch.zeros_like(w_out)
         z_args = (seeds, fc, fu, 8.0, zero, 0.7)
         z_agree = (fused_head_categorical(*z_args) == head_categorical_plain(*z_args)).float().mean().item()
@@ -324,7 +386,9 @@ def phase_k3(tag: str) -> dict:
         check(agree == 1.0, f"K3 {dname} token agreement {agree} < 1")
         check(bool(((got >= 0) & (got < 8192)).all()), "K3 tokens out of range")
         if dtype == torch.bfloat16:
-            result.update(max_abs_err=gap, ms=ms, plain_ms=plain_ms)
+            # 3 f32 operations a logit (scale by 1/T, add the noise, compare); the
+            # hash is integer work and the two logs go to the special-function units
+            result.update(max_abs_err=gap, ms=ms, plain_ms=plain_ms, **bound(nbytes, 3 * logits.numel(), "f32"))
     return result
 
 
@@ -368,7 +432,9 @@ def phase_k4(tag: str) -> dict:
         check(bool(((got >= 0) & (got < 8192)).all()), "K4 indices out of range")
         result["max_abs_err"] = max(result["max_abs_err"], gap)
         if name == "N(0,1)":
-            result.update(ms=ms, plain_ms=plain_ms, mismatches=int(bad.sum()))
+            # the distance of a (token, code) pair: 4 multiply-adds against the precomputed norms
+            result.update(ms=ms, plain_ms=plain_ms, mismatches=int(bad.sum()),
+                          **bound(nbytes_of(z, cb, got), z.numel() // 4 * 8192 * 8, "f32"))
     return result
 
 
@@ -449,7 +515,7 @@ def phase_e2e(tag: str) -> dict:
     image = to_uint8(img)
     print(f"[e2e] launches in one generation: {json.dumps(launches)}")
     check_launches("8-step generation", launches, {
-        "fused_resblock": K1_PER_FORWARD * STEPS, "fused_head_categorical": STEPS, "gumbel_categorical": 0,
+        "fused_resblock[float]": K1_PER_FORWARD * STEPS, "fused_head_categorical": STEPS, "gumbel_categorical": 0,
         "fused_attention": 0, "fused_attn_block": 0,
     })
     check(tuple(tokens.shape) == LATENT and tokens.dtype == torch.int32, f"tokens {tuple(tokens.shape)} {tokens.dtype}")
@@ -526,12 +592,11 @@ def phase_pipeline(tag: str) -> dict:
     print(f"[pipeline] flagship denoiser + VQConfig() codec (encoder included) built on the card in {time.perf_counter() - t0:.1f} s")
     steps = 12  # SampleConfig() as users call it: 12 steps, cfg 8, the "xla" route
     forward = K1_PER_FORWARD * steps
-    kernels, _ = launch_counters()
     taps = []  # token grids on their way to the decoder
     decode_clipped = pipe._decode_clipped
     pipe._decode_clipped = lambda tokens: (taps.append(tokens), decode_clipped(tokens))[1]
     prompt = "a red car on a beach"
-    result = {"calls": {}, "launches": {fn.__name__: 0 for fn in kernels}}
+    result = {"calls": {}, "launches": {}}
 
     def seeds(i: int):
         return torch.tensor([[i, 0xC0FFEE]], dtype=torch.int64)
@@ -554,12 +619,12 @@ def phase_pipeline(tag: str) -> dict:
         )
         check(ok, f"{name}: image {tuple(out.shape)} (want {shape}), finite and in [0, 1]")
         check_launches(name, launches, expect)
-        for f in kernels:
-            result["launches"][f.__name__] += launches[f.__name__]
-        result["calls"][name] = {"p50_ms": p50, "launches": {f.__name__: launches[f.__name__] for f in kernels}}
+        for k, n in launches.items():
+            result["launches"][k] = result["launches"].get(k, 0) + n
+        result["calls"][name] = {"p50_ms": p50, "launches": launches}
         return out, tokens
 
-    gen_counts = {"fused_resblock": forward, "fused_head_categorical": 0, "gumbel_categorical": steps,
+    gen_counts = {"fused_resblock[float]": forward, "fused_head_categorical": 0, "gumbel_categorical": steps,
                   "fused_attention": 0, "fused_attn_block": 0}
     image, _ = run("text_to_image", lambda i: pipe.text_to_image([prompt], seeds(i)),
                    {**gen_counts, "fused_codebook_lookup": 0}, (1, 256, 256, 3))
@@ -684,6 +749,7 @@ def attention_masks(b: int, n: int, s_c: int, gen):
 
 def phase_k5(tag: str) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from paella_tpu_torch.kernels.attention import attention_plain, fused_attention
 
@@ -713,8 +779,24 @@ def phase_k5(tag: str) -> dict:
             check(ok, f"K5 level {level} {dname} max abs error {err} > {limit}")
             check(same, f"K5 level {level} {dname} gave different outputs on two runs")
             if dtype == torch.bfloat16:
+                # the yardstick: one PyTorch call of the same function, scaled dot
+                # product attention with the mask as an additive -1e9 (timed only)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                add = torch.zeros(b, 1, 1, s, device="cuda", dtype=dtype).masked_fill(~mask[:, None, None, :], -1e9)
+                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)  # noqa: E731
+                lib_err, lib_limit, lib_ok = attention_error(sdpa().transpose(1, 2), want)
+                ms_again, library_ms = alternate(lambda: fused_attention(q, k, v, mask), sdpa)
+                print(
+                    f"[K5] level {level} bf16, in turns with F.scaled_dot_product_attention (additive mask): kernel "
+                    f"{ms_again:.4f} ms, SDPA {library_ms:.4f} ms (its max_abs_err to the plain version {lib_err:.3e}, "
+                    f"limit {lib_limit:.3e}) ({tag})"
+                )
+                check(lib_ok, f"SDPA computes another function at level {level}: error {lib_err}")
                 result["max_abs_err"] = max(result["max_abs_err"], err)
-                result.setdefault("levels", {})[level] = {"ms": ms, "plain_ms": plain_ms}
+                result.setdefault("levels", {})[level] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    **bound(nbytes_of(q, k, v, mask, got), flops, "bf16"),  # QK^T and PV once each
+                }
     result.update(result["levels"][1])
     return result
 
@@ -756,7 +838,11 @@ def phase_k6(tag: str) -> dict:
             check(same, f"K6 level {level} {dname} gave different outputs on two runs")
             if dtype == torch.bfloat16:
                 result["max_abs_err"] = max(result["max_abs_err"], err)
-                result.setdefault("levels", {})[level] = {"ms": ms, "plain_ms": plain_ms}
+                weights = [t for t in w if isinstance(t, torch.Tensor)]
+                result.setdefault("levels", {})[level] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **bound(nbytes_of(x, kv, cmask, got, *weights), flops, "bf16"),
+                }
     result.update(result["levels"][1])
     return result
 
@@ -936,6 +1022,268 @@ def phase_serve(tag: str) -> dict:
     return {"launches": launches, "http_p50_ms": http_p50, "batch_pixel_share": same, "batch_exact": exact}
 
 
+def phase_k1b(tag: str) -> dict:
+    """K1b, both int8 modes, at the flagship's ResBlock shapes: against its
+    plain version, run twice, at batch 2 and 8, and timed beside the float
+    K1 on float weights of the same shape."""
+    import torch
+
+    from paella_tpu_torch.kernels.resblock import fused_resblock, resblock_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    result = {"max_abs_err": 0.0, "modes": {}}
+    for b, hh, ww, c, with_skip in RESBLOCK_SHAPES:
+        cpg = 2 if with_skip else 1
+        cases = [("int8", torch.bfloat16), ("w8a8", torch.bfloat16)]
+        if (b, hh, ww, c, with_skip) == K1_SHAPE:
+            cases.append(("int8", torch.float32))
+        for mode, dtype in cases:
+            w = random_resblock(c, cpg, dtype, gen, mode)
+            w_float = random_resblock(c, cpg, dtype, gen)
+            x8 = torch.randn(8, hh, ww, c, generator=gen, device="cuda").to(dtype)
+            skip8 = torch.randn(8, hh, ww, c, generator=gen, device="cuda").to(dtype) if with_skip else None
+            film8 = (torch.randn(8, 2 * c, generator=gen, device="cuda") * 0.2).to(dtype)
+            x, skip, film = x8[:b], None if skip8 is None else skip8[:b], film8[:b]
+            run = lambda: fused_resblock(x, w, film=film, skip=skip)  # noqa: E731
+            plain = lambda: resblock_plain(x, w, film=film, skip=skip)  # noqa: E731
+            got, want, again = run(), plain(), run()
+            big = fused_resblock(x8, w, film=film8, skip=skip8)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "K1b output not finite")
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            equal = (got == want).float().mean().item()
+            same, invariant = torch.equal(got, again), torch.equal(big[:b], got)
+            ms, plain_ms = alternate(run, plain)
+            ms_again, float_ms = alternate(run, lambda: fused_resblock(x, w_float, film=film, skip=skip))
+            bd = resblock_bound(x, w, film, skip)
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            # f32: K1's f32 limit. bf16: K1's 2e-2 of the largest output; in W8A8
+            # an s8 code at a rounding tie may round the other way when the f32
+            # values before it differ in their last ulp, which moves its row by
+            # one quantization step (1/127 of the row's scale)
+            limit = 1e-3 if dtype == torch.float32 else 2e-2 * scale
+            print(
+                f"[K1b] fused_resblock {mode} ({b},{hh},{ww},{c}) skip={with_skip} {dname} + FiLM: max_abs_err "
+                f"{err:.3e} (limit {limit:.3e}), elements equal to the plain version's {equal:.6f}; two runs bitwise "
+                f"equal: {same}; batch 2 = batch 8[:2]: {invariant}; kernel {ms:.4f} ms (again {ms_again:.4f}), float "
+                f"K1 {float_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({tag})"
+            )
+            check(err <= limit, f"K1b {mode} {dname} ({b},{hh},{ww},{c}) max abs error {err} > {limit}")
+            check(dtype == torch.float32 or equal >= 0.99,
+                  f"K1b {mode} bf16: {equal} of elements equal to the plain version's < 0.99")
+            check(same, f"K1b {mode} gave different outputs on two runs")
+            check(invariant, f"K1b {mode}: an image's output depends on its batchmates")
+            if dtype == torch.bfloat16:
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                if (b, hh, ww, c, with_skip) == K1_SHAPE:
+                    result["modes"][mode] = {"ms": ms, "plain_ms": plain_ms, "float_k1_ms": float_ms,
+                                             "equal_share": equal, **bd}
+    result.update(result["modes"]["w8a8"])
+    return result
+
+
+@contextlib.contextmanager
+def plain_resblocks():
+    """Inside: every int8 ResBlock of a model on the card runs K1b's plain
+    version (its wrapper would launch the kernel)."""
+    from paella_tpu_torch.kernels.resblock import resblock_plain
+    from paella_tpu_torch.nn import blocks
+
+    kernel = blocks.fused_resblock
+    blocks.fused_resblock = lambda x, w, film=None, skip=None: resblock_plain(x, w, film=film, skip=skip)
+    try:
+        yield
+    finally:
+        blocks.fused_resblock = kernel
+
+
+def phase_int8_e2e(tag: str) -> dict:
+    """The int8 inference path at the flagship: every ResBlock quantized
+    (quantize_paella_int8 over fuse_eligible_levels with include_first),
+    weight-only and W8A8: one CFG forward against the plain versions on the
+    card, then PaellaPipeline.text_to_image with the ByT5-XL encoder in the
+    same mode, in turns with the bf16 pipeline; the encode alone; the W8A8
+    quality proxies."""
+    import torch
+
+    from paella_tpu_torch import PaellaPipeline
+    from paella_tpu_torch.cond import T5Config, T5Encoder, byt5_batch_encode, pad_bucket
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.quant import (
+        fuse_eligible_levels,
+        quantize_paella_int8,
+        quantize_t5_int8,
+        t5_w8a8_quality_proxy,
+        w8a8_proxy_verdict,
+        w8a8_quality_proxy,
+    )
+    from paella_tpu_torch.sampling.sampler import merge_cfg_pair
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    model, vq, p_cfg = build_flagship(gen)
+    levels = fuse_eligible_levels(p_cfg)
+    check(levels == (0, 1, 2), f"fuse_eligible_levels of the flagship: {levels}")
+    denoisers = {"bf16": model}
+    for mode in ("int8", "w8a8"):
+        q = quantize_paella_int8(model, levels=levels, include_first=True)
+        q.config = dataclasses.replace(p_cfg, act_quant=mode == "w8a8")
+        denoisers[mode] = q
+    torch.cuda.synchronize()
+    print(f"[int8 e2e] flagship built and quantized at levels {levels} (all 56 ResBlocks) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    result = {"launches": {}}
+
+    def add_launches(counts):
+        for k, n in counts.items():
+            result["launches"][k] = result["launches"].get(k, 0) + n
+
+    # one CFG forward per mode: launch counts, and features against the same
+    # codes through the plain versions on the card. Both bf16 routes lie about
+    # their rounding error from the f32 forward of the same codes (plain
+    # versions, f32 activations): the kernels must come within 1.5x the plain
+    # bf16 route's distance to it, as in the attention phase.
+    cond, uncond = flagship_conditioning(p_cfg, gen)
+    pair = merge_cfg_pair(cond, uncond)
+    cache_args = (pair.byt5, pair.clip, pair.clip_image)
+    cache_kw = dict(byt5_mask=pair.byt5_mask, clip_mask=pair.clip_mask, clip_image_mask=pair.clip_image_mask)
+    x = torch.randint(0, p_cfg.num_labels, (2, 64, 64), generator=gen, device="cuda")
+    r = torch.full((2,), 0.6, device="cuda")
+    with torch.device("cuda"):
+        f32 = quantize_paella_int8(Paella(dataclasses.replace(p_cfg, dtype="float32")), levels=levels, include_first=True)
+    f32.load_state_dict(denoisers["int8"].state_dict())
+    f32.eval()
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()  # noqa: E731
+    for mode in ("int8", "w8a8"):
+        qm = denoisers[mode]
+        cache = qm.gen_cond_cache(*cache_args, **cache_kw)
+        feats, launches = counted(lambda: qm(x, r, return_features=True, cond_cache=cache))
+        add_launches(launches)
+        check_launches(f"{mode} forward", launches, {
+            "fused_resblock[float]": 0, "fused_resblock[int8]": K1_PER_FORWARD if mode == "int8" else 0,
+            "fused_resblock[w8a8]": K1_PER_FORWARD if mode == "w8a8" else 0,
+        })
+        f32.config = dataclasses.replace(qm.config, dtype="float32")
+        with plain_resblocks():
+            want = qm(x, r, return_features=True, cond_cache=cache)
+            ref = f32(x, r, return_features=True,
+                      cond_cache=f32.gen_cond_cache(*(t.float() for t in cache_args), **cache_kw))
+        err, floor, apart = rel(feats, ref), rel(want, ref), rel(feats, want)
+        print(
+            f"[int8 e2e] {mode} CFG forward: launches {json.dumps(launches)}; features (2,64,64,{p_cfg.c_out}) "
+            f"relative L2 to the f32 forward of the same codes (plain versions): kernels bf16 {err:.3e} (limit 1.5 x "
+            f"{floor:.3e}, the plain versions' bf16 route's), kernels to plain bf16 {apart:.3e} apart ({tag})"
+        )
+        check(bool(torch.isfinite(feats).all()), f"{mode} features not finite")
+        check(err <= 1.5 * floor, f"{mode} features {err} from the f32 forward > 1.5 x {floor}")
+        result[f"{mode}_feature_rel_l2"] = err
+    del f32
+    torch.cuda.empty_cache()
+
+    # the ByT5-XL encoder (seeded, bf16) and its two int8 modes
+    t1 = time.perf_counter()
+    t5_cfg = T5Config.byt5_xl()
+    with torch.device("cuda"):
+        t5 = T5Encoder(t5_cfg)
+    t5.reset_parameters(gen)
+    t5 = t5.to(torch.bfloat16).eval()
+    encoders = {"bf16": t5}
+    for mode in ("int8", "w8a8"):
+        enc = quantize_t5_int8(t5)
+        enc.config = dataclasses.replace(t5_cfg, act_quant=mode == "w8a8")
+        encoders[mode] = enc
+    torch.cuda.synchronize()
+    print(f"[int8 e2e] ByT5-XL encoder (36 layers, d_model 2560) built and quantized in {time.perf_counter() - t1:.1f} s")
+    prompt = "a red car on a beach"
+    ids, mask = byt5_batch_encode([prompt], max_length=768)
+    width = pad_bucket(ids.shape[1])
+    ids = torch.nn.functional.pad(torch.from_numpy(ids), (0, width - ids.shape[1])).cuda()
+    mask = torch.nn.functional.pad(torch.from_numpy(mask), (0, width - mask.shape[1])).cuda()
+    states = {m: enc(ids, mask) for m, enc in encoders.items()}
+    # the f32 encoder of the same bf16 weights: how far bf16 rounding alone
+    # moves the states (random T5 weights without 1/sqrt(d) scaling attend
+    # almost one-hot, so 36 layers magnify any change)
+    with torch.device("cuda"):
+        t5_f32 = T5Encoder(dataclasses.replace(t5_cfg, dtype="float32"))
+    t5_f32.load_state_dict(t5.state_dict())
+    ref = t5_f32.eval()(ids, mask)
+    del t5_f32
+    torch.cuda.synchronize()
+    for m, s in states.items():
+        check(tuple(s.shape) == (1, width, t5_cfg.d_model) and bool(torch.isfinite(s).all()), f"ByT5 {m} states")
+    enc_times = {m: [] for m in encoders}
+    for i in range(TIMED_RUNS):
+        for m in encoders if i % 2 == 0 else reversed(list(encoders)):
+            t2 = time.perf_counter()
+            encoders[m](ids, mask)
+            torch.cuda.synchronize()
+            enc_times[m].append(time.perf_counter() - t2)
+    enc_p50 = {m: sorted(v)[TIMED_RUNS // 2] * 1e3 for m, v in enc_times.items()}
+    print(
+        f"[int8 e2e] ByT5-XL encode, 1 prompt at bucket {width}, in turns: p50 bf16 {enc_p50['bf16']:.2f} ms, int8 "
+        f"weight-only {enc_p50['int8']:.2f} ms, W8A8 {enc_p50['w8a8']:.2f} ms over {TIMED_RUNS} runs; states "
+        f"relative L2 to the f32 encoder of the same weights: bf16 {rel(states['bf16'], ref):.3e}, int8 "
+        f"{rel(states['int8'], ref):.3e}, W8A8 {rel(states['w8a8'], ref):.3e} ({tag})"
+    )
+    result["byt5_encode_p50_ms"] = enc_p50
+
+    # the pipeline, each mode's denoiser with its encoder
+    _, clip_text_fn = flagship_towers(p_cfg, gen)
+    pipes = {m: PaellaPipeline(denoisers[m], vq, encoders[m], clip_text_fn=clip_text_fn, text_cache_size=0)
+             for m in denoisers}
+    s_cfg = SampleConfig(steps=STEPS)
+
+    def generate(m, i):
+        return pipes[m].text_to_image([prompt], torch.tensor([[i, 0x1B8]], dtype=torch.int64), config=s_cfg)
+
+    images = {}
+    for m in pipes:
+        images[m], launches = counted(lambda: generate(m, 42))
+        add_launches(launches)
+        per_gen = K1_PER_FORWARD * STEPS
+        check_launches(f"{m} text_to_image", launches, {
+            "fused_resblock[float]": per_gen if m == "bf16" else 0, "fused_resblock[int8]": per_gen if m == "int8" else 0,
+            "fused_resblock[w8a8]": per_gen if m == "w8a8" else 0,
+            "gumbel_categorical": STEPS, "fused_head_categorical": 0,
+        })
+        img = images[m]
+        ok = tuple(img.shape) == (1, 256, 256, 3) and bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
+        print(f"[int8 e2e] {m} text_to_image ({STEPS} steps, ByT5-XL {m}): launches {json.dumps(launches)}; image "
+              f"{tuple(img.shape)} in [0, 1], finite: {ok} ({tag})")
+        check(ok, f"{m} text_to_image image")
+        generate(m, 1000)  # warm-up
+    times = {m: [] for m in pipes}
+    for i in range(TIMED_RUNS):  # in turns, the order reversed every other round
+        for m in pipes if i % 2 == 0 else reversed(list(pipes)):
+            t2 = time.perf_counter()
+            generate(m, i).cpu()
+            times[m].append(time.perf_counter() - t2)
+    p50 = {m: sorted(v)[TIMED_RUNS // 2] * 1e3 for m, v in times.items()}
+    print(
+        f"[int8 e2e] 256x256 text_to_image, {STEPS} steps CFG, batch 1, ByT5 encode included, in turns: p50 bf16 "
+        f"{p50['bf16']:.2f} ms (min {min(times['bf16']) * 1e3:.2f}), int8 weight-only {p50['int8']:.2f} ms (min "
+        f"{min(times['int8']) * 1e3:.2f}), W8A8 {p50['w8a8']:.2f} ms (min {min(times['w8a8']) * 1e3:.2f}) over "
+        f"{TIMED_RUNS} runs each ({tag})"
+    )
+    result["text_to_image_p50_ms"] = p50
+    del pipes, encoders, states
+    torch.cuda.empty_cache()
+
+    # the W8A8 go/no-go proxies at the flagship (random weights: printed,
+    # held to finiteness only)
+    rows = w8a8_quality_proxy(model, torch.Generator(device="cuda").manual_seed(21))
+    t5_rows = t5_w8a8_quality_proxy(t5, model, torch.Generator(device="cuda").manual_seed(22))
+    for name, rs in (("denoiser", rows), ("ByT5", t5_rows)):
+        check(all(math.isfinite(v) for row in rs for v in row.values()), f"{name} W8A8 proxy rows not finite")
+        print(f"[int8 e2e] {name} W8A8 quality proxy rows {json.dumps(rs)}; {w8a8_proxy_verdict(rs)[1]} ({tag})")
+    result["proxy_rows"] = {"denoiser": rows, "byt5": t5_rows}
+    del model, vq, denoisers, t5
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -969,53 +1317,44 @@ def main() -> int:
     k6 = phase_k6(tag)
     attn = phase_attention_e2e(tag)
     served = phase_serve(tag)
+    k1b = phase_k1b(tag)
+    int8 = phase_int8_e2e(tag)
     launches = {}
-    for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"]):
+    for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], int8["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
+
+    def entry(name: str, source: str, replaces: str, res: dict, shape: str, counts=None, **extra) -> dict:
+        return {
+            "name": name, "route": "cuda", "source": f"paella_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": sum(launches[k] for k in counts or [name]), "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res.get("library_ms"),
+            "shape": shape, **extra,
+        }
+
     kernels = [
-        {
-            "name": "fused_resblock", "route": "cuda", "source": "paella_tpu_torch/csrc/resblock.cu",
-            "replaces": "paella_tpu/kernels/resblock.py:316",
-            "launches": launches["fused_resblock"], "max_abs_err": k1["max_abs_err"],
-            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "shape": "x (2,16,16,1280) bf16 + FiLM",
-        },
-        {
-            "name": "fused_head_categorical", "route": "cuda", "source": "paella_tpu_torch/csrc/sampling.cu",
-            "replaces": "paella_tpu/kernels/sampling.py:151",
-            "launches": launches["fused_head_categorical"], "max_abs_err": k2["max_abs_err"],
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "shape": "feat (1,64,64,256) x2, W_out (8192,256) bf16",
-        },
-        {
-            "name": "gumbel_categorical", "route": "cuda", "source": "paella_tpu_torch/csrc/sampling.cu",
-            "replaces": "paella_tpu/kernels/sampling.py:224",
-            "launches": launches["gumbel_categorical"], "max_abs_err": k3["max_abs_err"],
-            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "shape": "logits (1,64,64,8192) bf16",
-        },
-        {
-            "name": "fused_codebook_lookup", "route": "cuda", "source": "paella_tpu_torch/csrc/quantize.cu",
-            "replaces": "paella_tpu/kernels/quantize.py:53",
-            "launches": launches["fused_codebook_lookup"], "max_abs_err": k4["max_abs_err"],
-            "ms": k4["ms"], "plain_ms": k4["plain_ms"], "shape": "z (1,64,64,4) f32, codebook (8192,4) f32",
-        },
-        {
-            "name": "fused_attention", "route": "cuda", "source": "paella_tpu_torch/csrc/attention.cu",
-            "replaces": "paella_tpu/kernels/attention.py:56",
-            "launches": launches["fused_attention"], "max_abs_err": k5["max_abs_err"],
-            "ms": k5["ms"], "plain_ms": k5["plain_ms"], "shape": "q (2,256,16,80), k/v (2,328,16,80) bf16, masked",
-        },
-        {
-            "name": "fused_attn_block", "route": "cuda", "source": "paella_tpu_torch/csrc/attn_block.cu",
-            "replaces": "paella_tpu/kernels/attn_block.py:178",
-            "launches": launches["fused_attn_block"], "max_abs_err": k6["max_abs_err"],
-            "ms": k6["ms"], "plain_ms": k6["plain_ms"], "shape": "x (2,16,16,1280), kv (2,72,1280) bf16, 16 heads, masked",
-        },
+        entry("fused_resblock", "resblock.cu", "paella_tpu/kernels/resblock.py:316", k1, "x (2,16,16,1280) bf16 + FiLM",
+              counts=["fused_resblock[float]"]),
+        entry("fused_resblock (int8 modes)", "resblock.cu", "paella_tpu/kernels/resblock.py:316 (int8 modes)", k1b,
+              "x (2,16,16,1280) bf16 + FiLM, W8A8 (both modes under 'modes')",
+              counts=["fused_resblock[int8]", "fused_resblock[w8a8]"], modes=k1b["modes"]),
+        entry("fused_head_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:151", k2,
+              "feat (1,64,64,256) x2, W_out (8192,256) bf16"),
+        entry("gumbel_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:224", k3, "logits (1,64,64,8192) bf16"),
+        entry("fused_codebook_lookup", "quantize.cu", "paella_tpu/kernels/quantize.py:53", k4,
+              "z (1,64,64,4) f32, codebook (8192,4) f32"),
+        entry("fused_attention", "attention.cu", "paella_tpu/kernels/attention.py:56", k5,
+              "q (2,256,16,80), k/v (2,328,16,80) bf16, masked"),
+        entry("fused_attn_block", "attn_block.cu", "paella_tpu/kernels/attn_block.py:178", k6,
+              "x (2,16,16,1280), kv (2,72,1280) bf16, 16 heads, masked"),
     ]
     print(json.dumps({
         "kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"],
         "pipeline_p50_ms": {name: c["p50_ms"] for name, c in pipe["calls"].items()}, "build_s": build["build_s"],
         "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
+        "k1_shapes": k1["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
+        "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"],
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

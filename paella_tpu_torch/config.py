@@ -4,9 +4,8 @@ the other.
 
 Fields that steer TPU-only workarounds or training are kept so that configs
 stay interchangeable, but the port reads none of them: `remat`,
-`remat_levels`, `attn_qkvo_2d`, `split_skip_levels`, `act_quant`,
-`fused_blocks` (PaellaConfig), `lookup_impl` (VQConfig) and `cond_cache`
-(SampleConfig). Where the JAX package chooses between its XLA path and a
+`remat_levels`, `attn_qkvo_2d`, `split_skip_levels`, `fused_blocks`
+(PaellaConfig), `lookup_impl` (VQConfig) and `cond_cache` (SampleConfig). Where the JAX package chooses between its XLA path and a
 Pallas kernel there, the port has one path: every ResBlock(+FiLM) pair goes
 through kernels/resblock.py (the port always runs the JAX forward of
 fused_blocks=True) and every codebook lookup through kernels/quantize.py,
@@ -24,6 +23,10 @@ Read, because their routes round differently:
   AttnBlock of every later repetition as kernel K6 (kernels/attn_block.py).
   Otherwise attention is plain torch, as in the JAX forward at
   fused_blocks=True (models/denoiser.py).
+- `PaellaConfig.act_quant`: the ResBlocks of a model quantized by
+  quant.quantize_paella_int8 run kernel K1b as W8A8 (s8 activations) instead
+  of weight-only int8, where the JAX forward does (models/denoiser.py); it
+  changes nothing on float weights.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ class PaellaConfig:
     attn_block_kernel: bool = False  # K6 for the AttnBlock of repetitions >= 1
     attn_qkvo_2d: bool = False  # inert
     split_skip_levels: Tuple[int, ...] = ()  # inert
-    act_quant: bool = False  # inert until the int8 modes are ported
+    act_quant: bool = False  # W8A8 for int8 ResBlocks (quant.quantize_paella_int8)
 
     @property
     def compute_dtype(self) -> torch.dtype:

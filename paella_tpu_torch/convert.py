@@ -13,6 +13,7 @@ from typing import Dict, Mapping
 import numpy as np
 
 from .config import PaellaConfig, VQConfig
+from .cond.t5 import T5Config
 
 StateDict = Dict[str, np.ndarray]
 
@@ -22,9 +23,14 @@ def _np(x) -> np.ndarray:
 
 
 def _lin(out: StateDict, prefix: str, p: Mapping, bias: bool = True) -> None:
+    """A Dense kernel (in, out) -> weight (out, in); a quantized one (int8
+    kernel with a `kernel_scale` sibling, quant.quantize_*_int8) keeps its
+    codes int8 and carries the scales as `weight_scale` (quant.Int8Linear)."""
     out[f"{prefix}.weight"] = np.ascontiguousarray(_np(p["kernel"]).T)
     if bias:
         out[f"{prefix}.bias"] = _np(p["bias"])
+    if "kernel_scale" in p:
+        out[f"{prefix}.weight_scale"] = _np(p["kernel_scale"])
 
 
 def _conv1x1(out: StateDict, prefix: str, p: Mapping, bias: bool = True) -> None:
@@ -78,7 +84,10 @@ def _unstack(tree, idx: int):
 
 def paella_state_dict_from_jax(params: Mapping, cfg: PaellaConfig = PaellaConfig()) -> StateDict:
     """The JAX Paella param tree (numpy leaves) -> reference-layout state dict,
-    equal key for key and value for value to paella_tpu's export_paella."""
+    equal key for key and value for value to paella_tpu's export_paella. A
+    tree quantized by the JAX quantize_paella_int8 gives int8 fc weights with
+    their `weight_scale`s, repetitions unstacked alike: the state dict of the
+    port's quant.quantize_paella_int8 model."""
     sd: StateDict = {}
     _lin(sd, "byt5_mapper", params["byt5_mapper"])
     _lin(sd, "clip_mapper", params["clip_mapper"])
@@ -155,4 +164,24 @@ def vqgan_state_dict_from_jax(variables: Mapping, cfg: VQConfig = VQConfig()) ->
             _conv_transpose(sd, f"up_blocks.{j}", params[f"up_conv_{i}"])
             j += 1
     _conv1x1(sd, "out_block.0", params["out_conv"])
+    return sd
+
+
+def t5_state_dict_from_jax(params: Mapping, cfg: T5Config) -> StateDict:
+    """The JAX T5Encoder param tree (numpy leaves), float or quantized by the
+    JAX quantize_t5_int8, -> the HF T5EncoderModel state dict layout that
+    cond/t5.py::T5Encoder loads: the inverse of the JAX package's
+    convert_t5_encoder (paella_tpu/cond/t5.py:201-229)."""
+    sd: StateDict = {"shared.weight": _np(params["token_embedding"])}
+    for i in range(cfg.num_layers):
+        p, b = params[f"block_{i}"], f"encoder.block.{i}"
+        for n in ("q", "k", "v", "o"):
+            _lin(sd, f"{b}.layer.0.SelfAttention.{n}", p["attention"][n], bias=False)
+        if i == 0:
+            sd[f"{b}.layer.0.SelfAttention.relative_attention_bias.weight"] = _np(params["relative_attention_bias"])
+        sd[f"{b}.layer.0.layer_norm.weight"] = _np(p["attn_norm"])
+        for n in ("wi_0", "wi_1", "wo"):
+            _lin(sd, f"{b}.layer.1.DenseReluDense.{n}", p[n], bias=False)
+        sd[f"{b}.layer.1.layer_norm.weight"] = _np(p["ff_norm"])
+    sd["encoder.final_layer_norm.weight"] = _np(params["final_norm"])
     return sd

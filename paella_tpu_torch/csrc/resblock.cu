@@ -1,9 +1,12 @@
-// Fused ResBlock(+FiLM) for Hopper (sm_90a), bf16 or f32 activations and
-// weights, f32 accumulation.
+// Fused ResBlock(+FiLM) for Hopper (sm_90a): bf16 or f32 activations, with
+// float weights (K1), int8 weights (K1b weight-only) or int8 weights and int8
+// activations (K1b W8A8).
 //
 // Replaces: paella_tpu/kernels/resblock.py::fused_resblock_stacked (the
 // Pallas TPU kernel; pallas_call at resblock.py:497), which runs every
-// ResBlock+TimestepBlock pair of the denoiser, 56 per forward:
+// ResBlock+TimestepBlock pair of the denoiser, 56 per forward, in its float
+// mode and, with int8 fc kernels (quant.quantize_paella_int8), in its
+// weight-only and W8A8 (act_quant) modes:
 //
 //   xn = LN(depthwise3x3(x [, skip]) + dw_b)          eps 1e-6, f32 stats
 //   h  = gelu(xn @ W1^T + b1)                          exact erf
@@ -29,35 +32,111 @@
 //                    FiLM epilogue. Its grid is only (C/64) x (M/64) blocks
 //                    (40 at M 128, C 1280), so the wrapper splits K = 4C
 //                    until there are about two blocks per SM; the splits
-//                    write f32 partials that fc2_reduce_kernel sums in a
-//                    fixed order before the same epilogue.
+//                    write partials that fc2_reduce_kernel sums in a fixed
+//                    order before the same epilogue.
 // Rounding follows the Pallas kernel: xn and h are stored in the activation
 // dtype, h is rescaled in f32 and rounded again, and every product
 // accumulates in f32.
 //
+// The int8 modes (K1b) keep those phases:
+// - weight-only: W1 and W2 stay int8 codes in device memory; each B tile is
+//   loaded as 16-byte vectors of codes and widened to the activation dtype
+//   (exact) as it is stored to shared memory, so the products run on the
+//   same tiles as K1 over half (bf16) or a quarter (f32) of the weight bytes.
+//   The epilogues apply the per-output-channel scales: fc1 acc*s1 + b1, fc2
+//   (acc + beta@Wq2) * s2 + b2, as the TPU kernel does.
+// - W8A8: phase 1 quantizes each LN row to s8 codes with one scale (sx);
+//   fc1 and fc2 run mma.sync m16n8k32 s8 x s8 -> s32 (TileProductS8); fc1's
+//   epilogue is f32(acc) * (sx * s1) + b1 -> GELU, written to an f32 h, and
+//   the GRN sums come from it; a requant phase (requant_kernel, one block
+//   per row) takes the TPU kernel's provisional codes per (row, 512-column
+//   fc1 tile), dequantizes them, multiplies by the GRN scale and requantizes
+//   to one scale per row (sh2); fc2's epilogue is f32(acc) * (sh2 * s2) +
+//   beta_w2 + b2 + x -> FiLM. Its split-K partials are s32, exact in any
+//   order. Codes are clip(rint(v * (1/s)), +-127) with s = max(amax, 1e-6)
+//   * f32(1/127), half to even, every product and sum of the quantization
+//   rounded separately (no contraction into fma), as the TPU kernel rounds.
+// No float atomic is used anywhere, so two runs are bitwise equal, and an
+// image's output does not depend on its batchmates (the split count is
+// chosen per CFG pair by the wrapper).
+//
 // What bounds it on an H100: the two products are over 99% of a block's
-// FLOPs (16 M C^2: 13.4 GFLOP at M 2048 x C 640 and at 512 x 1280, 3.4 at
-// 128 x 1280) and read 3.3 MB (C 640) or 13.1 MB (C 1280) of bf16 weights,
-// about 4000, 1000 and 260 FLOP per weight byte: compute-bound except at
-// M 128, which sits near the card's ~295 FLOP/byte ridge. This first form
-// runs the products on mma.sync (bf16) without a copy pipeline, so it is
-// bound by shared-memory loads and latency, well below the tensor cores'
-// rate; xn and h make one round trip through L2/HBM (M x 5C elements), which
-// the 50 MB L2 mostly absorbs. wgmma, TMA and a persistent schedule are the
-// later steps.
+// operations (16 M C^2: 13.4 G at M 2048 x C 640 and at 512 x 1280, 3.4 G
+// at 128 x 1280) and read 3.3 MB (C 640) or 13.1 MB (C 1280) of bf16 weights,
+// about 4000, 1000 and 260 operations per weight byte: compute-bound except
+// at M 128, which sits near the card's ~295 FLOP/byte bf16 ridge; int8
+// halves the weight bytes (M 128 then HBM-bound on its 6.6 MB at the int8
+// rate) and W8A8 doubles the tensor-core rate. This first form runs the
+// products on mma.sync without a copy pipeline, so it is bound by
+// shared-memory loads and latency, well below the tensor cores' rate; xn and
+// h make one round trip through L2/HBM, which the 50 MB L2 mostly absorbs.
+// wgmma, TMA and a persistent schedule are the later steps.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace paella {
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int BK8 = 64, LDS8 = BK8 + 16;  // s8 tiles: 64 K-bytes a row, rows 80 bytes apart
+enum Mode { kFloat = 0, kInt8 = 1, kW8A8 = 2 };
+constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), the TPU kernel's (1.0 / 127.0)
 
-template <typename T>
+// Max over the block (values >= 0; blockDim.x a multiple of 32); every
+// thread gets it. `red` holds 32 floats of shared memory.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+  for (int o = 16; o > 0; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
+  return t;
+}
+
+// The TPU kernel's per-row scale and code: s = max(amax, 1e-6) * f32(1/127),
+// code = clip(round(v * (1/s)), -127, 127), half to even.
+__device__ __forceinline__ float row_scale(float amax) { return __fmul_rn(fmaxf(amax, 1e-6f), kInv127); }
+__device__ __forceinline__ float s8_code(float v, float inv) {
+  return fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+}
+
+// Load rows [row0, row0+ROWS) x K-columns [k0, k0+TBK) of an int8
+// row-major matrix (leading dimension ld) into smem[ROWS][lds] of type TS:
+// copied as they are for TS = int8_t, else each code widened to TS (exact).
+// Rows past nrows read as zero. 16-byte vector loads: ld and k0 are
+// multiples of 16 and the base pointer 16-byte aligned (the wrapper checks).
+template <typename TS, int ROWS, int TBK>
+__device__ __forceinline__ void load_tile_s8(TS* smem, int lds, const int8_t* g, int ld, int row0,
+                                             int nrows, int k0) {
+  constexpr int VPR = TBK / 16;
+  for (int e = threadIdx.x; e < ROWS * VPR; e += kThreads) {
+    const int r = e / VPR, kv = (e % VPR) * 16;
+    const int m = row0 + r;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (m < nrows) u = *reinterpret_cast<const uint4*>(g + (size_t)m * ld + k0 + kv);
+    TS* dst = smem + r * lds + kv;
+    if constexpr (std::is_same<TS, int8_t>::value) {
+      *reinterpret_cast<uint4*>(dst) = u;
+    } else {
+      const int8_t* pv = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dst[i] = from_f<TS>((float)pv[i]);
+    }
+  }
+}
+
+// Phase 1: depthwise 3x3 + bias + LayerNorm of token blockIdx.x -> xn, in
+// the dtype, or (Q8) as s8 codes with the row's scale in sx.
+template <typename T, bool Q8>
 __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x,
                                                          const T* __restrict__ skip,
                                                          const T* __restrict__ dw_w,
                                                          const T* __restrict__ dw_b,
-                                                         T* __restrict__ xn, int H, int W, int C) {
+                                                         void* __restrict__ xn_, float* __restrict__ sx,
+                                                         int H, int W, int C) {
   extern __shared__ float s_acc[];  // C floats
   __shared__ float red[32];
   const int m = blockIdx.x;
@@ -100,43 +179,89 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
   }
   const float var = block_sum(lvar, red) / C;
   const float inv = rsqrtf(var + 1e-6f);
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    xn[(size_t)m * C + c] = from_f<T>((s_acc[c] - mean) * inv);
+  if constexpr (Q8) {
+    float amax = 0.f;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      s_acc[c] = (s_acc[c] - mean) * inv;  // each thread rewrites only its own columns
+      amax = fmaxf(amax, fabsf(s_acc[c]));
+    }
+    const float s = row_scale(block_max(amax, red));
+    const float inv_s = __fdiv_rn(1.f, s);
+    int8_t* xn = static_cast<int8_t*>(xn_);
+    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[(size_t)m * C + c] = (int8_t)s8_code(s_acc[c], inv_s);
+    if (threadIdx.x == 0) sx[m] = s;
+  } else {
+    T* xn = static_cast<T*>(xn_);
+    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[(size_t)m * C + c] = from_f<T>((s_acc[c] - mean) * inv);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fc1_kernel(const T* __restrict__ xn,
-                                                       const T* __restrict__ w1,
+// Phase 2: fc1 tile, bias + GELU epilogue, GRN partials. h is written in the
+// dtype (float and weight-only) or in f32 (W8A8, for the requant phase).
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ xn_,
+                                                       const void* __restrict__ w1_,
                                                        const T* __restrict__ b1,
-                                                       T* __restrict__ h, float* __restrict__ gx_part,
+                                                       const float* __restrict__ s1,
+                                                       const float* __restrict__ sx,
+                                                       void* __restrict__ h_, float* __restrict__ gx_part,
                                                        int M, int K, int N, int hw, int slots) {
-  constexpr int LDS = BK + smem_pad<T>(), LDC = BN + 4;
-  __shared__ __align__(16) T As[BM * LDS];
-  __shared__ __align__(16) T Bs[BN * LDS];
+  constexpr bool Q8 = MODE == kW8A8;
+  using TA = std::conditional_t<Q8, int8_t, T>;  // the operands' type in shared memory
+  constexpr int TBK = Q8 ? BK8 : BK;
+  constexpr int LDS = Q8 ? LDS8 : BK + smem_pad<T>(), LDC = BN + 4;
+  __shared__ __align__(16) TA As[BM * LDS];
+  __shared__ __align__(16) TA Bs[BN * LDS];
   __shared__ float Cs[BM * LDC];
   __shared__ float half_sq[kThreads];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  TileProduct<T, BM, BN> tile;
+  const TA* xn = static_cast<const TA*>(xn_);
+  std::conditional_t<Q8, TileProductS8<BM, BN>, TileProduct<T, BM, BN>> tile;
   tile.zero();
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile<T, BM, BK>(As, LDS, xn, K, m0, M, k0);
-    load_tile<T, BN, BK>(Bs, LDS, w1, K, n0, N, k0);
+  for (int k0 = 0; k0 < K; k0 += TBK) {
+    if constexpr (Q8) {
+      load_tile_s8<int8_t, BM, BK8>(As, LDS, xn, K, m0, M, k0);
+    } else {
+      load_tile<T, BM, BK>(As, LDS, xn, K, m0, M, k0);
+    }
+    if constexpr (MODE == kFloat) {
+      load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(w1_), K, n0, N, k0);
+    } else {
+      load_tile_s8<TA, BN, TBK>(Bs, LDS, static_cast<const int8_t*>(w1_), K, n0, N, k0);
+    }
     __syncthreads();
-    tile.step(As, LDS, Bs, LDS, BK);
+    tile.step(As, LDS, Bs, LDS, TBK);
     __syncthreads();
   }
-  tile.store(Cs, LDC);
+  if constexpr (Q8) {
+    tile.store(reinterpret_cast<int*>(Cs), LDC);
+  } else {
+    tile.store(Cs, LDC);
+  }
   __syncthreads();
   // epilogue: one column per thread, rows strided by kThreads / BN; the f32
-  // GELU output stays in Cs for the GRN statistics
+  // GELU output replaces the product in Cs for the GRN statistics
   const int c = threadIdx.x % BN, n = n0 + c;
   const float bias = to_f<T>(b1[n]);
+  const float s1n = MODE == kFloat ? 1.f : s1[n];
   for (int r = threadIdx.x / BN; r < BM; r += kThreads / BN) {
     const int m = m0 + r;
     if (m >= M) break;
-    float v = Cs[r * LDC + c] + bias;
+    float v;
+    if constexpr (Q8) {
+      const float acc = (float)reinterpret_cast<const int*>(Cs)[r * LDC + c];
+      v = __fadd_rn(__fmul_rn(acc, __fmul_rn(sx[m], s1n)), bias);
+    } else if constexpr (MODE == kInt8) {
+      v = __fadd_rn(__fmul_rn(Cs[r * LDC + c], s1n), bias);
+    } else {
+      v = Cs[r * LDC + c] + bias;
+    }
     v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    h[(size_t)m * N + n] = from_f<T>(v);
+    if constexpr (Q8) {
+      static_cast<float*>(h_)[(size_t)m * N + n] = v;
+    } else {
+      static_cast<T*>(h_)[(size_t)m * N + n] = from_f<T>(v);
+    }
     Cs[r * LDC + c] = v;
   }
   __syncthreads();
@@ -199,12 +324,54 @@ __global__ void __launch_bounds__(1024) grn_scale_kernel(const float* __restrict
     scale[(size_t)b * N + n] = gamma[n] * (s_norm[n] / denom) + 1.f;
 }
 
-// y = acc + beta@W2 + b2 + x, then FiLM, in the Pallas kernel's order
-template <typename T>
+// W8A8 phase 3b, one block per row m of h (f32, N = 4C wide): the TPU
+// kernel's provisional codes per `group`-column fc1 tile, dequantized and
+// multiplied by the GRN scale (resblock.py:252-266), then requantized to one
+// scale per row: hq (s8) and sh2.
+__global__ void __launch_bounds__(256) requant_kernel(const float* __restrict__ h,
+                                                      const float* __restrict__ scale,
+                                                      int8_t* __restrict__ hq, float* __restrict__ sh2,
+                                                      int N, int hw, int group) {
+  extern __shared__ float s_deq[];  // N floats; block_max's barrier orders the writes before the reads
+  __shared__ float red[32];
+  const int m = blockIdx.x;
+  const float* row = h + (size_t)m * N;
+  const float* sc = scale + (size_t)(m / hw) * N;
+  float rmax = 0.f;
+  for (int g0 = 0; g0 < N; g0 += group) {
+    float gmax = 0.f;
+    for (int n = g0 + threadIdx.x; n < g0 + group; n += blockDim.x) gmax = fmaxf(gmax, fabsf(row[n]));
+    const float s = row_scale(block_max(gmax, red));
+    const float inv = __fdiv_rn(1.f, s);
+    for (int n = g0 + threadIdx.x; n < g0 + group; n += blockDim.x) {
+      const float d = __fmul_rn(__fmul_rn(s8_code(row[n], inv), s), sc[n]);
+      s_deq[n] = d;
+      rmax = fmaxf(rmax, fabsf(d));
+    }
+  }
+  const float s = row_scale(block_max(rmax, red));
+  const float inv = __fdiv_rn(1.f, s);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) hq[(size_t)m * N + n] = (int8_t)s8_code(s_deq[n], inv);
+  if (threadIdx.x == 0) sh2[m] = s;
+}
+
+// y from the full fc2 sum of output (m, n), then + b2 + x and FiLM, in the
+// Pallas kernel's order per mode: acc + beta@W2 (float); (acc + beta@Wq2) *
+// s2 (weight-only); acc * (sh2 * s2) + beta_w2 (W8A8, acc the f32 of the
+// s32 sum).
+template <typename T, int MODE>
 __device__ __forceinline__ T fc2_finish(float acc, int m, int n, int N, int hw,
-                                        const float* __restrict__ bw2, const T* __restrict__ b2,
+                                        const float* __restrict__ bw2, const float* __restrict__ s2,
+                                        const float* __restrict__ sh2, const T* __restrict__ b2,
                                         const T* __restrict__ x, const T* __restrict__ film) {
-  float v = acc + bw2[n];
+  float v;
+  if constexpr (MODE == kW8A8) {
+    v = __fadd_rn(__fmul_rn(acc, __fmul_rn(sh2[m], s2[n])), bw2[n]);
+  } else if constexpr (MODE == kInt8) {
+    v = __fmul_rn(__fadd_rn(acc, bw2[n]), s2[n]);
+  } else {
+    v = acc + bw2[n];
+  }
   v = v + to_f<T>(b2[n]);
   v = v + to_f<T>(x[(size_t)m * N + n]);
   if (film != nullptr) {
@@ -214,80 +381,148 @@ __device__ __forceinline__ T fc2_finish(float acc, int m, int n, int N, int hw,
   return from_f<T>(v);
 }
 
+struct Fc2Args {
+  const void* h;  // (M, 4C): the dtype (GRN scale applied as A loads) or s8 codes (W8A8)
+  const float* scale;
+  const void* w2;
+  const float* bw2;
+  const float* s2;
+  const float* sh2;
+  const void* b2;
+  const void* x;
+  const void* film;
+  void* out;
+  float* part;  // split-K partials: f32, or s32 in W8A8
+};
+
 // fc2 over the K range of split blockIdx.z (k_split columns). With one split
-// the epilogue runs here; with several, each writes its f32 partial tile to
+// the epilogue runs here; with several, each writes its partial tile to
 // part[z] and fc2_reduce_kernel sums the splits in a fixed order (no
 // atomics, so the result does not depend on block timing).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fc2_kernel(
-    const T* __restrict__ h, const float* __restrict__ scale, const T* __restrict__ w2,
-    const float* __restrict__ bw2, const T* __restrict__ b2, const T* __restrict__ x,
-    const T* __restrict__ film, T* __restrict__ out, float* __restrict__ part, int M, int K,
-    int N, int hw, int k_split) {
-  constexpr int LDS = BK + smem_pad<T>(), LDC = BN + 4;
-  __shared__ __align__(16) T As[BM * LDS];
-  __shared__ __align__(16) T Bs[BN * LDS];
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads) fc2_kernel(Fc2Args a, int M, int K, int N, int hw, int k_split) {
+  constexpr bool Q8 = MODE == kW8A8;
+  using TA = std::conditional_t<Q8, int8_t, T>;
+  constexpr int TBK = Q8 ? BK8 : BK;
+  constexpr int LDS = Q8 ? LDS8 : BK + smem_pad<T>(), LDC = BN + 4;
+  __shared__ __align__(16) TA As[BM * LDS];
+  __shared__ __align__(16) TA Bs[BN * LDS];
   __shared__ float Cs[BM * LDC];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * k_split;
-  TileProduct<T, BM, BN> tile;
+  const TA* h = static_cast<const TA*>(a.h);
+  std::conditional_t<Q8, TileProductS8<BM, BN>, TileProduct<T, BM, BN>> tile;
   tile.zero();
-  for (int k0 = kb; k0 < kb + k_split; k0 += BK) {
-    load_tile<T, BM, BK>(As, LDS, h, K, m0, M, k0, scale, K, hw);  // GRN scale as A loads
-    load_tile<T, BN, BK>(Bs, LDS, w2, K, n0, N, k0);
+  for (int k0 = kb; k0 < kb + k_split; k0 += TBK) {
+    if constexpr (Q8) {
+      load_tile_s8<int8_t, BM, BK8>(As, LDS, h, K, m0, M, k0);
+    } else {
+      load_tile<T, BM, BK>(As, LDS, h, K, m0, M, k0, a.scale, K, hw);  // GRN scale as A loads
+    }
+    if constexpr (MODE == kFloat) {
+      load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(a.w2), K, n0, N, k0);
+    } else {
+      load_tile_s8<TA, BN, TBK>(Bs, LDS, static_cast<const int8_t*>(a.w2), K, n0, N, k0);
+    }
     __syncthreads();
-    tile.step(As, LDS, Bs, LDS, BK);
+    tile.step(As, LDS, Bs, LDS, TBK);
     __syncthreads();
   }
-  tile.store(Cs, LDC);
+  if constexpr (Q8) {
+    tile.store(reinterpret_cast<int*>(Cs), LDC);
+  } else {
+    tile.store(Cs, LDC);
+  }
   __syncthreads();
   const int c = threadIdx.x % BN, n = n0 + c;
   for (int r = threadIdx.x / BN; r < BM; r += kThreads / BN) {
     const int m = m0 + r;
     if (m >= M) break;
-    if (part != nullptr) {
-      part[((size_t)blockIdx.z * M + m) * N + n] = Cs[r * LDC + c];
+    const size_t i = (size_t)m * N + n;
+    if (a.part != nullptr) {
+      if constexpr (Q8) {
+        reinterpret_cast<int*>(a.part)[(size_t)blockIdx.z * M * N + i] = reinterpret_cast<const int*>(Cs)[r * LDC + c];
+      } else {
+        a.part[(size_t)blockIdx.z * M * N + i] = Cs[r * LDC + c];
+      }
     } else {
-      out[(size_t)m * N + n] = fc2_finish<T>(Cs[r * LDC + c], m, n, N, hw, bw2, b2, x, film);
+      const float acc = Q8 ? (float)reinterpret_cast<const int*>(Cs)[r * LDC + c] : Cs[r * LDC + c];
+      static_cast<T*>(a.out)[i] = fc2_finish<T, MODE>(acc, m, n, N, hw, a.bw2, a.s2, a.sh2, static_cast<const T*>(a.b2),
+                                                      static_cast<const T*>(a.x), static_cast<const T*>(a.film));
     }
   }
 }
 
-template <typename T>
-__global__ void fc2_reduce_kernel(const float* __restrict__ part, int splits,
-                                  const float* __restrict__ bw2, const T* __restrict__ b2,
-                                  const T* __restrict__ x, const T* __restrict__ film,
-                                  T* __restrict__ out, int M, int N, int hw) {
+template <typename T, int MODE>
+__global__ void fc2_reduce_kernel(Fc2Args a, int splits, int M, int N, int hw) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * N) return;
-  float acc = part[i];
-  for (int z = 1; z < splits; ++z) acc += part[(size_t)z * M * N + i];
-  out[i] = fc2_finish<T>(acc, (int)(i / N), (int)(i % N), N, hw, bw2, b2, x, film);
+  float acc;
+  if constexpr (MODE == kW8A8) {
+    const int* part = reinterpret_cast<const int*>(a.part);
+    int s = part[i];
+    for (int z = 1; z < splits; ++z) s += part[(size_t)z * M * N + i];
+    acc = (float)s;
+  } else {
+    acc = a.part[i];
+    for (int z = 1; z < splits; ++z) acc += a.part[(size_t)z * M * N + i];
+  }
+  static_cast<T*>(a.out)[i] = fc2_finish<T, MODE>(acc, (int)(i / N), (int)(i % N), N, hw, a.bw2, a.s2, a.sh2,
+                                                  static_cast<const T*>(a.b2), static_cast<const T*>(a.x),
+                                                  static_cast<const T*>(a.film));
+}
+
+struct Args {
+  const void *x, *skip, *dw_w, *dw_b, *w1, *b1;
+  const float *gamma;
+  const void* w2;
+  const float* bw2;
+  const void *b2, *film;
+  const float *s1, *s2;
+  void *out, *xn, *h;
+  float *gx_part, *scale, *part, *sx;
+  int8_t* hq;
+  float* sh2;
+  int slots, splits, B, H, W, C, group;
+};
+
+template <typename T, int MODE>
+int launch(const Args& a, cudaStream_t st) {
+  constexpr bool Q8 = MODE == kW8A8;
+  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C;
+  // each fc2 split must cover whole K tiles (32 deep, or 64 s8 bytes in W8A8)
+  if (a.splits < 1 || N1 % a.splits || (N1 / a.splits) % (Q8 ? BK8 : BK)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  dw_ln_kernel<T, Q8><<<M, kThreads, C * sizeof(float), st>>>(
+      (const T*)a.x, (const T*)a.skip, (const T*)a.dw_w, (const T*)a.dw_b, a.xn, a.sx, a.H, a.W, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  fc1_kernel<T, MODE><<<dim3(N1 / BN, (M + BM - 1) / BM), kThreads, 0, st>>>(
+      a.xn, a.w1, (const T*)a.b1, a.s1, a.sx, a.h, a.gx_part, M, C, N1, hw, a.slots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (Q8) {
+    requant_kernel<<<M, 256, N1 * sizeof(float), st>>>((const float*)a.h, a.scale, a.hq, a.sh2, N1, hw, a.group);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  Fc2Args f{Q8 ? (const void*)a.hq : (const void*)a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film,
+            a.out, a.splits > 1 ? a.part : nullptr};
+  fc2_kernel<T, MODE><<<dim3(C / BN, (M + BM - 1) / BM, a.splits), kThreads, 0, st>>>(f, M, N1, C, hw,
+                                                                                       N1 / a.splits);
+  if ((err = cudaGetLastError()) != cudaSuccess || a.splits == 1) return (int)err;
+  const int n_out = M * C;
+  fc2_reduce_kernel<T, MODE><<<(n_out + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* x, const void* skip, const void* dw_w, const void* dw_b, const void* w1,
-           const void* b1, const float* gamma, const void* w2, const float* bw2, const void* b2,
-           const void* film, void* out, void* xn, void* h, float* gx_part, int slots, float* scale,
-           float* part, int splits, int B, int H, int W, int C, cudaStream_t st) {
-  const int hw = H * W, M = B * hw, N1 = 4 * C;
-  cudaError_t err;
-  dw_ln_kernel<T><<<M, kThreads, C * sizeof(float), st>>>(
-      (const T*)x, (const T*)skip, (const T*)dw_w, (const T*)dw_b, (T*)xn, H, W, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fc1_kernel<T><<<dim3(N1 / BN, (M + BM - 1) / BM), kThreads, 0, st>>>(
-      (const T*)xn, (const T*)w1, (const T*)b1, (T*)h, gx_part, M, C, N1, hw, slots);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<B, 1024, N1 * sizeof(float), st>>>(gx_part, gamma, scale, N1, hw, slots);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fc2_kernel<T><<<dim3(C / BN, (M + BM - 1) / BM, splits), kThreads, 0, st>>>(
-      (const T*)h, scale, (const T*)w2, bw2, (const T*)b2, (const T*)x, (const T*)film, (T*)out,
-      splits > 1 ? part : nullptr, M, N1, C, hw, N1 / splits);
-  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return (int)err;
-  const int n_out = M * C;
-  fc2_reduce_kernel<T><<<(n_out + 255) / 256, 256, 0, st>>>(
-      part, splits, bw2, (const T*)b2, (const T*)x, (const T*)film, (T*)out, M, C, hw);
-  return (int)cudaGetLastError();
+int launch_mode(const Args& a, int mode, cudaStream_t st) {
+  switch (mode) {
+    case kFloat: return launch<T, kFloat>(a, st);
+    case kInt8: return launch<T, kInt8>(a, st);
+    case kW8A8: return launch<T, kW8A8>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -298,21 +533,24 @@ int launch(const void* x, const void* skip, const void* dw_w, const void* dw_b, 
 // film (B,2C) [a | b]; scratch xn (B*H*W, C), h (B*H*W, 4C), gx_part
 // (ceil(B*H*W / 64) * slots, 4C) f32 with slots the most batch items one
 // 64-row tile touches, scale (B, 4C) f32, and with splits > 1 part (splits,
-// B*H*W, C) f32, the fc2 split-K partials (4C / splits a multiple of 32).
-// skip and film may be null. C % 64 == 0. Returns a cudaError_t.
-extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w,
-                               const void* dw_b, const void* w1, const void* b1,
-                               const void* gamma, const void* w2, const void* bw2,
-                               const void* b2, const void* film, void* out, void* xn, void* h,
-                               void* gx_part, void* scale, void* part, int slots, int splits,
-                               int B, int H, int W, int C, int is_bf16, void* stream) {
+// B*H*W, C) f32, the fc2 split-K partials (4C / splits a multiple of 32,
+// and of 64 in W8A8: whole K tiles).
+// mode 0 (float): w1, w2, xn and h in the dtype; s1, s2, sx, hq, sh2 null.
+// mode 1 (weight-only int8): w1, w2 int8 codes with f32 scales s1 (4C), s2
+// (C). mode 2 (W8A8): as mode 1, plus xn int8 with sx (B*H*W) f32, h f32,
+// hq (B*H*W, 4C) int8 and sh2 (B*H*W) f32, and h's provisional codes taken
+// per `group` columns (4C % group == 0). skip and film may be null.
+// C % 64 == 0. Returns a cudaError_t.
+extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w, const void* dw_b,
+                               const void* w1, const void* b1, const void* gamma, const void* w2,
+                               const void* bw2, const void* b2, const void* film, const void* s1,
+                               const void* s2, void* out, void* xn, void* h, void* gx_part, void* scale,
+                               void* part, void* sx, void* hq, void* sh2, int slots, int splits, int B,
+                               int H, int W, int C, int is_bf16, int mode, int group, void* stream) {
   using namespace paella;
+  const Args a{x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2, b2, film,
+               (const float*)s1, (const float*)s2, out, xn, h, (float*)gx_part, (float*)scale,
+               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2,
-                                 (const float*)bw2, b2, film, out, xn, h, (float*)gx_part, slots,
-                                 (float*)scale, (float*)part, splits, B, H, W, C, st);
-  return launch<float>(x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2,
-                       b2, film, out, xn, h, (float*)gx_part, slots, (float*)scale, (float*)part,
-                       splits, B, H, W, C, st);
+  return is_bf16 ? launch_mode<__nv_bfloat16>(a, mode, st) : launch_mode<float>(a, mode, st);
 }

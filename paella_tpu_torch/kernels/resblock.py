@@ -1,5 +1,6 @@
 """Fused ResBlock (+ optional FiLM) — the port of the Pallas kernel
-`paella_tpu/kernels/resblock.py::fused_resblock_stacked`.
+`paella_tpu/kernels/resblock.py::fused_resblock_stacked`, in its float mode
+(K1) and its two int8 modes (K1b).
 
     x_res = x
     x  = depthwise3x3([x | skip]) + dw_b   # skip: grouped conv, channel pairs (2c, 2c+1)
@@ -9,10 +10,27 @@
     y  = h @ W2^T + beta @ W2 + b2 + x_res
     y  = y * (1 + film_a) + film_b          # TimestepBlock, optional
 
-`fused_resblock` launches the CUDA kernel (csrc/resblock.cu) on CUDA tensors
-and runs `resblock_plain`, the same computation in torch ops with the same
-rounding points, on CPU tensors only. Weights come in the layout the kernel
-reads (`ResBlockWeights`), derived once from the module's parameters by
+The int8 modes take W1, W2 as int8 codes with per-output-channel f32 scales
+s1 (4C,), s2 (C,) (quant.py), at the TPU kernel's rounding points:
+- weight-only ("int8", resblock.py:214-224, 287-302): the products run over
+  the codes cast to the dtype (exact in bf16) with f32 sums; fc1 is
+  (xn @ Wq1^T) * s1 + b1, and fc2 (h @ Wq2^T + beta_dtype @ Wq2^T) * s2 + b2:
+  beta @ W2 enters BEFORE the scale.
+- W8A8 ("w8a8", :162-167, 195-213, 227-266, 279-286): the LN output is
+  quantized per row (`quantize_rows`: s = max(amax, 1e-6) / 127 as a product
+  with f32(1/127), codes clip(round(v * (1/s)), +-127), half to even), fc1 is
+  s8 x s8 -> s32, f32(acc) * (sx * s1) + b1, then GELU; the GRN sums come from
+  that f32 h. h is quantized per (row, `tile_n1`-column group) as the TPU
+  kernel's fc1 tiles store it, dequantized, multiplied by the GRN scale and
+  requantized to one scale per row (sh2); fc2 is s8 x s8 -> s32,
+  f32(acc) * (sh2 * s2) + beta_w2 + b2 with beta_w2 = (beta_f32 @ Wq2_f32^T) * s2
+  precomputed per block (denoiser.py:706-717), added AFTER the scale.
+
+`fused_resblock` runs every mode, picked by the weights (`ResBlockWeights.mode`):
+it launches the CUDA kernel of csrc/resblock.cu on CUDA tensors (K1 for
+float weights, K1b for int8 ones) and runs `resblock_plain`, the same
+computation in torch ops with the same rounding points, on CPU tensors only. Weights come in the layout the kernels
+read (`ResBlockWeights`), derived once from the module's parameters by
 `prepare_resblock_weights`.
 """
 from __future__ import annotations
@@ -26,46 +44,92 @@ import torch.nn.functional as F
 
 from ._build import check_operands, check_rc, load_library, stream_handle
 
+MODES = {"float": 0, "int8": 1, "w8a8": 2}
+
 
 class ResBlockWeights(NamedTuple):
     """One ResBlock's weights in the kernel's layout and compute dtype."""
 
     dw: torch.Tensor  # (3, 3, cpg, C) depthwise kernel
     dw_b: torch.Tensor  # (C,)
-    w1: torch.Tensor  # (4C, C) fc1, torch Linear layout
+    w1: torch.Tensor  # (4C, C) fc1, torch Linear layout; int8 codes with s1
     b1: torch.Tensor  # (4C,)
     gamma: torch.Tensor  # (4C,) float32
-    w2: torch.Tensor  # (C, 4C) fc2, torch Linear layout
-    bw2: torch.Tensor  # (C,) float32 = beta @ W2, beta rounded to the dtype
+    w2: torch.Tensor  # (C, 4C) fc2, torch Linear layout; int8 codes with s2
+    bw2: torch.Tensor  # (C,) float32: beta @ W2 (see the module docstring per mode)
     b2: torch.Tensor  # (C,)
+    s1: Optional[torch.Tensor] = None  # (4C,) float32 fc1 scales (int8 modes)
+    s2: Optional[torch.Tensor] = None  # (C,) float32 fc2 scales (int8 modes)
+    act_quant: bool = False  # W8A8 (int8 modes only)
+
+    @property
+    def mode(self) -> str:
+        if self.s1 is None:
+            return "float"
+        return "w8a8" if self.act_quant else "int8"
 
 
 @torch.no_grad()
 def prepare_resblock_weights(
     dw_weight: torch.Tensor,  # (C, cpg, 3, 3) torch Conv2d(groups=C) weight
     dw_bias: torch.Tensor,
-    fc1_weight: torch.Tensor,  # (4C, C)
+    fc1_weight: torch.Tensor,  # (4C, C), float or int8 codes
     fc1_bias: torch.Tensor,
     grn_gamma: torch.Tensor,  # (4C,) or the reference's (1, 1, 1, 4C)
     grn_beta: torch.Tensor,
-    fc2_weight: torch.Tensor,  # (C, 4C)
+    fc2_weight: torch.Tensor,  # (C, 4C), float or int8 codes
     fc2_bias: torch.Tensor,
     dtype: torch.dtype,
+    fc1_scale: Optional[torch.Tensor] = None,  # (4C,) f32: fc1_weight is int8
+    fc2_scale: Optional[torch.Tensor] = None,  # (C,) f32: fc2_weight is int8
+    act_quant: bool = False,  # W8A8; needs the scales
 ) -> ResBlockWeights:
     def cast(t: torch.Tensor, dt: torch.dtype = dtype) -> torch.Tensor:
         return t.detach().to(dt).contiguous()
 
-    w2 = cast(fc2_weight)
+    quantized = fc1_scale is not None
+    if quantized != (fc2_scale is not None) or quantized != (fc1_weight.dtype == torch.int8 == fc2_weight.dtype):
+        raise ValueError("prepare_resblock_weights: int8 fc1 and fc2 codes go with both scales, float weights with none")
+    if act_quant and not quantized:
+        raise ValueError("prepare_resblock_weights: act_quant (W8A8) needs int8 weights with scales")
+    beta = grn_beta.reshape(-1).detach()
+    if quantized:
+        w1, w2 = fc1_weight.detach().contiguous(), fc2_weight.detach().contiguous()
+        s1, s2 = cast(fc1_scale, torch.float32), cast(fc2_scale, torch.float32)
+    else:
+        w1, w2 = cast(fc1_weight), cast(fc2_weight)
+        s1 = s2 = None
+    if act_quant:
+        bw2 = (w2.float() @ beta.float()) * s2
+    else:  # beta rounded to the dtype; int8 codes are exact in it
+        bw2 = w2.float() @ beta.to(dtype).float()
     return ResBlockWeights(
         dw=cast(dw_weight.permute(2, 3, 1, 0)),
         dw_b=cast(dw_bias),
-        w1=cast(fc1_weight),
+        w1=w1,
         b1=cast(fc1_bias),
         gamma=cast(grn_gamma.reshape(-1), torch.float32),
         w2=w2,
-        bw2=(w2.float() @ cast(grn_beta.reshape(-1)).float()).contiguous(),
+        bw2=bw2.contiguous(),
         b2=cast(fc2_bias),
+        s1=s1,
+        s2=s2,
+        act_quant=act_quant,
     )
+
+
+def quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric s8 over the last axis, as the TPU kernel's
+    quantize_rows: (codes as f32 values, f32 scales)."""
+    s = v.abs().amax(dim=-1).clamp_min(1e-6) * (1.0 / 127.0)
+    return torch.clamp(torch.round(v * (1.0 / s)[..., None]), -127.0, 127.0), s
+
+
+def _s8_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32(a @ w^T) of s8 codes (a as f32 values, w int8), exact: the s32 sum
+    is an integer below 2^53, so the f64 product gives it in any order, and
+    rounding it to f32 is the TPU kernel's astype(float32)."""
+    return (a.double() @ w.double().t()).float()
 
 
 def resblock_plain(
@@ -73,16 +137,18 @@ def resblock_plain(
     w: ResBlockWeights,
     film: Optional[torch.Tensor] = None,
     skip: Optional[torch.Tensor] = None,
+    tile_n1: int = 512,
 ) -> torch.Tensor:
-    """The kernel's computation in torch ops: x (B, H, W, C), film (B, 2C)
-    [a | b], skip (B, H, W, C). Depthwise, LN, GELU and GRN run in f32; xn and
-    h are rounded to x's dtype where the kernel stores them; both products
-    take f32 operands (exact for bf16 values) and accumulate in f32 — on a
-    card, only with TF32 off."""
+    """The kernels' computation in torch ops, every mode: x (B, H, W, C),
+    film (B, 2C) [a | b], skip (B, H, W, C). Depthwise, LN, GELU and GRN run
+    in f32; xn and h are rounded to x's dtype where the kernel stores them
+    (to s8 codes in W8A8, whose h codes are first taken per `tile_n1`-column
+    group); float products take f32 operands (exact for bf16 values and int8
+    codes) and accumulate in f32 — on a card, only with TF32 off."""
     resblock_plain.launches += 1
     dt = x.dtype
     b, hh, ww, c = x.shape
-    m = b * hh * ww
+    m, hw = b * hh * ww, hh * ww
     if skip is None:
         planes = [x]
     else:
@@ -97,17 +163,33 @@ def resblock_plain(
     acc = acc + w.dw_b.float()
     mean = acc.mean(dim=-1, keepdim=True)
     var = (acc - mean).square().mean(dim=-1, keepdim=True)
-    xn = ((acc - mean) * torch.rsqrt(var + 1e-6)).to(dt).reshape(m, c)
+    xn = ((acc - mean) * torch.rsqrt(var + 1e-6)).reshape(m, c)
 
-    ht = F.gelu(xn.float() @ w.w1.float().t() + w.b1.float())  # (M, 4C) f32
-    gx = ht.square().reshape(b, hh * ww, 4 * c).sum(dim=1).sqrt()  # (B, 4C)
+    if w.act_quant:
+        xq, sx = quantize_rows(xn)
+        ht = _s8_product(xq, w.w1) * (sx[:, None] * w.s1[None, :])
+    else:
+        ht = xn.to(dt).float() @ w.w1.float().t()
+        if w.s1 is not None:
+            ht = ht * w.s1
+    ht = F.gelu(ht + w.b1.float())  # (M, 4C) f32
+    gx = ht.square().reshape(b, hw, 4 * c).sum(dim=1).sqrt()  # (B, 4C)
     scale = w.gamma * (gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)) + 1.0
-    h = (ht.to(dt).float().reshape(b, hh * ww, 4 * c) * scale[:, None, :]).to(dt)
 
-    y = h.reshape(m, 4 * c).float() @ w.w2.float().t()
-    y = y + w.bw2
+    if w.act_quant:
+        hq, sh = quantize_rows(ht.reshape(m, 4 * c // tile_n1, tile_n1))
+        deq = (hq * sh[..., None]).reshape(b, hw, 4 * c) * scale[:, None, :]
+        h8, sh2 = quantize_rows(deq.reshape(m, 4 * c))
+        y = _s8_product(h8, w.w2) * (sh2[:, None] * w.s2[None, :])
+        y = y + w.bw2
+    else:
+        h = (ht.to(dt).float().reshape(b, hw, 4 * c) * scale[:, None, :]).to(dt)
+        y = h.reshape(m, 4 * c).float() @ w.w2.float().t()
+        y = y + w.bw2
+        if w.s2 is not None:
+            y = y * w.s2
     y = y + w.b2.float()
-    y = (y + x.float().reshape(m, c)).reshape(b, hh * ww, c)
+    y = (y + x.float().reshape(m, c)).reshape(b, hw, c)
     if film is not None:
         f = film.to(dt).float()
         y = y * (1.0 + f[:, None, :c]) + f[:, None, c:]
@@ -117,15 +199,16 @@ def resblock_plain(
 resblock_plain.launches = 0
 
 
-def fc2_splits(m: int, c: int, n_sm: int) -> int:
+def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
     """How many K splits the kernel's fc2 phase runs for M rows: its
     (C/64) x (M/64) grid is doubled until it holds about two blocks per SM,
-    while each split keeps at least 4 of the 32-deep K tiles. The wrapper
+    while each split keeps a whole number, and at least 4, of the kernel's
+    `bk`-deep K tiles (32, or 64 bytes of s8 codes in W8A8). The wrapper
     passes the M of one CFG pair (two images), whatever the batch, so an
     image's sums do not depend on its batchmates. At the flagship's shapes on
     132 SMs: 1 at M 2048 x C 640, 2 at 512 x 1280, 8 at 128 x 1280."""
     blocks = (c // 64) * -(-m // 64)
-    k_tiles = 4 * c // 32
+    k_tiles = 4 * c // bk
     s = 1
     while blocks * s < 2 * n_sm and k_tiles % (2 * s) == 0 and k_tiles // (2 * s) >= 4:
         s *= 2
@@ -146,70 +229,101 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def fused_resblock(
-    x: torch.Tensor,
-    w: ResBlockWeights,
-    film: Optional[torch.Tensor] = None,
-    skip: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """ResBlock(+FiLM) in one call: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor. See the module docstring."""
-    if x.device.type == "cpu":
-        return resblock_plain(x, w, film=film, skip=skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_resblock: no kernel for device {x.device}")
+def _check_args(what: str, x, w: ResBlockWeights, film, skip) -> None:
     dt = x.dtype
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
     if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_resblock: dtype {dt} (kernel takes float32 or bfloat16)")
+        raise ValueError(f"{what}: dtype {dt} (kernel takes float32 or bfloat16)")
     b, hh, ww, c = x.shape
     cpg = 1 if skip is None else 2
     if c % 64:
-        raise ValueError(f"fused_resblock: C={c} must be a multiple of 64")
+        raise ValueError(f"{what}: C={c} must be a multiple of 64")
     if w.dw.shape != (3, 3, cpg, c) or w.w1.shape != (4 * c, c) or w.w2.shape != (c, 4 * c):
         raise ValueError(
-            f"fused_resblock: weight shapes dw {tuple(w.dw.shape)}, w1 "
+            f"{what}: weight shapes dw {tuple(w.dw.shape)}, w1 "
             f"{tuple(w.w1.shape)}, w2 {tuple(w.w2.shape)} do not fit x {tuple(x.shape)}"
         )
     if skip is not None and (skip.shape != x.shape or skip.dtype != dt):
-        raise ValueError("fused_resblock: skip must match x in shape and dtype")
+        raise ValueError(f"{what}: skip must match x in shape and dtype")
     if film is not None and (film.shape != (b, 2 * c) or film.dtype != dt):
-        raise ValueError(f"fused_resblock: film must be ({b}, {2 * c}) {dt}")
+        raise ValueError(f"{what}: film must be ({b}, {2 * c}) {dt}")
+    fc_dt = dt if w.s1 is None else torch.int8
     for name in ("dw", "dw_b", "w1", "b1", "w2", "b2"):
-        if getattr(w, name).dtype != dt:
-            raise ValueError(f"fused_resblock: weight {name} is not {dt}")
-    if w.gamma.dtype != torch.float32 or w.bw2.dtype != torch.float32:
-        raise ValueError("fused_resblock: gamma and bw2 must be float32")
-    check_operands("fused_resblock", x.device, {"x": x, "skip": skip, "film": film, **w._asdict()})
+        want = fc_dt if name in ("w1", "w2") else dt
+        if getattr(w, name).dtype != want:
+            raise ValueError(f"{what}: weight {name} is not {want}")
+    f32 = [w.gamma, w.bw2] + ([] if w.s1 is None else [w.s1, w.s2])
+    if any(t.dtype != torch.float32 for t in f32) or (w.s1 is not None and (w.s1.shape != (4 * c,) or w.s2.shape != (c,))):
+        raise ValueError(f"{what}: gamma, bw2 and the scales must be float32 of shapes (4C,), (C,)")
+    tensors = {k: v for k, v in w._asdict().items() if isinstance(v, torch.Tensor)}
+    check_operands(what, x.device, {"x": x, "skip": skip, "film": film, **tensors})
 
+
+def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> torch.Tensor:
+    dt = x.dtype
+    b, hh, ww, c = x.shape
+    mode = MODES[w.mode]
+    q8 = mode == MODES["w8a8"]
     m = b * hh * ww
-    splits = fc2_splits(2 * hh * ww, c, _sm_count(x.device))
+    dev = x.device
+    splits = fc2_splits(2 * hh * ww, c, _sm_count(dev), 64 if q8 else 32)
     out = torch.empty_like(x)
-    xn = torch.empty((m, c), dtype=dt, device=x.device)
-    h = torch.empty((m, 4 * c), dtype=dt, device=x.device)
+    xn = torch.empty((m, c), dtype=torch.int8 if q8 else dt, device=dev)
+    h = torch.empty((m, 4 * c), dtype=torch.float32 if q8 else dt, device=dev)
     slots = grn_slots(b, hh * ww)
-    gx_part = torch.empty((-(-m // 64) * slots, 4 * c), dtype=torch.float32, device=x.device)
-    scale = torch.empty((b, 4 * c), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, c), dtype=torch.float32, device=x.device) if splits > 1 else None
+    gx_part = torch.empty((-(-m // 64) * slots, 4 * c), dtype=torch.float32, device=dev)
+    scale = torch.empty((b, 4 * c), dtype=torch.float32, device=dev)
+    part = torch.empty((splits, m, c), dtype=torch.float32, device=dev) if splits > 1 else None
+    sx = torch.empty(m, dtype=torch.float32, device=dev) if q8 else None
+    hq = torch.empty((m, 4 * c), dtype=torch.int8, device=dev) if q8 else None
+    sh2 = torch.empty(m, dtype=torch.float32, device=dev) if q8 else None
 
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.paella_resblock(
         ptr(x), ptr(skip), ptr(w.dw), ptr(w.dw_b), ptr(w.w1), ptr(w.b1), ptr(w.gamma),
-        ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(out), ptr(xn), ptr(h), ptr(gx_part),
-        ptr(scale), ptr(part), slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), stream_handle(x),
+        ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(w.s1), ptr(w.s2), ptr(out), ptr(xn), ptr(h),
+        ptr(gx_part), ptr(scale), ptr(part), ptr(sx), ptr(hq), ptr(sh2),
+        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, stream_handle(x),
     )
     check_rc(rc, "fused_resblock")
+    return out
+
+
+def fused_resblock(
+    x: torch.Tensor,
+    w: ResBlockWeights,
+    film: Optional[torch.Tensor] = None,
+    skip: Optional[torch.Tensor] = None,
+    tile_n1: int = 512,
+) -> torch.Tensor:
+    """ResBlock(+FiLM) in one call, in the mode of its weights (`w.mode`):
+    the CUDA kernel for a CUDA tensor (K1 for float weights, K1b for int8
+    ones), the plain version for a CPU tensor. tile_n1 is the W8A8 h-code
+    group width (the TPU kernel's fc1 tile; the JAX model calls use its
+    default 512). Counts its launches in `launches` and, per mode, in
+    `launches_by_mode`. See the module docstring."""
+    c4 = 4 * x.shape[-1]
+    if w.act_quant and (c4 % tile_n1 or c4 // tile_n1 > 16):  # the TPU kernel's n_t1 <= 16
+        raise ValueError(f"fused_resblock: W8A8 takes 4C={c4} in at most 16 groups of tile_n1={tile_n1}")
+    if x.device.type == "cpu":
+        return resblock_plain(x, w, film=film, skip=skip, tile_n1=tile_n1)
+    _check_args("fused_resblock", x, w, film, skip)
+    out = _launch(x, w, film, skip, tile_n1)
     fused_resblock.launches += 1
+    fused_resblock.launches_by_mode[w.mode] += 1
     return out
 
 
 fused_resblock.launches = 0
+fused_resblock.launches_by_mode = dict.fromkeys(MODES, 0)
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library("resblock")
     fn = lib.paella_resblock
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -20,6 +20,11 @@ The AttnBlocks follow the JAX forward at fused_blocks=True: repetition 0 of a
 level takes kernel K5 as its attention core under attention_impl="pallas",
 repetitions 1 and up run whole as kernel K6 under attn_block_kernel=True, and
 every other case (and any call with cond_reweight) takes plain torch attention.
+
+A model quantized by quant.quantize_paella_int8 runs its int8 ResBlocks
+through kernel K1b as the JAX forward does: W8A8 under `config.act_quant`,
+weight-only otherwise, and weight-only at repetitions >= 1 of a level where
+JAX takes its attention-block kernel (`_jax_attn_block_route`).
 """
 from __future__ import annotations
 
@@ -87,7 +92,7 @@ class Paella(DerivedWeights):
                     c = cfg.c_hidden[i]
                     if bt == "C":
                         c_skip = c if (with_skip and rep == 0 and k == 0) else 0
-                        blocks.append(ResBlock(c, c_skip, cfg.kernel_size, dtype=dt))
+                        blocks.append(ResBlock(c, c_skip, cfg.kernel_size, dtype=dt, level=i, rep=rep))
                     elif bt == "T":
                         blocks.append(TimestepBlock(c, cfg.c_r, dtype=dt))
                     elif bt == "A":
@@ -221,7 +226,31 @@ class Paella(DerivedWeights):
         dt = self.config.compute_dtype
         return self.derived("head", lambda: self.out_mapper[1].weight[:, :, 0, 0].to(dt).contiguous())
 
-    def _run_level(self, prefix, blocks, start, stop, h, skip, r_embed, c_embed, cond_mask, cond_reweight, kv):
+    def _jax_attn_block_route(self, i: int, h: torch.Tensor, s_cond: int, cond_reweight) -> bool:
+        """Whether the JAX forward runs repetitions >= 1 of level i with its
+        attention-block kernel (paella_tpu/models/denoiser.py:600-609): its
+        scan then calls the ResBlock kernel without act_quant (:632-657).
+        Decided by JAX's own condition, its VMEM gate included, whatever route
+        the port's AttnBlocks take (the port's K6 has no such gate)."""
+        cfg = self.config
+        c, nhead = cfg.c_hidden[i], cfg.nhead[i]
+        b, hh, ww = h.shape[:3]
+        qkv_scratch = b * (hh * ww + s_cond) * 3 * nhead * 128 * cfg.compute_dtype.itemsize
+        return (
+            cfg.level_config[i].endswith("A")
+            and cfg.attn_block_kernel
+            and cond_reweight is None
+            and c % 128 == 0
+            and nhead % 2 == 0
+            and qkv_scratch <= 4_500_000
+        )
+
+    def _run_level(self, prefix, i, blocks, start, stop, h, skip, r_embed, c_embed, cond_mask, cond_reweight, kv):
+        # int8 ResBlocks run W8A8 under act_quant, except repetitions >= 1 at a
+        # level where JAX takes its attention-block route (a quirk kept on
+        # purpose, ROADMAP.md section C)
+        act = self.config.act_quant
+        act_rest = act and not self._jax_attn_block_route(i, h, c_embed.shape[1], cond_reweight)
         j = start
         while j < stop:
             blk = blocks[j]
@@ -229,7 +258,7 @@ class Paella(DerivedWeights):
                 film = None
                 if j + 1 < stop and isinstance(blocks[j + 1], TimestepBlock):
                     film = blocks[j + 1].film(r_embed)
-                h = blk(h, film, skip if j == start else None)
+                h = blk(h, film, skip if j == start else None, act_quant=act if blk.rep == 0 else act_rest)
                 j += 1 if film is None else 2
                 continue
             if isinstance(blk, TimestepBlock):
@@ -287,7 +316,7 @@ class Paella(DerivedWeights):
             if i > 0:
                 h = blocks[0](h)
                 start = 1
-            h = self._run_level(f"down_blocks.{i}", blocks, start, len(blocks), h, None, *ctx)
+            h = self._run_level(f"down_blocks.{i}", i, blocks, start, len(blocks), h, None, *ctx)
             level_outputs.insert(0, h)
 
         h = level_outputs[0]
@@ -295,7 +324,7 @@ class Paella(DerivedWeights):
             blocks = self.up_blocks[iu]
             stop = len(blocks) - 1 if i > 0 else len(blocks)
             skip = level_outputs[iu] if iu > 0 else None
-            h = self._run_level(f"up_blocks.{iu}", blocks, 0, stop, h, skip, *ctx)
+            h = self._run_level(f"up_blocks.{iu}", i, blocks, 0, stop, h, skip, *ctx)
             if i > 0:
                 h = blocks[stop](h)
 

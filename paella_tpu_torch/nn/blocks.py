@@ -77,13 +77,18 @@ class ResBlock(DerivedWeights):
     one call of kernels/resblock.py::fused_resblock, which is what the JAX
     package's FusedResBlock does. With c_skip = c the UNet skip is
     channel-concatenated before the grouped depthwise conv (groups = c, so
-    group g reads concat channels 2g and 2g+1). Inference only."""
+    group g reads concat channels 2g and 2g+1). Inference only.
 
-    def __init__(self, c: int, c_skip: int = 0, kernel_size: int = 3, dtype=torch.float32):
+    `level` and `rep` place the block in the UNet (quant.quantize_paella_int8
+    picks blocks by them). Once quantized, fc1 and fc2 (channelwise.0 and .4)
+    are quant.Int8Linear and fused_resblock runs kernel K1b: W8A8 where the
+    caller passes act_quant, else weight-only."""
+
+    def __init__(self, c: int, c_skip: int = 0, kernel_size: int = 3, dtype=torch.float32, level: int = 0, rep: int = 0):
         super().__init__()
         if kernel_size != 3 or c_skip not in (0, c):
             raise ValueError(f"ResBlock supports kernel_size 3 and c_skip in (0, c), got {kernel_size}, {c_skip}")
-        self.c, self.dtype = c, dtype
+        self.c, self.dtype, self.level, self.rep = c, dtype, level, rep
         self.depthwise = nn.Conv2d(c + c_skip, c, kernel_size, padding=kernel_size // 2, groups=c)
         self.channelwise = nn.Sequential(
             nn.Linear(c, c * 4),
@@ -105,13 +110,20 @@ class ResBlock(DerivedWeights):
         fc2.weight.mul_(out_init_scale)  # reference: src/modules.py:199-202
         init.zeros_(fc2.bias)
 
-    def kernel_weights(self) -> ResBlockWeights:
+    @property
+    def quantized(self) -> bool:
+        return hasattr(self.channelwise[0], "weight_scale")
+
+    def kernel_weights(self, act_quant: bool = False) -> ResBlockWeights:
         fc1, grn, fc2 = self.channelwise[0], self.channelwise[2], self.channelwise[4]
+        act_quant = act_quant and self.quantized
         return self.derived(
-            "kernel",
+            ("kernel", act_quant),
             lambda: prepare_resblock_weights(
                 self.depthwise.weight, self.depthwise.bias, fc1.weight, fc1.bias,
                 grn.gamma, grn.beta, fc2.weight, fc2.bias, self.dtype,
+                fc1_scale=getattr(fc1, "weight_scale", None), fc2_scale=getattr(fc2, "weight_scale", None),
+                act_quant=act_quant,
             ),
         )
 
@@ -120,14 +132,29 @@ class ResBlock(DerivedWeights):
         x: torch.Tensor,
         film: Optional[torch.Tensor] = None,
         skip: Optional[torch.Tensor] = None,
+        act_quant: bool = False,
     ) -> torch.Tensor:
-        dt = self.dtype
+        """act_quant runs a quantized block as W8A8; a float block ignores it,
+        as the JAX FusedResBlock does without kernel scales."""
+        dt, c = self.dtype, self.c
+        if self.quantized and (c % 128 or (4 * c) % 512):
+            raise ValueError(
+                f"ResBlock at level {self.level} holds int8 weights, but its width {c} fails the int8 "
+                "kernel's alignment (c % 128 == 0, 4c % 512 == 0; quant.fuse_eligible_levels): keep this "
+                "level float"
+            )
         return fused_resblock(
             x.to(dt).contiguous(),
-            self.kernel_weights(),
+            self.kernel_weights(act_quant),
             film=None if film is None else film.to(dt).contiguous(),
             skip=None if skip is None else skip.to(dt).contiguous(),
         )
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        from ..quant import check_int8_state
+
+        check_int8_state(self, state_dict, prefix)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
 class TimestepBlock(nn.Module):

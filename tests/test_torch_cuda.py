@@ -12,13 +12,18 @@ import torch
 from paella_tpu_torch.kernels.attention import attention_plain, fused_attention
 from paella_tpu_torch.kernels.attn_block import attn_block_plain, fused_attn_block, prepare_attn_block_weights
 from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
-from paella_tpu_torch.kernels.resblock import fused_resblock, prepare_resblock_weights, resblock_plain
+from paella_tpu_torch.kernels.resblock import (
+    fused_resblock,
+    prepare_resblock_weights,
+    resblock_plain,
+)
 from paella_tpu_torch.kernels.sampling import (
     fused_head_categorical,
     gumbel_categorical,
     gumbel_categorical_plain,
     head_categorical_plain,
 )
+from paella_tpu_torch.quant import quantize_dense_int8, w8a8_dot
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +98,86 @@ def test_kernels_are_batch_invariant(cuda):
     w6 = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), torch.bfloat16)
     kv = r(8, 72, c, std=1.0).to(torch.bfloat16)
     assert torch.equal(fused_attn_block(x[:2], kv[:2], w6, 16), fused_attn_block(x, kv, w6, 16)[:2])
+
+
+def int8_resblock(c: int, cpg: int, dtype, g, act_quant: bool):
+    """Random ResBlock weights with fc1/fc2 quantized as quantize_paella_int8 does."""
+    r = lambda *s, std: torch.randn(*s, generator=g, device=g.device) * std  # noqa: E731
+    q1, s1 = quantize_dense_int8(r(4 * c, c, std=c**-0.5))
+    q2, s2 = quantize_dense_int8(r(c, 4 * c, std=(4 * c) ** -0.5))
+    return prepare_resblock_weights(
+        r(c, cpg, 3, 3, std=0.2), r(c, std=0.1), q1, r(4 * c, std=0.1), r(4 * c, std=0.2), r(4 * c, std=0.2),
+        q2, r(c, std=0.1), dtype, fc1_scale=s1, fc2_scale=s2, act_quant=act_quant,
+    )
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 128), (1, 5, 7, 64)])  # split fc2 / ragged M tile
+def test_resblock_int8_kernel_matches_plain(cuda, dtype, with_skip, act_quant, shape):
+    """K1b against its plain version. Weight-only: K1's tolerances. W8A8:
+    within 2e-2 of the largest output (an s8 code at a rounding tie may round
+    the other way when the f32 values before it differ in their last ulp,
+    which moves its row by one quantization step, 1/127 of the row's
+    scale), and 99% of elements within K1's tolerance."""
+    b, hh, ww, c = shape
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = int8_resblock(c, 2 if with_skip else 1, dtype, g, act_quant)
+    x = (torch.randn(b, hh, ww, c, generator=g, device=cuda)).to(dtype)
+    skip = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(dtype) if with_skip else None
+    film = (torch.randn(b, 2 * c, generator=g, device=cuda) * 0.2).to(dtype)
+    got = fused_resblock(x, w, film=film, skip=skip, tile_n1=128)
+    want = resblock_plain(x, w, film=film, skip=skip, tile_n1=128)
+    assert torch.equal(fused_resblock(x, w, film=film, skip=skip, tile_n1=128), got)
+    err, scale = (got.float() - want.float()).abs(), want.float().abs().max()
+    tol = 1e-3 if dtype == torch.float32 else 2e-2 * scale
+    if act_quant:
+        assert err.max() <= 2e-2 * scale and (err <= tol).float().mean() >= 0.99, (err.max(), (err <= tol).float().mean())
+    else:
+        assert err.max() <= tol, err.max()
+
+
+def test_resblock_int8_kernel_is_batch_invariant(cuda):
+    """Both int8 modes give an image the same bits at batch 2 and 8."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    c = 1280
+    x = torch.randn(8, 8, 8, c, generator=g, device=cuda).to(torch.bfloat16)
+    film = (torch.randn(8, 2 * c, generator=g, device=cuda) * 0.2).to(torch.bfloat16)
+    for act_quant in (False, True):
+        w = int8_resblock(c, 1, torch.bfloat16, g, act_quant)
+        assert torch.equal(fused_resblock(x[:2], w, film=film[:2]), fused_resblock(x, w, film=film)[:2])
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_resblock_int8_kernel_split_k_at_width_640(cuda, act_quant):
+    """K1b at (2, 8, 8, 640), the flagship's level 0 at a 64x64-pixel image:
+    fc2 runs 8 K splits, each of whole 64-byte s8 tiles in W8A8 (K 2560 holds
+    40 of them, 80 of the 32-deep float tiles). Within 2e-2 of the largest
+    output, as test_resblock_int8_kernel_matches_plain at bf16, and in W8A8,
+    whose s32 sums are exact, 99% of elements equal to the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    c = 640
+    w = int8_resblock(c, 1, torch.bfloat16, g, act_quant)
+    x = torch.randn(2, 8, 8, c, generator=g, device=cuda).to(torch.bfloat16)
+    film = (torch.randn(2, 2 * c, generator=g, device=cuda) * 0.2).to(torch.bfloat16)
+    got, want = fused_resblock(x, w, film=film).float(), resblock_plain(x, w, film=film).float()
+    err = (got - want).abs().max()
+    assert err <= 2e-2 * want.abs().max(), err
+    if act_quant:
+        assert (got == want).float().mean() >= 0.99, (got == want).float().mean()
+
+
+@pytest.mark.parametrize("rows,k,n", [(64, 2560, 2048), (17, 64, 48), (10, 64, 48)])
+def test_w8a8_dot_on_card_equals_cpu(cuda, rows, k, n):
+    """quant.w8a8_dot (torch._int_mm) at ByT5-XL's widths, at cuBLASLt's
+    smallest row count and below it (zero rows padded): the s32 sums are
+    exact, so the card gives the CPU's values bit for bit."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(rows, k, generator=g)
+    q, s = quantize_dense_int8(torch.randn(n, k, generator=g) * k**-0.5)
+    want = w8a8_dot(x, q, s, torch.float32)
+    torch.testing.assert_close(w8a8_dot(x.cuda(), q.cuda(), s.cuda(), torch.float32).cpu(), want, rtol=0, atol=0)
 
 
 def close_in_dtype(got, want):
