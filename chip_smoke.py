@@ -10,7 +10,9 @@ limit):
                source, in parallel
   2. K1        fused ResBlock(+FiLM) kernel against its plain torch version
                at the flagship's shapes, f32 (TF32 off) and bf16, and two runs
-               bitwise equal
+               bitwise equal; per bf16 shape its device time per sub-kernel
+               (torch.profiler), the two products' TFLOP/s beside
+               torch.matmul's, and the host's time to enqueue a call
   3. K2        fused sampling head against its plain torch version at the
                flagship's shape, and with a zero head (tokens from the hash alone)
   4. K3        Gumbel categorical against its plain version over flagship
@@ -29,12 +31,15 @@ limit):
                weights on the CPU (plain versions), encoder included
   9. K5, K6    fused attention core and fused attention block against their
                plain versions at the flagship's level-1 and level-2 shapes,
-               bf16 and f32, and two runs bitwise equal
+               bf16 and f32, and two runs bitwise equal; K5 in turns with
+               SDPA, its device time beside SDPA's, and at S 1036 (the
+               streamed path)
  10. attn e2e  the flagship config with attention_impl="pallas" and
                attn_block_kernel=True: one forward's launch counts and
                features against the same weights' plain-attention forward,
                then 8-step CFG sampling and decode, with launch counts and
-               p50s beside the plain-attention config's
+               p50s beside the plain-attention config's, and a profile of one
+               generation of each (kernel time by owner, busy share)
  11. serve     PaellaServer at the attention config on 127.0.0.1: /healthz,
                single requests whose PNGs equal the pipeline's images, a
                repeated request byte-identical, a micro-batch of three
@@ -54,7 +59,7 @@ limit):
                pipeline; the W8A8 quality proxies' rows
 Then a JSON line of the kernels (each with its time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time), the card's name and power limit, and, last, {"ok": true, "device":
+time; K1 and K5 also with their device time alone, `device_ms`), the card's name and power limit, and, last, {"ok": true, "device":
 {...}}. Any failed check raises; without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -185,7 +190,8 @@ def phase_build(tag: str) -> dict:
     for name, path in paths.items():
         _build.load_library(name)
         log = path.with_suffix(".log").read_text()
-        regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        regs[name] = [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln or "warning" in ln.lower()]
     secs = time.perf_counter() - t0
     print(f"[build] {' + '.join(n + '.cu' for n in LIBRARIES)} built and loaded in {secs:.1f} s ({tag})")
     for name, lines in regs.items():
@@ -244,6 +250,112 @@ def resblock_bound(x, w, film, skip) -> dict:
     return bound(nbytes_of(x, film, skip, *weights) + nbytes_of(x), 16 * b * hh * ww * c * c, kind)
 
 
+def profile_kernels(fn, runs: int = 1) -> tuple[dict, float]:
+    """torch.profiler over `runs` calls of fn() after one warm-up: ({kernel
+    name: (device µs per run, launches per run)}, host wall ms per run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:  # kernels, memcpys and memsets; host ops have no self device time
+            kernels[e.key] = (us / runs, e.count / runs)
+    return kernels, wall_ms
+
+
+def device_us(fn, runs: int = 20) -> float:
+    """Device time of one fn() call: the sum of its kernels' durations
+    (torch.profiler), without the gaps between launches."""
+    return sum(us for us, _ in profile_kernels(fn, runs)[0].values())
+
+
+def host_us(fn, runs: int = 50) -> float:
+    """Host time to enqueue one fn() call (no synchronize inside the loop;
+    the queue is far from full at these counts)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / runs
+
+
+def group_kernels(kernels: dict, groups) -> dict:
+    """Sum profile_kernels' entries into named groups: each kernel goes to
+    the first (name, substrings) whose substring occurs in its name, else
+    to "other". Values are [µs, launches]."""
+    out = {name: [0.0, 0.0] for name, _ in groups}
+    out["other"] = [0.0, 0.0]
+    for key, (us, n) in kernels.items():
+        name = next((g for g, subs in groups if any(s in key for s in subs)), "other")
+        out[name][0] += us
+        out[name][1] += n
+    return out
+
+
+# K1's sub-kernels by name (csrc/resblock.cu), in launch order
+K1_PHASES = [("dw+LN", ("dw_ln_kernel",)), ("fc1", ("fc1_",)), ("GRN scale", ("grn_scale_kernel",)),
+             ("GRN apply", ("grn_apply_kernel",)), ("fc2 reduce", ("fc2_reduce_kernel",)), ("fc2", ("fc2_",))]
+# a generation's kernels by owner (K6 before K5: block_attention_kernel)
+GENERATION_GROUPS = [
+    ("K1", ("dw_ln_kernel", "fc1_", "grn_scale_kernel", "grn_apply_kernel", "fc2_", "requant_kernel")),
+    ("K6", ("ln_rows_kernel", "linear_kernel", "block_attention_kernel")),
+    ("K5", ("attention_kernel", "attention_ring_kernel")),
+    ("K2, K3", ("head_kernel", "gumbel_kernel")),
+    ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "Kernel2")),
+    ("cuDNN conv", ("conv", "cudnn", "implicit")),
+]
+
+
+def k1_split(x, w, film, skip, tag: str) -> dict:
+    """K1's device time per sub-kernel (torch.profiler, 10 calls), its two
+    products' rate, and torch.matmul of the same two bf16 products as a
+    printed yardstick (not a library_ms: no one PyTorch call is a ResBlock)."""
+    import torch
+
+    from paella_tpu_torch.kernels.resblock import fused_resblock
+
+    b, hh, ww, c = x.shape
+    m = b * hh * ww
+    call = lambda: fused_resblock(x, w, film=film, skip=skip)  # noqa: E731
+    split = group_kernels(profile_kernels(call, runs=10)[0], K1_PHASES)
+    parts = ", ".join(f"{k} {us:.2f} ({n:g})" for k, (us, n) in split.items() if n)
+    dev, host = sum(us for us, _ in split.values()), host_us(call)
+    print(
+        f"[K1] ({b},{hh},{ww},{c}) skip={skip is not None} bf16 per sub-kernel, device µs per call (launches): {parts}; "
+        f"all {dev:.2f} µs on the device, {host:.2f} µs on the host to enqueue a call ({tag})"
+    )
+    ops = 8 * m * c * c  # each product: 2 M C 4C
+    xn = torch.randn(m, c, device="cuda").to(torch.bfloat16)
+    h = torch.randn(m, 4 * c, device="cuda").to(torch.bfloat16)
+    mm1 = cuda_time_ms(lambda: xn @ w.w1.t())
+    mm2 = cuda_time_ms(lambda: h @ w.w2.t())
+    fc1_us, fc2_us = split["fc1"][0], split["fc2"][0] + split["fc2 reduce"][0]
+    print(
+        f"[K1] ({b},{hh},{ww},{c}) products, {ops / 1e9:.2f} GOP each: fc1 {fc1_us:.2f} µs = {ops / fc1_us / 1e6:.1f} TFLOP/s, "
+        f"fc2 (+ reduce) {fc2_us:.2f} µs = {ops / fc2_us / 1e6:.1f} TFLOP/s; yardstick torch.matmul "
+        f"{mm1 * 1e3:.2f} µs = {ops / mm1 / 1e9:.1f} and {mm2 * 1e3:.2f} µs = {ops / mm2 / 1e9:.1f} TFLOP/s ({tag})"
+    )
+    return {"sub_kernels_us": {k: v[0] for k, v in split.items() if v[1]}, "device_us": dev, "host_us": host,
+            "fc1_tflops": ops / fc1_us / 1e6,
+            "fc2_tflops": ops / fc2_us / 1e6, "matmul_tflops": [ops / mm1 / 1e9, ops / mm2 / 1e9]}
+
+
 def phase_k1(tag: str) -> dict:
     import torch
 
@@ -284,9 +396,10 @@ def phase_k1(tag: str) -> dict:
             else:
                 check(rel <= 2e-2, f"K1 bf16 relative error {rel} > 2e-2")
                 result["max_abs_err"] = max(result["max_abs_err"], err)
-                result["shapes"][f"({b},{hh},{ww},{c}) skip={with_skip}"] = {"ms": ms, "plain_ms": plain_ms, **bd}
+                shape = result["shapes"][f"({b},{hh},{ww},{c}) skip={with_skip}"] = {
+                    "ms": ms, "plain_ms": plain_ms, **bd, **k1_split(x, w, film, skip, tag)}
                 if (b, hh, ww, c, with_skip) == K1_SHAPE:
-                    result.update(ms=ms, plain_ms=plain_ms, **bd)
+                    result.update(ms=ms, plain_ms=plain_ms, device_ms=shape["device_us"] / 1e3, **bd)
     return result
 
 
@@ -785,18 +898,48 @@ def phase_k5(tag: str) -> dict:
                 add = torch.zeros(b, 1, 1, s, device="cuda", dtype=dtype).masked_fill(~mask[:, None, None, :], -1e9)
                 sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)  # noqa: E731
                 lib_err, lib_limit, lib_ok = attention_error(sdpa().transpose(1, 2), want)
-                ms_again, library_ms = alternate(lambda: fused_attention(q, k, v, mask), sdpa)
+                call = lambda: fused_attention(q, k, v, mask)  # noqa: E731
+                ms_again, library_ms = alternate(call, sdpa)
+                dev = {"kernel": device_us(call), "sdpa": device_us(sdpa)}
+                host = {"kernel": host_us(call), "sdpa": host_us(sdpa)}
                 print(
                     f"[K5] level {level} bf16, in turns with F.scaled_dot_product_attention (additive mask): kernel "
                     f"{ms_again:.4f} ms, SDPA {library_ms:.4f} ms (its max_abs_err to the plain version {lib_err:.3e}, "
-                    f"limit {lib_limit:.3e}) ({tag})"
+                    f"limit {lib_limit:.3e}); device µs per call (kernels only) {dev['kernel']:.2f} vs SDPA "
+                    f"{dev['sdpa']:.2f}, host µs to enqueue {host['kernel']:.2f} vs {host['sdpa']:.2f} ({tag})"
                 )
                 check(lib_ok, f"SDPA computes another function at level {level}: error {lib_err}")
                 result["max_abs_err"] = max(result["max_abs_err"], err)
                 result.setdefault("levels", {})[level] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "device_us": dev, "host_us": host,
                     **bound(nbytes_of(q, k, v, mask, got), flops, "bf16"),  # QK^T and PV once each
                 }
+    # the streamed path: conditioning of ~780 tokens (S = 256 + 780), more
+    # keys than the kernel keeps resident in shared memory; bf16, masked
+    b, n, s, h, d = 2, 256, 1036, 16, 80
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    mask[1, n + 2 :] = False
+    q, k, v = (torch.randn(b, ln, h, d, generator=gen, device="cuda").to(torch.bfloat16) for ln in (n, s, s))
+    got, want, again = fused_attention(q, k, v, mask), attention_plain(q, k, v, mask), fused_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    err, limit, ok = attention_error(got, want)
+    same = torch.equal(got, again)
+    ms, plain_ms = alternate(lambda: fused_attention(q, k, v, mask), lambda: attention_plain(q, k, v, mask))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    add = torch.zeros(b, 1, 1, s, device="cuda", dtype=torch.bfloat16).masked_fill(~mask[:, None, None, :], -1e9)
+    call = lambda: fused_attention(q, k, v, mask)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)  # noqa: E731
+    ms_again, library_ms = alternate(call, sdpa)
+    dev = {"kernel": device_us(call), "sdpa": device_us(sdpa)}
+    print(
+        f"[K5] fused_attention streamed q ({b},{n},{h},{d}) k/v ({b},{s},{h},{d}) masked bf16: max_abs_err {err:.3e} "
+        f"(limit {limit:.3e}), two runs bitwise equal: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; in turns "
+        f"with SDPA: kernel {ms_again:.4f} ms, SDPA {library_ms:.4f} ms; device µs per call {dev['kernel']:.2f} vs "
+        f"SDPA {dev['sdpa']:.2f} ({tag})"
+    )
+    check(bool(torch.isfinite(got).all()) and ok, f"K5 streamed max abs error {err} > {limit}")
+    check(same, "K5 streamed gave different outputs on two runs")
+    result["streamed"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err, "device_us": dev}
     result.update(result["levels"][1])
     return result
 
@@ -926,7 +1069,18 @@ def phase_attention_e2e(tag: str) -> dict:
         f"{p50['attention']:.2f} ms (min {min(times['attention']) * 1e3:.2f}), plain attention {p50['plain']:.2f} ms "
         f"(min {min(times['plain']) * 1e3:.2f}) over {TIMED_RUNS} runs each ({tag})"
     )
-    result = {"launches": launches, "p50_ms": p50, "feature_rel_l2": err, "feature_plain_rel_l2": floor}
+    result = {"launches": launches, "p50_ms": p50, "feature_rel_l2": err, "feature_plain_rel_l2": floor, "profile": {}}
+    for name, m in (("plain", plain), ("attention", model)):  # where the time goes, one profiled warm run each
+        kernels, wall = profile_kernels(lambda: generate(m, 77))
+        groups = group_kernels(kernels, GENERATION_GROUPS)
+        busy = sum(us for us, _ in groups.values()) / 1e3
+        parts = ", ".join(f"{k} {us / 1e3:.2f} ms ({n:g})" for k, (us, n) in groups.items() if n)
+        print(
+            f"[attn e2e] profile of one {STEPS}-step generation, {name} attention: {parts}; all kernels {busy:.2f} ms "
+            f"of {wall:.2f} ms wall = {busy / wall:.0%} busy ({tag})"
+        )
+        result["profile"][name] = {"groups_ms": {k: v[0] / 1e3 for k, v in groups.items()}, "kernels_ms": busy,
+                                   "wall_ms": wall}
     del model, plain, vq
     torch.cuda.empty_cache()
     return result
@@ -1334,7 +1488,7 @@ def main() -> int:
 
     kernels = [
         entry("fused_resblock", "resblock.cu", "paella_tpu/kernels/resblock.py:316", k1, "x (2,16,16,1280) bf16 + FiLM",
-              counts=["fused_resblock[float]"]),
+              counts=["fused_resblock[float]"], device_ms=k1["device_ms"]),
         entry("fused_resblock (int8 modes)", "resblock.cu", "paella_tpu/kernels/resblock.py:316 (int8 modes)", k1b,
               "x (2,16,16,1280) bf16 + FiLM, W8A8 (both modes under 'modes')",
               counts=["fused_resblock[int8]", "fused_resblock[w8a8]"], modes=k1b["modes"]),
@@ -1344,14 +1498,15 @@ def main() -> int:
         entry("fused_codebook_lookup", "quantize.cu", "paella_tpu/kernels/quantize.py:53", k4,
               "z (1,64,64,4) f32, codebook (8192,4) f32"),
         entry("fused_attention", "attention.cu", "paella_tpu/kernels/attention.py:56", k5,
-              "q (2,256,16,80), k/v (2,328,16,80) bf16, masked"),
+              "q (2,256,16,80), k/v (2,328,16,80) bf16, masked", device_ms=k5["device_us"]["kernel"] / 1e3,
+              library_device_ms=k5["device_us"]["sdpa"] / 1e3),
         entry("fused_attn_block", "attn_block.cu", "paella_tpu/kernels/attn_block.py:178", k6,
               "x (2,16,16,1280), kv (2,72,1280) bf16, 16 heads, masked"),
     ]
     print(json.dumps({
         "kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"],
         "pipeline_p50_ms": {name: c["p50_ms"] for name, c in pipe["calls"].items()}, "build_s": build["build_s"],
-        "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k6_levels": k6["levels"],
+        "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
         "k1_shapes": k1["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
         "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"],

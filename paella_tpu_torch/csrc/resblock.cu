@@ -20,20 +20,26 @@
 //   1. dw_ln_kernel  one block per token: 3x3 depthwise (the skip variant
 //                    reads concat channels 2c, 2c+1 straight from x and skip),
 //                    bias and LayerNorm -> xn (M, C).
-//   2. fc1_kernel    64x64 tiles of xn @ W1^T with a bias + GELU epilogue that
-//                    writes h (M, 4C) and, for each batch item the M-tile
-//                    touches, each column's f32 sum of squares over the
-//                    tile's rows into a partials buffer (no atomics).
+//   2. fc1           xn @ W1^T with a bias + GELU epilogue that writes h
+//                    (M, 4C) and, for each batch item the M-tile touches,
+//                    each column's f32 sum of squares over the tile's rows
+//                    into a partials buffer (no atomics).
 //   3. grn_scale_kernel  one block per batch item: sums its partials in tile
 //                    order (so the GRN scale is the same on every run, as the
 //                    Pallas kernel's sequential grid makes it) -> scale (B, 4C).
-//   4. fc2_kernel    64x64 tiles of (h * scale) @ W2^T, the scale applied as
-//                    the A tile is loaded, with a beta@W2 + b2 + residual +
-//                    FiLM epilogue. Its grid is only (C/64) x (M/64) blocks
-//                    (40 at M 128, C 1280), so the wrapper splits K = 4C
-//                    until there are about two blocks per SM; the splits
-//                    write partials that fc2_reduce_kernel sums in a fixed
-//                    order before the same epilogue.
+//   4. fc2           (h * scale) @ W2^T with a beta@W2 + b2 + residual + FiLM
+//                    epilogue. Its grid has few output tiles, so the wrapper
+//                    splits K = 4C; the splits write partials that
+//                    fc2_reduce_kernel sums in a fixed order before the same
+//                    epilogue.
+// The bf16 float mode (K1 on the flagship) runs phases 2 and 4 on wgmma
+// (gemm_sm90.cuh: 128-row tiles, 64 or 128 wide, fed by a 6-stage cp.async
+// ring): fc1_wgmma_kernel, grn_scale_kernel over 128-row tile partials,
+// grn_apply_kernel (h = round(h * scale) in place) and fc2_wgmma_kernel. The wrapper picks the tile widths and
+// the split count per CFG pair (kernels/resblock.py::wgmma_tiles). f32 and
+// the int8 modes run fc1_kernel / fc2_kernel: 64x64 tiles on common.cuh's
+// tile product (FMA for f32, mma.sync for bf16 and s8) with the GRN scale
+// applied as fc2's A tile is loaded.
 // Rounding follows the Pallas kernel: xn and h are stored in the activation
 // dtype, h is rescaled in f32 and rounded again, and every product
 // accumulates in f32.
@@ -66,14 +72,16 @@
 // about 4000, 1000 and 260 operations per weight byte: compute-bound except
 // at M 128, which sits near the card's ~295 FLOP/byte bf16 ridge; int8
 // halves the weight bytes (M 128 then HBM-bound on its 6.6 MB at the int8
-// rate) and W8A8 doubles the tensor-core rate. This first form runs the
-// products on mma.sync without a copy pipeline, so it is bound by
-// shared-memory loads and latency, well below the tensor cores' rate; xn and
-// h make one round trip through L2/HBM, which the 50 MB L2 mostly absorbs.
-// wgmma, TMA and a persistent schedule are the later steps.
+// rate) and W8A8 doubles the tensor-core rate. The wgmma phases reach about a
+// quarter of the bf16 peak (PERF.md has the measurements and what was tried);
+// a short K (10 steps at C 640) leaves the epilogue a large share of a tile.
+// The mma.sync tiles of f32 and int8 are bound by shared-memory loads and
+// latency. xn and h make one round trip through L2/HBM, which the 50 MB L2
+// mostly absorbs.
 #include <type_traits>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace paella {
 namespace {
@@ -146,7 +154,9 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
   float lsum = 0.f;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float acc = 0.f;
-    for (int j = 0; j < cpg; ++j) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= cpg) break;
       // the grouped conv over concat [x, skip] (groups = C) reads channels
       // (2c, 2c + 1) for group c
       const T* src = x;
@@ -156,14 +166,17 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
         src = q < C ? x : skip;
         ch = q < C ? q : q - C;
       }
+      // all nine taps load at once; a tap outside the image reads the centre
+      // pixel and adds 0 * w, which leaves acc bit for bit as skipping it
+#pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
         const int yy = y + ky - 1;
-        if (yy < 0 || yy >= H) continue;
+#pragma unroll
         for (int kx = 0; kx < 3; ++kx) {
           const int xx = xq + kx - 1;
-          if (xx < 0 || xx >= W) continue;
-          acc += to_f<T>(src[((size_t)(b * H + yy) * W + xx) * C + ch]) *
-                 to_f<T>(dw_w[((ky * 3 + kx) * cpg + j) * C + c]);
+          const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+          const float xv = to_f<T>(src[((size_t)(b * H + (in ? yy : y)) * W + (in ? xx : xq)) * C + ch]);
+          acc += (in ? xv : 0.f) * to_f<T>(dw_w[((ky * 3 + kx) * cpg + j) * C + c]);
         }
       }
     }
@@ -300,22 +313,98 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
   }
 }
 
+// bf16 float mode, phase 2 on wgmma (gemm_sm90.cuh): one 128 x BN tile of
+// xn @ W1^T, then + b1 and GELU from the accumulators, staged in shared
+// memory as f32 to store h coalesced (rounded to bf16) and to take each
+// column's GRN sum of squares over the tile's rows in a fixed order: where
+// hw is a multiple of 32 (the flagship's shapes), four 32-row segments, each
+// inside one image, summed row by row and then added segment by segment per
+// image; otherwise one thread per column walks the rows in order. One
+// partial per image the tile touches, at slot (tile, image - the tile's
+// first image), as fc1_kernel writes them for 64-row tiles.
+template <int BN>
+__global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ xn, const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
+    __nv_bfloat16* __restrict__ h, float* __restrict__ gx_part, int M, int K, int N, int hw, int slots) {
+  using Tile = sm90::GemmTile<BN>;
+  constexpr int LDC = BN + 4, kSeg = 32, kSegs = sm90::kBM / kSeg;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  const int m0 = blockIdx.y * sm90::kBM, n0 = blockIdx.x * BN;
+  Tile tile;
+  tile.run(smem, xn, w1, K, M, m0, n0, 0, K / sm90::kBK);
+  float* Cs = reinterpret_cast<float*>(smem);  // [128][LDC], over the drained ring
+  float* seg = Cs + sm90::kBM * LDC;            // [kSegs][BN]
+  tile.for_each([&](int r, int c, float v) {
+    v = v + __bfloat162float(b1[n0 + c]);
+    Cs[r * LDC + c] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < sm90::kBM * (BN / 8); e += blockDim.x) {
+    const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+    if (m0 + r >= M) break;
+    const float* src = Cs + r * LDC + c;
+    uint4 u;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+    *reinterpret_cast<uint4*>(h + (size_t)(m0 + r) * N + n0 + c) = u;
+  }
+  const int rows = min(sm90::kBM, M - m0), first_b = m0 / hw, last_b = (m0 + rows - 1) / hw;
+  float* part = gx_part + (size_t)blockIdx.y * slots * N + n0;
+  if (hw % kSeg == 0) {
+    for (int e = threadIdx.x; e < kSegs * BN; e += blockDim.x) {
+      const int s = e / BN, c = e % BN;
+      float sq = 0.f;
+      for (int r = s * kSeg; r < min((s + 1) * kSeg, rows); ++r) {
+        const float v = Cs[r * LDC + c];
+        sq += v * v;
+      }
+      seg[s * BN + c] = sq;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < (last_b - first_b + 1) * BN; e += blockDim.x) {
+      const int slot = e / BN, c = e % BN;
+      float g = 0.f;
+#pragma unroll
+      for (int s = 0; s < kSegs; ++s)
+        if (s * kSeg < rows && (m0 + s * kSeg) / hw == first_b + slot) g += seg[s * BN + c];
+      part[(size_t)slot * N + c] = g;
+    }
+  } else if (threadIdx.x < BN) {
+    const int c = threadIdx.x;
+    int cur_b = first_b;
+    float sq = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const int bi = (m0 + r) / hw;
+      if (bi != cur_b) {
+        part[(size_t)(cur_b - first_b) * N + c] = sq;
+        cur_b = bi;
+        sq = 0.f;
+      }
+      const float v = Cs[r * LDC + c];
+      sq += v * v;
+    }
+    part[(size_t)(cur_b - first_b) * N + c] = sq;
+  }
+}
+
 // One block of 1024 threads per batch item b: each column's gx = sum of its
-// partials, tile by tile in order, kept in shared memory (N floats), then
-// the GRN scale gamma * gx / (mean_N gx + 1e-6) + 1.
+// partials, tile by tile in order (tiles of bm rows), kept in shared memory
+// (N floats), then the GRN scale gamma * gx / (mean_N gx + 1e-6) + 1.
 __global__ void __launch_bounds__(1024) grn_scale_kernel(const float* __restrict__ gx_part,
                                                          const float* __restrict__ gamma,
                                                          float* __restrict__ scale, int N, int hw,
-                                                         int slots) {
+                                                         int slots, int bm) {
   extern __shared__ float s_norm[];
   __shared__ float red[32];
   const int b = blockIdx.x;
-  const int t0 = b * hw / BM, t1 = ((b + 1) * hw - 1) / BM;
+  const int t0 = b * hw / bm, t1 = ((b + 1) * hw - 1) / bm;
   float s = 0.f;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float g = 0.f;
 #pragma unroll 4
-    for (int t = t0; t <= t1; ++t) g += gx_part[((size_t)t * slots + b - t * BM / hw) * N + n];
+    for (int t = t0; t <= t1; ++t) g += gx_part[((size_t)t * slots + b - t * bm / hw) * N + n];
     s_norm[n] = sqrtf(g);
     s += s_norm[n];
   }
@@ -472,6 +561,67 @@ __global__ void fc2_reduce_kernel(Fc2Args a, int splits, int M, int N, int hw) {
                                                   static_cast<const T*>(a.film));
 }
 
+// bf16 float mode, between the GRN scale and fc2: h = round(h * scale[b]) in
+// place, in f32 and rounded to bf16 (load_tile's row_scale arithmetic), 8
+// values a thread. wgmma reads its operands from shared memory as the copy
+// ring lands them, so the scale cannot ride on the A tile's load.
+__global__ void __launch_bounds__(256) grn_apply_kernel(__nv_bfloat16* __restrict__ h, const float* __restrict__ scale,
+                                                         int M, int N, int hw) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= (size_t)M * N) return;
+  const int m = (int)(i / N), k = (int)(i % N);
+  uint4 u = *reinterpret_cast<const uint4*>(h + i);
+  const float4* s = reinterpret_cast<const float4*>(scale + (size_t)(m / hw) * N + k);
+  const float4 s0 = s[0], s1 = s[1];
+  const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p[j] = __float2bfloat16_rn(__bfloat162float(p[j]) * sv[j]);
+  *reinterpret_cast<uint4*>(h + i) = u;
+}
+
+// bf16 float mode, phase 4 on wgmma: one 128 x BN tile of h @ W2^T over the
+// K range of split blockIdx.z (h already scaled), then the epilogue as
+// fc2_kernel: fc2_finish with one split, else the partial to part[z] for
+// fc2_reduce_kernel.
+template <int BN>
+__global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc2_wgmma_kernel(Fc2Args a, int M, int K, int N, int hw,
+                                                                          int k_split) {
+  using T = __nv_bfloat16;
+  constexpr int LDC = BN + 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  const int m0 = blockIdx.y * sm90::kBM, n0 = blockIdx.x * BN;
+  sm90::GemmTile<BN> tile;
+  tile.run(smem, static_cast<const T*>(a.h), static_cast<const T*>(a.w2), K, M, m0, n0, blockIdx.z * k_split,
+           k_split / sm90::kBK);
+  float* Cs = reinterpret_cast<float*>(smem);
+  tile.for_each([&](int r, int c, float v) { Cs[r * LDC + c] = v; });
+  __syncthreads();
+  // 8 consecutive outputs a thread, their loads independent of each other
+  for (int e = threadIdx.x; e < sm90::kBM * (BN / 8); e += blockDim.x) {
+    const int r = e / (BN / 8), c = (e % (BN / 8)) * 8, m = m0 + r;
+    if (m >= M) break;
+    const size_t i = (size_t)m * N + n0 + c;
+    const float4 v0 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
+    const float4 v1 = *reinterpret_cast<const float4*>(Cs + r * LDC + c + 4);
+    if (a.part != nullptr) {
+      float4* dst = reinterpret_cast<float4*>(a.part + (size_t)blockIdx.z * M * N + i);
+      dst[0] = v0;
+      dst[1] = v1;
+    } else {
+      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      uint4 u;
+      T* o = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[j] = fc2_finish<T, kFloat>(v[j], m, n0 + c + j, N, hw, a.bw2, a.s2, a.sh2, static_cast<const T*>(a.b2),
+                                     static_cast<const T*>(a.x), static_cast<const T*>(a.film));
+      *reinterpret_cast<uint4*>(static_cast<T*>(a.out) + i) = u;
+    }
+  }
+}
+
 struct Args {
   const void *x, *skip, *dw_w, *dw_b, *w1, *b1;
   const float *gamma;
@@ -483,8 +633,58 @@ struct Args {
   float *gx_part, *scale, *part, *sx;
   int8_t* hq;
   float* sh2;
-  int slots, splits, B, H, W, C, group;
+  int slots, splits, B, H, W, C, group, bn1, bn2;
 };
+
+template <int BN>
+cudaError_t launch_fc1_wgmma(const Args& a, int M, int N1, int hw, cudaStream_t st) {
+  constexpr int smem = sm90::GemmTile<BN>::kSmem;
+  cudaError_t err = sm90::reserve_smem<fc1_wgmma_kernel<BN>>(smem);
+  if (err != cudaSuccess) return err;
+  fc1_wgmma_kernel<BN><<<dim3(N1 / BN, (M + sm90::kBM - 1) / sm90::kBM), sm90::kGemmThreads, smem, st>>>(
+      (const __nv_bfloat16*)a.xn, (const __nv_bfloat16*)a.w1, (const __nv_bfloat16*)a.b1, (__nv_bfloat16*)a.h,
+      a.gx_part, M, a.C, N1, hw, a.slots);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_fc2_wgmma(const Fc2Args& f, int M, int N1, int C, int hw, int splits, cudaStream_t st) {
+  constexpr int smem = sm90::GemmTile<BN>::kSmem;
+  cudaError_t err = sm90::reserve_smem<fc2_wgmma_kernel<BN>>(smem);
+  if (err != cudaSuccess) return err;
+  fc2_wgmma_kernel<BN><<<dim3(C / BN, (M + sm90::kBM - 1) / sm90::kBM, splits), sm90::kGemmThreads, smem, st>>>(
+      f, M, N1, C, hw, N1 / splits);
+  return cudaGetLastError();
+}
+
+// bf16 float mode: dw+LN, fc1 on wgmma (128-row tiles, bn1 wide), the GRN
+// scale over 128-row tile partials, its in-place application to h, fc2 on
+// wgmma (bn2 wide, `splits` K splits) and, with splits, the fixed-order
+// reduce. bn1, bn2 and splits come from kernels/resblock.py::wgmma_tiles.
+int launch_bf16_float(const Args& a, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C;
+  const bool tiles_ok = (a.bn1 == 64 || a.bn1 == 128) && N1 % a.bn1 == 0 && (a.bn2 == 64 || a.bn2 == 128) &&
+                        C % a.bn2 == 0 && a.splits >= 1 && N1 % a.splits == 0 && (N1 / a.splits) % sm90::kBK == 0;
+  if (!tiles_ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  dw_ln_kernel<T, false><<<M, kThreads, C * sizeof(float), st>>>(
+      (const T*)a.x, (const T*)a.skip, (const T*)a.dw_w, (const T*)a.dw_b, a.xn, nullptr, a.H, a.W, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = a.bn1 == 128 ? launch_fc1_wgmma<128>(a, M, N1, hw, st) : launch_fc1_wgmma<64>(a, M, N1, hw, st);
+  if (err != cudaSuccess) return (int)err;
+  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, sm90::kBM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t vecs = (size_t)M * N1 / 8;
+  grn_apply_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>((T*)a.h, a.scale, M, N1, hw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  Fc2Args f{a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film, a.out, a.splits > 1 ? a.part : nullptr};
+  err = a.bn2 == 128 ? launch_fc2_wgmma<128>(f, M, N1, C, hw, a.splits, st)
+                     : launch_fc2_wgmma<64>(f, M, N1, C, hw, a.splits, st);
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  fc2_reduce_kernel<T, kFloat><<<(M * C + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, int MODE>
 int launch(const Args& a, cudaStream_t st) {
@@ -499,7 +699,7 @@ int launch(const Args& a, cudaStream_t st) {
   fc1_kernel<T, MODE><<<dim3(N1 / BN, (M + BM - 1) / BM), kThreads, 0, st>>>(
       a.xn, a.w1, (const T*)a.b1, a.s1, a.sx, a.h, a.gx_part, M, C, N1, hw, a.slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots);
+  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, BM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if constexpr (Q8) {
     requant_kernel<<<M, 256, N1 * sizeof(float), st>>>((const float*)a.h, a.scale, a.hq, a.sh2, N1, hw, a.group);
@@ -518,7 +718,9 @@ int launch(const Args& a, cudaStream_t st) {
 template <typename T>
 int launch_mode(const Args& a, int mode, cudaStream_t st) {
   switch (mode) {
-    case kFloat: return launch<T, kFloat>(a, st);
+    case kFloat:  // bf16 runs the wgmma phases; f32 keeps the FMA tile product
+      if constexpr (is_bf16<T>()) return launch_bf16_float(a, st);
+      else return launch<T, kFloat>(a, st);
     case kInt8: return launch<T, kInt8>(a, st);
     case kW8A8: return launch<T, kW8A8>(a, st);
     default: return (int)cudaErrorInvalidValue;
@@ -531,10 +733,12 @@ int launch_mode(const Args& a, int mode, cudaStream_t st) {
 // C interface for ctypes. Shapes: x, skip, out (B,H,W,C); dw_w (3,3,cpg,C);
 // dw_b, b2 (C); w1 (4C,C); b1 (4C); gamma (4C) f32; w2 (C,4C); bw2 (C) f32;
 // film (B,2C) [a | b]; scratch xn (B*H*W, C), h (B*H*W, 4C), gx_part
-// (ceil(B*H*W / 64) * slots, 4C) f32 with slots the most batch items one
-// 64-row tile touches, scale (B, 4C) f32, and with splits > 1 part (splits,
-// B*H*W, C) f32, the fc2 split-K partials (4C / splits a multiple of 32,
-// and of 64 in W8A8: whole K tiles).
+// (ceil(B*H*W / bm) * slots, 4C) f32 with slots the most batch items one
+// bm-row tile touches (bm 128 in bf16 float mode, else 64), scale (B, 4C)
+// f32, and with splits > 1 part (splits, B*H*W, C) f32, the fc2 split-K
+// partials (4C / splits a multiple of 32, and of 64 in W8A8 and in bf16
+// float mode: whole K tiles). bn1, bn2: the bf16 float mode's fc1 and fc2
+// tile widths (64 or 128); other modes ignore them.
 // mode 0 (float): w1, w2, xn and h in the dtype; s1, s2, sx, hq, sh2 null.
 // mode 1 (weight-only int8): w1, w2 int8 codes with f32 scales s1 (4C), s2
 // (C). mode 2 (W8A8): as mode 1, plus xn int8 with sx (B*H*W) f32, h f32,
@@ -546,11 +750,12 @@ extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w
                                const void* bw2, const void* b2, const void* film, const void* s1,
                                const void* s2, void* out, void* xn, void* h, void* gx_part, void* scale,
                                void* part, void* sx, void* hq, void* sh2, int slots, int splits, int B,
-                               int H, int W, int C, int is_bf16, int mode, int group, void* stream) {
+                               int H, int W, int C, int is_bf16, int mode, int group, int bn1, int bn2,
+                               void* stream) {
   using namespace paella;
   const Args a{x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2, b2, film,
                (const float*)s1, (const float*)s2, out, xn, h, (float*)gx_part, (float*)scale,
-               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group};
+               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group, bn1, bn2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_mode<__nv_bfloat16>(a, mode, st) : launch_mode<float>(a, mode, st);
 }

@@ -199,9 +199,11 @@ def resblock_plain(
 resblock_plain.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
-    """How many K splits the kernel's fc2 phase runs for M rows: its
-    (C/64) x (M/64) grid is doubled until it holds about two blocks per SM,
+    """How many K splits the kernel's fc2 phase runs for M rows in f32 and
+    the int8 modes (the bf16 float mode's wgmma phases take `wgmma_tiles`):
+    its (C/64) x (M/64) grid is doubled until it holds about two blocks per SM,
     while each split keeps a whole number, and at least 4, of the kernel's
     `bk`-deep K tiles (32, or 64 bytes of s8 codes in W8A8). The wrapper
     passes the M of one CFG pair (two images), whatever the batch, so an
@@ -215,13 +217,67 @@ def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
     return s
 
 
-def grn_slots(b: int, hw: int) -> int:
-    """The most batch items one 64-row M-tile of the kernel's fc1 phase
-    touches: its GRN partials buffer holds that many slots per tile, so the
-    per-(batch item, column) sums are written without atomics and added in
-    tile order. 1 at the flagship's shapes (hw 1024, 256, 64)."""
+@functools.lru_cache(maxsize=None)
+def wgmma_tiles(m: int, c: int, n_sm: int) -> tuple[int, int, int]:
+    """(fc1 tile width, fc2 tile width, fc2 K splits) of the bf16 float
+    mode's wgmma phases (128-row tiles, 64-deep K steps) for M rows. The
+    wrapper passes the M of one CFG pair, whatever the batch, as for
+    `fc2_splits`, so an image's sums do not depend on its batchmates.
+    - fc1 (N = 4C, no split: its epilogue needs whole sums): 128 wide where
+      that gives at least one tile per SM, else 64 (twice the tiles).
+    - fc2 (N = C): 128 wide where that gives at least n_sm / 2 tiles, else
+      64; then, while the grid still holds fewer than n_sm / 2 tiles, its
+      K = 4C is halved, each split keeping at least 4 K steps. On the card,
+      64-wide tiles without a split beat both 128-wide tiles with idle SMs
+      and a split (whose partials make a round trip through memory to the
+      reduce launch); a tile's ring fills its SM's shared memory, so one
+      tile runs per SM.
+    At the flagship's shapes on 132 SMs: (128, 128, 1) at M 2048 x C 640,
+    (128, 64, 1) at 512 x 1280, (64, 64, 4) at 128 x 1280."""
+    m_tiles = -(-m // 128)
+    bn1 = 128 if m_tiles * (4 * c // 128) >= n_sm else 64
+    bn2 = 128 if c % 128 == 0 and m_tiles * (c // 128) >= n_sm // 2 else 64
+    tiles = m_tiles * (c // bn2)
+    k_steps = 4 * c // 64
+    s = 1
+    while tiles * s < n_sm // 2 and k_steps % (2 * s) == 0 and k_steps // (2 * s) >= 4:
+        s *= 2
+    return bn1, bn2, s
+
+
+@functools.lru_cache(maxsize=None)
+def grn_slots(b: int, hw: int, bm: int = 64) -> int:
+    """The most batch items one bm-row M-tile of the kernel's fc1 phase
+    touches (bm 128 in the bf16 float mode, 64 otherwise): its GRN partials
+    buffer holds that many slots per tile, so the per-(batch item, column)
+    sums are written without atomics and added in tile order. At the
+    flagship's shapes (hw 1024, 256, 64): 1, 1, 1 with 64-row tiles and 1,
+    1, 2 with 128-row tiles."""
     m = b * hw
-    return max(min(m0 + 63, m - 1) // hw - m0 // hw + 1 for m0 in range(0, m, 64))
+    return max(min(m0 + bm - 1, m - 1) // hw - m0 // hw + 1 for m0 in range(0, m, bm))
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel tiles one call (see `launch_plan`)."""
+
+    bm: int  # fc1 M-tile rows: 128 in the bf16 float mode's wgmma phases, else 64
+    bn1: int  # bf16 float mode: fc1 tile width (0 in the other modes)
+    bn2: int  # bf16 float mode: fc2 tile width (0 in the other modes)
+    splits: int  # fc2 K splits
+    slots: int  # GRN partial slots per fc1 M-tile
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(b: int, hw: int, c: int, mode: str, dtype: torch.dtype, n_sm: int) -> LaunchPlan:
+    """The tiling of one call at batch b, hw pixels an image, width c. The
+    tile widths and the split count come from one CFG pair's M = 2 hw and
+    never from b, so an image's bits do not depend on its batchmates; only
+    the partials buffer's slot count follows b."""
+    if mode == "float" and dtype == torch.bfloat16:
+        bn1, bn2, splits = wgmma_tiles(2 * hw, c, n_sm)
+        return LaunchPlan(128, bn1, bn2, splits, grn_slots(b, hw, 128))
+    splits = fc2_splits(2 * hw, c, n_sm, 64 if mode == "w8a8" else 32)
+    return LaunchPlan(64, 0, 0, splits, grn_slots(b, hw, 64))
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,12 +323,11 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
     q8 = mode == MODES["w8a8"]
     m = b * hh * ww
     dev = x.device
-    splits = fc2_splits(2 * hh * ww, c, _sm_count(dev), 64 if q8 else 32)
+    bm, bn1, bn2, splits, slots = launch_plan(b, hh * ww, c, w.mode, dt, _sm_count(dev))
     out = torch.empty_like(x)
     xn = torch.empty((m, c), dtype=torch.int8 if q8 else dt, device=dev)
     h = torch.empty((m, 4 * c), dtype=torch.float32 if q8 else dt, device=dev)
-    slots = grn_slots(b, hh * ww)
-    gx_part = torch.empty((-(-m // 64) * slots, 4 * c), dtype=torch.float32, device=dev)
+    gx_part = torch.empty((-(-m // bm) * slots, 4 * c), dtype=torch.float32, device=dev)
     scale = torch.empty((b, 4 * c), dtype=torch.float32, device=dev)
     part = torch.empty((splits, m, c), dtype=torch.float32, device=dev) if splits > 1 else None
     sx = torch.empty(m, dtype=torch.float32, device=dev) if q8 else None
@@ -285,7 +340,7 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
         ptr(x), ptr(skip), ptr(w.dw), ptr(w.dw_b), ptr(w.w1), ptr(w.b1), ptr(w.gamma),
         ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(w.s1), ptr(w.s2), ptr(out), ptr(xn), ptr(h),
         ptr(gx_part), ptr(scale), ptr(part), ptr(sx), ptr(hq), ptr(sh2),
-        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, stream_handle(x),
+        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, bn1, bn2, stream_handle(x),
     )
     check_rc(rc, "fused_resblock")
     return out
@@ -324,6 +379,6 @@ def _library() -> ctypes.CDLL:
     lib = load_library("resblock")
     fn = lib.paella_resblock
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

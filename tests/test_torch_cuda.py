@@ -78,6 +78,47 @@ def test_resblock_kernel_is_deterministic(cuda):
     assert torch.equal(fused_resblock(x, w, film=film), first)
 
 
+def bf16_resblock(c: int, g, cpg: int = 1):
+    r = lambda *s, std: torch.randn(*s, generator=g, device=g.device) * std  # noqa: E731
+    return prepare_resblock_weights(
+        r(c, cpg, 3, 3, std=0.2), r(c, std=0.1), r(4 * c, c, std=c**-0.5), r(4 * c, std=0.1),
+        r(4 * c, std=0.2), r(4 * c, std=0.2), r(c, 4 * c, std=(4 * c) ** -0.5), r(c, std=0.1), torch.bfloat16,
+    )
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 6, 10, 128),  # M 180: a ragged 128-row tile, tiles across images, hw not a multiple of 32
+    (4, 4, 8, 128),  # hw 32: four images in one 128-row tile
+    (2, 8, 8, 1280),  # the flagship's level 2: one tile holds both images, fc2 in 4 K splits
+    (1, 5, 7, 64),  # M 35 < 128, 64-wide tiles
+])
+def test_resblock_wgmma_tiles_match_plain(cuda, shape):
+    """The bf16 float mode's wgmma phases (128-row tiles, GRN partials per
+    image a tile touches, split fc2) against the plain version, within 2e-2
+    of the largest output, and bitwise equal on a second run."""
+    b, hh, ww, c = shape
+    g = torch.Generator(device=cuda).manual_seed(13)
+    w = bf16_resblock(c, g)
+    x = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(torch.bfloat16)
+    film = (torch.randn(b, 2 * c, generator=g, device=cuda) * 0.2).to(torch.bfloat16)
+    got = fused_resblock(x, w, film=film)
+    check_resblock(x, w, film, None)
+    assert torch.equal(fused_resblock(x, w, film=film), got)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 640, False), (2, 32, 32, 640, True), (2, 16, 16, 1280, False),
+                                   (2, 8, 8, 1280, False)])
+def test_resblock_kernel_is_bitwise_repeatable_at_flagship_shapes(cuda, shape):
+    """bf16 K1 at the four flagship shapes: two runs bitwise equal."""
+    b, hh, ww, c, with_skip = shape
+    g = torch.Generator(device=cuda).manual_seed(14)
+    w = bf16_resblock(c, g, 2 if with_skip else 1)
+    x = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(torch.bfloat16)
+    skip = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(torch.bfloat16) if with_skip else None
+    film = (torch.randn(b, 2 * c, generator=g, device=cuda) * 0.2).to(torch.bfloat16)
+    assert torch.equal(fused_resblock(x, w, film=film, skip=skip), fused_resblock(x, w, film=film, skip=skip))
+
+
 def test_kernels_are_batch_invariant(cuda):
     """An image's output does not depend on its batchmates: K1 (its fc2 split
     count is chosen per CFG pair, not per batch), K5 and K6 give the first
@@ -203,6 +244,31 @@ def test_attention_kernel_matches_plain(cuda, dtype, with_mask, shape):
     got = fused_attention(q, k, v, mask)
     close_in_dtype(got, attention_plain(q, k, v, mask))
     assert torch.equal(fused_attention(q, k, v, mask), got)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 256, 1036, 16, 80),  # conditioning of ~780 tokens: K and V stream through the ring
+    (2, 8, 100, 4, 80),  # N < 16, S not a multiple of the 64-key tile
+    (1, 200, 130, 2, 64),  # 4 query warps, key tiles split across 2 groups, a ragged last tile
+    (2, 64, 136, 16, 80),  # the flagship's level 2: 1 query warp, 3 key groups
+])
+def test_attention_kernel_paths(cuda, dtype, with_mask, shape):
+    """K5's resident and streamed paths against the plain version, bitwise
+    repeatable, and the first image's output equal alone and in the batch."""
+    b, n, s, h, d = shape
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v = (torch.randn(b, length, h, d, generator=g, device=cuda).to(dtype) for length in (n, s, s))
+    mask = None
+    if with_mask:
+        mask = torch.rand(b, s, generator=g, device=cuda) < 0.5
+        mask[:, 0] = True
+    got = fused_attention(q, k, v, mask)
+    close_in_dtype(got, attention_plain(q, k, v, mask))
+    assert torch.equal(fused_attention(q, k, v, mask), got)
+    one = fused_attention(q[:1], k[:1], v[:1], None if mask is None else mask[:1])
+    assert torch.equal(one, got[:1])
 
 
 def test_attention_kernel_takes_projection_halves(cuda):

@@ -119,3 +119,37 @@ def test_wrapper_refuses_devices_without_a_kernel():
     a = make_inputs(0, b=1, hw=4)
     with pytest.raises(ValueError, match="no kernel"):
         fused_resblock(torch.from_numpy(a["x"]).to("meta"), port_weights(a))
+
+
+def test_wgmma_tile_policy():
+    """The bf16 float mode's wgmma tiling at the flagship's shapes on an H100
+    (132 SMs), from one CFG pair's M: fc1 128 wide where that fills the
+    card (64 at M 128); fc2 128 wide only at M 2048, split in 4 only at M
+    128, each split whole 64-deep K steps; narrow widths take 64-wide tiles."""
+    flagship = [kres.wgmma_tiles(m, c, 132) for m, c in ((2048, 640), (512, 1280), (128, 1280))]
+    assert flagship == [(128, 128, 1), (128, 64, 1), (64, 64, 4)]
+    assert kres.wgmma_tiles(128, 128, 132) == (64, 64, 2)  # K = 512: 8 steps, at least 4 a split
+    assert kres.wgmma_tiles(70, 64, 132) == (64, 64, 1)
+    for m, c in ((2048, 640), (512, 1280), (128, 1280), (128, 128), (70, 64)):
+        bn1, bn2, s = kres.wgmma_tiles(m, c, 132)
+        assert (4 * c) % bn1 == 0 and c % bn2 == 0 and (4 * c // s) % 64 == 0
+
+
+def test_grn_slots_of_128_row_tiles():
+    """A 128-row fc1 tile spans two images at hw 64 (the flagship's level 2),
+    so its GRN partials need two slots there; one at hw 1024 and 256."""
+    assert [kres.grn_slots(2, hw, 128) for hw in (1024, 256, 64)] == [1, 1, 2]
+    assert [kres.grn_slots(8, hw, 128) for hw in (1024, 256, 64)] == [1, 1, 2]
+    assert [kres.grn_slots(*a) for a in ((3, 60, 128), (4, 32, 128), (1, 35, 128))] == [3, 4, 1]
+
+
+@pytest.mark.parametrize("mode,dtype", [("float", torch.bfloat16), ("float", torch.float32), ("int8", torch.bfloat16),
+                                        ("w8a8", torch.bfloat16)])
+def test_launch_plan_does_not_depend_on_batch(mode, dtype):
+    """Tile rows, tile widths and fc2 splits at the flagship's shapes are the
+    same at batch 2 and 8 (an image's bits must not depend on its
+    batchmates); 128-row tiles only in the bf16 float mode."""
+    for hw, c in ((1024, 640), (256, 1280), (64, 1280)):
+        two, eight = (kres.launch_plan(b, hw, c, mode, dtype, 132) for b in (2, 8))
+        assert two[:4] == eight[:4] and two.slots == eight.slots
+        assert two.bm == (128 if (mode, dtype) == ("float", torch.bfloat16) else 64)
