@@ -27,13 +27,17 @@ limit):
                encoder: text_to_image (default SampleConfig, 12 steps, "xla"
                route), img2img, inpaint, outpaint, interpolate and a phrase
                reweight, each with its launch counts, output checks and p50
-  8. small     a small f32 model and codec on the card against the same
-               weights on the CPU (plain versions), encoder included
+  8. small     PaellaConfig.tiny() in f32 (C 32/64/64, head dim 16) on the
+               card against the same weights on the CPU (plain versions), in
+               the default and in the attention config, and the tiny codec,
+               encoder included
   9. K5, K6    fused attention core and fused attention block against their
                plain versions at the flagship's level-1 and level-2 shapes,
                bf16 and f32, and two runs bitwise equal; K5 in turns with
                SDPA, its device time beside SDPA's, and at S 1036 (the
-               streamed path)
+               streamed path); K6's device time per sub-kernel at both
+               levels (torch.profiler), its products' TFLOP/s beside
+               torch.matmul's, and a ragged case (N 81, S_cond 7)
  10. attn e2e  the flagship config with attention_impl="pallas" and
                attn_block_kernel=True: one forward's launch counts and
                features against the same weights' plain-attention forward,
@@ -42,8 +46,9 @@ limit):
                generation of each (kernel time by owner, busy share)
  11. serve     PaellaServer at the attention config on 127.0.0.1: /healthz,
                single requests whose PNGs equal the pipeline's images, a
-               repeated request byte-identical, a micro-batch of three
-               concurrent requests against the single path, HTTP p50
+               repeated request byte-identical, micro-batches of three
+               concurrent requests against the single path at 256x256 and
+               256x384, HTTP p50
  12. K1b       the ResBlock kernel with int8 fc weights (quantized as
                quant.quantize_paella_int8 does), weight-only and W8A8, at the
                four K1 shapes in bf16 (weight-only also f32 at one): against
@@ -59,7 +64,8 @@ limit):
                pipeline; the W8A8 quality proxies' rows
 Then a JSON line of the kernels (each with its time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time; K1 and K5 also with their device time alone, `device_ms`), the card's name and power limit, and, last, {"ok": true, "device":
+time; K1, K5 and K6 also with their device time alone, `device_ms`, null
+where torch.profiler traced nothing), the card's name and power limit, and, last, {"ok": true, "device":
 {...}}. Any failed check raises; without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -258,26 +264,44 @@ def profile_kernels(fn, runs: int = 1) -> tuple[dict, float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
     kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:  # kernels, memcpys and memsets; host ops have no self device time
-            kernels[e.key] = (us / runs, e.count / runs)
+    for attempt in range(5):  # the card's tracer now and then catches nothing: take it again
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:  # kernels, memcpys and memsets; host ops have no self device time
+                kernels[e.key] = (us / runs, e.count / runs)
+        if kernels:
+            break
+    else:
+        print("[profile] torch.profiler traced no device activity in 5 tries", flush=True)
     return kernels, wall_ms
 
 
-def device_us(fn, runs: int = 20) -> float:
+def device_us(fn, runs: int = 20) -> float | None:
     """Device time of one fn() call: the sum of its kernels' durations
-    (torch.profiler), without the gaps between launches."""
-    return sum(us for us, _ in profile_kernels(fn, runs)[0].values())
+    (torch.profiler), without the gaps between launches; None where the
+    tracer caught nothing (the message before it says so), which the
+    kernels line then carries as null."""
+    kernels = profile_kernels(fn, runs)[0]
+    return sum(us for us, _ in kernels.values()) if kernels else None
+
+
+def us_text(us: float | None) -> str:
+    return "not traced" if us is None else f"{us:.2f}"
+
+
+def ms_of(us: float | None) -> float | None:
+    return None if us is None else us / 1e3
 
 
 def host_us(fn, runs: int = 50) -> float:
@@ -314,7 +338,7 @@ K1_PHASES = [("dw+LN", ("dw_ln_kernel",)), ("fc1", ("fc1_",)), ("GRN scale", ("g
 # a generation's kernels by owner (K6 before K5: block_attention_kernel)
 GENERATION_GROUPS = [
     ("K1", ("dw_ln_kernel", "fc1_", "grn_scale_kernel", "grn_apply_kernel", "fc2_", "requant_kernel")),
-    ("K6", ("ln_rows_kernel", "linear_kernel", "block_attention_kernel")),
+    ("K6", ("ln_rows_kernel", "linear_kernel", "linear_wgmma_kernel", "linear_reduce_kernel", "block_attention_kernel")),
     ("K5", ("attention_kernel", "attention_ring_kernel")),
     ("K2, K3", ("head_kernel", "gumbel_kernel")),
     ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "Kernel2")),
@@ -335,25 +359,28 @@ def k1_split(x, w, film, skip, tag: str) -> dict:
     call = lambda: fused_resblock(x, w, film=film, skip=skip)  # noqa: E731
     split = group_kernels(profile_kernels(call, runs=10)[0], K1_PHASES)
     parts = ", ".join(f"{k} {us:.2f} ({n:g})" for k, (us, n) in split.items() if n)
-    dev, host = sum(us for us, _ in split.values()), host_us(call)
+    host = host_us(call)
+    traced = bool(parts)  # else profile_kernels said so: no device time, and no rates
+    dev = sum(us for us, _ in split.values()) if traced else None
     print(
-        f"[K1] ({b},{hh},{ww},{c}) skip={skip is not None} bf16 per sub-kernel, device µs per call (launches): {parts}; "
-        f"all {dev:.2f} µs on the device, {host:.2f} µs on the host to enqueue a call ({tag})"
+        f"[K1] ({b},{hh},{ww},{c}) skip={skip is not None} bf16 per sub-kernel, device µs per call (launches): "
+        f"{parts or 'not traced'}; all {us_text(dev)} µs on the device, {host:.2f} µs on the host to enqueue a call ({tag})"
     )
     ops = 8 * m * c * c  # each product: 2 M C 4C
     xn = torch.randn(m, c, device="cuda").to(torch.bfloat16)
     h = torch.randn(m, 4 * c, device="cuda").to(torch.bfloat16)
     mm1 = cuda_time_ms(lambda: xn @ w.w1.t())
     mm2 = cuda_time_ms(lambda: h @ w.w2.t())
-    fc1_us, fc2_us = split["fc1"][0], split["fc2"][0] + split["fc2 reduce"][0]
+    fc1_us, fc2_us = (split["fc1"][0], split["fc2"][0] + split["fc2 reduce"][0]) if traced else (None, None)
+    rate = lambda us: None if us is None else ops / us / 1e6  # noqa: E731
+    text = lambda us: "not traced" if us is None else f"{us:.2f} µs = {rate(us):.1f} TFLOP/s"  # noqa: E731
     print(
-        f"[K1] ({b},{hh},{ww},{c}) products, {ops / 1e9:.2f} GOP each: fc1 {fc1_us:.2f} µs = {ops / fc1_us / 1e6:.1f} TFLOP/s, "
-        f"fc2 (+ reduce) {fc2_us:.2f} µs = {ops / fc2_us / 1e6:.1f} TFLOP/s; yardstick torch.matmul "
-        f"{mm1 * 1e3:.2f} µs = {ops / mm1 / 1e9:.1f} and {mm2 * 1e3:.2f} µs = {ops / mm2 / 1e9:.1f} TFLOP/s ({tag})"
+        f"[K1] ({b},{hh},{ww},{c}) products, {ops / 1e9:.2f} GOP each: fc1 {text(fc1_us)}, fc2 (+ reduce) "
+        f"{text(fc2_us)}; yardstick torch.matmul {mm1 * 1e3:.2f} µs = {ops / mm1 / 1e9:.1f} and {mm2 * 1e3:.2f} µs = "
+        f"{ops / mm2 / 1e9:.1f} TFLOP/s ({tag})"
     )
     return {"sub_kernels_us": {k: v[0] for k, v in split.items() if v[1]}, "device_us": dev, "host_us": host,
-            "fc1_tflops": ops / fc1_us / 1e6,
-            "fc2_tflops": ops / fc2_us / 1e6, "matmul_tflops": [ops / mm1 / 1e9, ops / mm2 / 1e9]}
+            "fc1_tflops": rate(fc1_us), "fc2_tflops": rate(fc2_us), "matmul_tflops": [ops / mm1 / 1e9, ops / mm2 / 1e9]}
 
 
 def phase_k1(tag: str) -> dict:
@@ -399,7 +426,7 @@ def phase_k1(tag: str) -> dict:
                 shape = result["shapes"][f"({b},{hh},{ww},{c}) skip={with_skip}"] = {
                     "ms": ms, "plain_ms": plain_ms, **bd, **k1_split(x, w, film, skip, tag)}
                 if (b, hh, ww, c, with_skip) == K1_SHAPE:
-                    result.update(ms=ms, plain_ms=plain_ms, device_ms=shape["device_us"] / 1e3, **bd)
+                    result.update(ms=ms, plain_ms=plain_ms, device_ms=ms_of(shape["device_us"]), **bd)
     return result
 
 
@@ -768,38 +795,20 @@ def phase_pipeline(tag: str) -> dict:
 
 
 def phase_small_reference(tag: str) -> None:
-    """A small f32 model and codec on the card (kernels) against the same
-    weights on the CPU (plain versions): features, tokens and image."""
+    """PaellaConfig.tiny() in f32 on the card (kernels; K1 at C 32, K5 and K6
+    at head dim 16) against the same weights on the CPU (plain versions), in
+    the default and in the attention config: features, tokens; then the tiny
+    codec: image, encoder and encode."""
     import torch
 
     from paella_tpu_torch.codec import VQModel
-    from paella_tpu_torch.config import PaellaConfig, SampleConfig, VQConfig
-    from paella_tpu_torch.models import Paella
-    from paella_tpu_torch.sampling import Conditioning, sample
+    from paella_tpu_torch.config import PaellaConfig, VQConfig
 
-    cfg = dataclasses.replace(
-        PaellaConfig.tiny(), c_in=32, c_out=32, c_hidden=(64, 128, 128), nhead=(-1, 4, 4), num_labels=256
-    )
+    for name, flags in (("default", {}), ("attention", ATTN_FLAGS)):
+        cfg = dataclasses.replace(PaellaConfig.tiny(), **flags)
+        t_cpu = small_model_against_cpu(cfg, name, tag)
     gen = torch.Generator().manual_seed(3)
-    cpu = Paella(cfg)
-    cpu.reset_parameters(gen)
-    perturb_(cpu, gen, scale=0.05)
-    dev = Paella(cfg).cuda()
-    dev.load_state_dict(cpu.state_dict())
-    g = torch.Generator().manual_seed(4)
-    cond = Conditioning(torch.randn(2, 6, cfg.byt5_embd, generator=g), torch.randn(2, cfg.clip_embd, generator=g),
-                        torch.randn(2, cfg.clip_embd, generator=g))
-    uncond = Conditioning(torch.randn(2, 3, cfg.byt5_embd, generator=g), torch.randn(2, cfg.clip_embd, generator=g))
-    x = torch.randint(0, cfg.num_labels, (2, 16, 16), generator=g)
-    r = torch.rand(2, generator=g)
-    f_cpu = cpu(x, r, cond.byt5, cond.clip, cond.clip_image, return_features=True)
-    f_dev = dev(x.cuda(), r.cuda(), cond.byt5.cuda(), cond.clip.cuda(), cond.clip_image.cuda(), return_features=True).cpu()
-    ferr = (f_cpu - f_dev).abs().max().item()
-    seeds = torch.tensor([[1, 2], [3, 4]])
-    s_cfg = SampleConfig(steps=4, temperature=(1.0, 0.5), cfg=(3.0, 3.0))
-    t_cpu = sample(cpu, seeds, cond, (2, 16, 16), uncond, s_cfg)
-    t_dev = sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg).cpu()
-    agree = (t_cpu == t_dev).float().mean().item()
+    g = torch.Generator().manual_seed(5)
     vcfg = dataclasses.replace(VQConfig.tiny(), codebook_size=cfg.num_labels)
     vq_cpu = VQModel(vcfg)
     vq_cpu.reset_parameters(gen)
@@ -809,12 +818,7 @@ def phase_small_reference(tag: str) -> None:
     i_cpu = vq_cpu.decode_indices(t_cpu)
     i_dev = vq_dev.decode_indices(t_cpu.cuda()).cpu()
     ierr = (i_cpu - i_dev).abs().max().item()
-    print(
-        f"[small] small f32 model, card vs CPU: features max_abs_err {ferr:.3e} (limit 1e-3), 4-step CFG "
-        f"tokens agree {agree:.4f} (limit 0.95), decode max_abs_err {ierr:.3e} (limit 1e-3) ({tag})"
-    )
-    check(ferr <= 1e-3, f"small model features differ by {ferr}")
-    check(agree >= 0.95, f"small model tokens agree {agree} < 0.95")
+    print(f"[small] tiny f32 codec, card vs CPU: decode max_abs_err {ierr:.3e} (limit 1e-3) ({tag})")
     check(ierr <= 1e-3, f"small codec decode differs by {ierr}")
     # the encoder (BatchNorm statistics away from (0, 1)) and encode, K4 on the card
     norm = vq_cpu.down_blocks[-1][1]
@@ -830,6 +834,51 @@ def phase_small_reference(tag: str) -> None:
     )
     check(zerr <= 1e-3, f"small codec encoder differs by {zerr}")
     check(idx_agree >= 0.999, f"small codec encode indices agree {idx_agree} < 0.999")
+
+
+def small_model_against_cpu(cfg, name: str, tag: str):
+    """One config's f32 model on the card against the same weights on the
+    CPU: a CFG forward's features, with its kernel launch counts, and 4-step
+    CFG tokens. Returns the CPU's tokens."""
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import Conditioning, sample
+
+    gen = torch.Generator().manual_seed(3)
+    cpu = Paella(cfg)
+    cpu.reset_parameters(gen)
+    perturb_(cpu, gen, scale=0.05)
+    dev = Paella(cfg).cuda()
+    dev.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    cond = Conditioning(torch.randn(2, 6, cfg.byt5_embd, generator=g), torch.randn(2, cfg.clip_embd, generator=g),
+                        torch.randn(2, cfg.clip_embd, generator=g))
+    uncond = Conditioning(torch.randn(2, 3, cfg.byt5_embd, generator=g), torch.randn(2, cfg.clip_embd, generator=g))
+    x = torch.randint(0, cfg.num_labels, (2, 16, 16), generator=g)
+    r = torch.rand(2, generator=g)
+    f_cpu = cpu(x, r, cond.byt5, cond.clip, cond.clip_image, return_features=True)
+    f_dev, launches = counted(lambda: dev(x.cuda(), r.cuda(), cond.byt5.cuda(), cond.clip.cuda(), cond.clip_image.cuda(),
+                                          return_features=True))
+    ferr = (f_cpu - f_dev.cpu()).abs().max().item()
+    seeds = torch.tensor([[1, 2], [3, 4]])
+    s_cfg = SampleConfig(steps=4, temperature=(1.0, 0.5), cfg=(3.0, 3.0))
+    t_cpu = sample(cpu, seeds, cond, (2, 16, 16), uncond, s_cfg)
+    t_dev = sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg).cpu()
+    agree = (t_cpu == t_dev).float().mean().item()
+    kernels = {k: n for k, n in launches.items() if n and "[" not in k}
+    print(
+        f"[small] PaellaConfig.tiny() f32 ({name} config, C {cfg.c_hidden}, heads {cfg.nhead}), card vs CPU: "
+        f"features max_abs_err {ferr:.3e} (limit 1e-3), 4-step CFG tokens agree {agree:.4f} (limit 0.95); "
+        f"kernel launches in one forward {json.dumps(kernels)} ({tag})"
+    )
+    check(ferr <= 1e-3, f"tiny {name} model features differ by {ferr}")
+    check(agree >= 0.95, f"tiny {name} model tokens agree {agree} < 0.95")
+    check(launches["fused_resblock"] > 0, f"tiny {name} model ran no K1")
+    if name == "attention":
+        check(launches["fused_attention"] > 0 and launches["fused_attn_block"] > 0, "tiny attention model ran no K5 or K6")
+    return t_cpu
 
 
 def attention_error(got, want) -> tuple[float, float, bool]:
@@ -905,8 +954,8 @@ def phase_k5(tag: str) -> dict:
                 print(
                     f"[K5] level {level} bf16, in turns with F.scaled_dot_product_attention (additive mask): kernel "
                     f"{ms_again:.4f} ms, SDPA {library_ms:.4f} ms (its max_abs_err to the plain version {lib_err:.3e}, "
-                    f"limit {lib_limit:.3e}); device µs per call (kernels only) {dev['kernel']:.2f} vs SDPA "
-                    f"{dev['sdpa']:.2f}, host µs to enqueue {host['kernel']:.2f} vs {host['sdpa']:.2f} ({tag})"
+                    f"limit {lib_limit:.3e}); device µs per call (kernels only) {us_text(dev['kernel'])} vs SDPA "
+                    f"{us_text(dev['sdpa'])}, host µs to enqueue {host['kernel']:.2f} vs {host['sdpa']:.2f} ({tag})"
                 )
                 check(lib_ok, f"SDPA computes another function at level {level}: error {lib_err}")
                 result["max_abs_err"] = max(result["max_abs_err"], err)
@@ -934,14 +983,100 @@ def phase_k5(tag: str) -> dict:
     print(
         f"[K5] fused_attention streamed q ({b},{n},{h},{d}) k/v ({b},{s},{h},{d}) masked bf16: max_abs_err {err:.3e} "
         f"(limit {limit:.3e}), two runs bitwise equal: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; in turns "
-        f"with SDPA: kernel {ms_again:.4f} ms, SDPA {library_ms:.4f} ms; device µs per call {dev['kernel']:.2f} vs "
-        f"SDPA {dev['sdpa']:.2f} ({tag})"
+        f"with SDPA: kernel {ms_again:.4f} ms, SDPA {library_ms:.4f} ms; device µs per call {us_text(dev['kernel'])} vs "
+        f"SDPA {us_text(dev['sdpa'])} ({tag})"
     )
     check(bool(torch.isfinite(got).all()) and ok, f"K5 streamed max abs error {err} > {limit}")
     check(same, "K5 streamed gave different outputs on two runs")
     result["streamed"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err, "device_us": dev}
     result.update(result["levels"][1])
     return result
+
+
+def kernel_sequence(fn, runs: int = 10) -> list:
+    """torch.profiler over `runs` calls of fn() after one warm-up: the
+    kernels of one call in launch order, [(short name, device µs averaged
+    over the runs)]. Two more calls open the traced window, whose first
+    events the trace may drop; the last `runs` calls, which must launch the
+    same kernels each, are read."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):  # the card's tracer now and then catches nothing: take it again
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs + 2):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        per = next((p for p in range(1, len(names) // runs + 1) if names[-p * runs:] == names[-p:] * runs), 0)
+        if per:
+            break
+    else:
+        print(f"[profile] torch.profiler traced no repeating kernel sequence in 5 tries ({len(events)} events)",
+              flush=True)
+        return []
+    last = events[-per * runs:]
+    seq = []
+    for i in range(per):
+        name = names[-per + i].replace("(anonymous namespace)::", "").replace("void ", "")
+        short = re.sub(r"^.*::", "", re.sub(r"\(.*$", "", name))
+        seq.append((short, sum(last[r * per + i].time_range.elapsed_us() for r in range(runs)) / runs))
+    return seq
+
+
+def k6_roles(seq: list) -> list:
+    """Each K6 kernel's role in launch order: LN, the products (a split's
+    reduce joins its product) and attention: [(role, µs)]. Two products are
+    q|k|v and o; trees from before the wgmma design ran three (q, k|v, o)."""
+    roles, products = [], [n for n, _ in seq if "linear" in n and "reduce" not in n]
+    names = ["q|k|v", "o"] if len(products) == 2 else ["q", "k|v", "o"]
+    k = 0
+    for name, us in seq:
+        if "reduce" in name:
+            roles[-1] = (roles[-1][0], roles[-1][1] + us)
+        elif "linear" in name:
+            roles.append((names[k], us))
+            k += 1
+        else:
+            roles.append(("LN" if "ln_rows" in name else "attention", us))
+    return roles
+
+
+def k6_split(x, kv, w, nhead: int, cmask, tag: str, label: str) -> dict:
+    """K6's device µs per sub-kernel (torch.profiler, 10 calls), each
+    product's TFLOP/s (q|k|v: the (B*S, 3C) product it runs, the cond rows'
+    q included), and torch.matmul of the same bf16 products as a printed
+    yardstick."""
+    import torch
+
+    from paella_tpu_torch.kernels.attn_block import fused_attn_block
+
+    call = lambda: fused_attn_block(x, kv, w, nhead, cmask)  # noqa: E731
+    seq = kernel_sequence(call)
+    roles = k6_roles(seq)
+    b, hh, ww, c = x.shape
+    n, s = hh * ww, hh * ww + kv.shape[1]
+    flops = {"q": 2 * b * n * c * c, "k|v": 4 * b * s * c * c, "q|k|v": 6 * b * s * c * c, "o": 2 * b * n * c * c}
+    rows = torch.randn(b * s, c, device="cuda").to(x.dtype)
+    t = rows[: b * n]
+    mm = {"q": cuda_time_ms(lambda: t @ w.wqkv[:c].t()), "k|v": cuda_time_ms(lambda: rows @ w.wqkv[c:].t()),
+          "q|k|v": cuda_time_ms(lambda: rows @ w.wqkv.t()), "o": cuda_time_ms(lambda: t @ w.wo.t())}
+    dev = sum(us for _, us in roles) if roles else None  # None: not traced (kernel_sequence said so)
+    parts = ", ".join(f"{r} {us:.2f}" for r, us in roles) or "not traced"
+    rates = ", ".join(f"{r} {flops[r] / us / 1e6:.1f} (matmul {flops[r] / mm[r] / 1e9:.1f})" for r, us in roles if r in flops)
+    print(f"[K6] {label} bf16 per sub-kernel, device µs per call in launch order: {parts}; all {us_text(dev)} µs on "
+          f"the device; products TFLOP/s (torch.matmul of the same bf16 product): {rates} ({tag})")
+    return {"sub_kernels_us": dict(roles), "kernels": seq, "device_us": dev,
+            "product_tflops": {r: flops[r] / us / 1e6 for r, us in roles if r in flops},
+            "matmul_tflops": {r: flops[r] / mm[r] / 1e9 for r, _ in roles if r in flops}}
 
 
 def phase_k6(tag: str) -> dict:
@@ -951,9 +1086,14 @@ def phase_k6(tag: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     result = {"max_abs_err": 0.0}
-    for level, (b, n, s_c, h, d) in enumerate(ATTN_LEVELS, start=1):
+    cases = [(level, shape) for level, shape in enumerate(ATTN_LEVELS, start=1)]
+    cases.append(("ragged", (2, 81, 7, 16, 80)))  # N 81 (9x9) not a multiple of 64, S_cond odd
+    for level, (b, n, s_c, h, d) in cases:
         c, side = h * d, int(n**0.5)
-        cmask, _ = attention_masks(b, n, s_c, gen)
+        cmask = torch.rand(b, s_c, generator=gen, device="cuda") < 0.7
+        if level != "ragged":
+            cmask, _ = attention_masks(b, n, s_c, gen)
+        cmask[:, 0] = True
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *shape, std: torch.randn(*shape, generator=gen, device="cuda") * std  # noqa: E731
             w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), dtype)
@@ -971,22 +1111,27 @@ def phase_k6(tag: str) -> dict:
             m_q, m_kv = b * n, b * (n + s_c)
             flops = 2 * c * c * (2 * m_q + 2 * m_kv) + 4 * b * h * n * (n + s_c) * d
             dname = "f32" if dtype == torch.float32 else "bf16"
+            name = f"level {level}" if level != "ragged" else "ragged"
             print(
-                f"[K6] fused_attn_block level {level} x ({b},{side},{side},{c}) kv ({b},{s_c},{c}) {h} heads masked {dname}: "
+                f"[K6] fused_attn_block {name} x ({b},{side},{side},{c}) kv ({b},{s_c},{c}) {h} heads masked {dname}: "
                 f"max_abs_err {err:.3e} (limit {limit:.3e}), two runs bitwise equal: {same}; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; M_q {m_q}, M_kv {m_kv}, {flops / 1e9:.3f} GFLOP "
                 f"= {flops / ms / 1e9:.2f} TFLOP/s ({tag})"
             )
-            check(err <= limit, f"K6 level {level} {dname} max abs error {err} > {limit}")
-            check(same, f"K6 level {level} {dname} gave different outputs on two runs")
-            if dtype == torch.bfloat16:
+            check(err <= limit, f"K6 {name} {dname} max abs error {err} > {limit}")
+            check(same, f"K6 {name} {dname} gave different outputs on two runs")
+            if dtype == torch.bfloat16 and level != "ragged":
                 result["max_abs_err"] = max(result["max_abs_err"], err)
                 weights = [t for t in w if isinstance(t, torch.Tensor)]
+                split = k6_split(x, kv, w, h, cmask, tag, name)
                 result.setdefault("levels", {})[level] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None, "device_us": split["device_us"],
+                    "sub_kernels_us": split["sub_kernels_us"], "product_tflops": split["product_tflops"],
+                    "matmul_tflops": split["matmul_tflops"],
                     **bound(nbytes_of(x, kv, cmask, got, *weights), flops, "bf16"),
                 }
     result.update(result["levels"][1])
+    result["device_ms"] = ms_of(result["levels"][1]["device_us"])
     return result
 
 
@@ -1119,11 +1264,11 @@ def phase_serve(tag: str) -> dict:
     prompts = ["a red car on a beach", "a lighthouse in a storm, oil on canvas", "a corgi"]
     seeds = [11, 12, 13]
 
-    def req(i):
-        return {"prompt": prompts[i], "seed": seeds[i], "steps": STEPS, "height": 256, "width": 256}
+    def req(i, hw=(256, 256)):
+        return {"prompt": prompts[i], "seed": seeds[i], "steps": STEPS, "height": hw[0], "width": hw[1]}
 
-    def pipeline_image(i):
-        img = pipe.text_to_image([prompts[i]], request_seeds([seeds[i]]), (256, 256), SampleConfig(steps=STEPS, cfg=8.0))
+    def pipeline_image(i, hw=(256, 256)):
+        img = pipe.text_to_image([prompts[i]], request_seeds([seeds[i]]), hw, SampleConfig(steps=STEPS, cfg=8.0))
         return serve_uint8(img[0]).cpu().numpy()
 
     srv = PaellaServer(pipe, host="127.0.0.1", port=0)
@@ -1157,23 +1302,35 @@ def phase_serve(tag: str) -> dict:
     finally:
         srv.stop()
 
+    # 256x384: level 2 holds hw 96 pixels, which K1's 128-row fc1 tiles do not
+    # divide, so an image's GRN sums need the per-image tiles to stay
+    # batch-invariant there
+    wide = (256, 384)
+    singles_wide = [pipeline_image(i, wide) for i in range(3)]
     batched = PaellaServer(pipe, host="127.0.0.1", port=0, max_batch=4, batch_window_ms=200)
     batched.start()
     try:
         with ThreadPoolExecutor(3) as pool:
             pngs = list(pool.map(lambda i: http_generate(batched.port, req(i)), range(3)))
+        with ThreadPoolExecutor(3) as pool:
+            pngs_wide = list(pool.map(lambda i: http_generate(batched.port, req(i, wide)), range(3)))
     finally:
         batched.stop()
-    same = [float((png_pixels(p) == s).mean()) for p, s in zip(pngs, singles)]
-    exact = all(v == 1.0 for v in same)
-    print(
-        f"[serve] max_batch=4, 3 concurrent requests (one batch of 4): share of pixels equal to the single path "
-        f"{', '.join(f'{v:.6f}' for v in same)} (limit 0.99; {'exact' if exact else 'not exact'}) ({tag})"
-    )
-    check(min(same) >= 0.99, f"micro-batched images agree {min(same)} < 0.99 with the single path")
+    shares = {}
+    for name, got, want in (("256x256", pngs, singles), ("256x384", pngs_wide, singles_wide)):
+        same = [float((png_pixels(p) == w).mean()) for p, w in zip(got, want)]
+        check(all(png_pixels(p).shape == w.shape for p, w in zip(got, want)), f"{name} PNG shapes")
+        exact = all(v == 1.0 for v in same)
+        shares[name] = same
+        print(
+            f"[serve] max_batch=4, 3 concurrent {name} requests (one batch of 4): share of pixels equal to the single "
+            f"path {', '.join(f'{v:.6f}' for v in same)} (limit 0.99; {'exact' if exact else 'not exact'}) ({tag})"
+        )
+        check(min(same) >= 0.99, f"micro-batched {name} images agree {min(same)} < 0.99 with the single path")
     del pipe, model, vq
     torch.cuda.empty_cache()
-    return {"launches": launches, "http_p50_ms": http_p50, "batch_pixel_share": same, "batch_exact": exact}
+    return {"launches": launches, "http_p50_ms": http_p50, "batch_pixel_share": shares["256x256"],
+            "batch_pixel_share_256x384": shares["256x384"], "batch_exact": all(v == 1.0 for v in sum(shares.values(), []))}
 
 
 def phase_k1b(tag: str) -> dict:
@@ -1498,16 +1655,17 @@ def main() -> int:
         entry("fused_codebook_lookup", "quantize.cu", "paella_tpu/kernels/quantize.py:53", k4,
               "z (1,64,64,4) f32, codebook (8192,4) f32"),
         entry("fused_attention", "attention.cu", "paella_tpu/kernels/attention.py:56", k5,
-              "q (2,256,16,80), k/v (2,328,16,80) bf16, masked", device_ms=k5["device_us"]["kernel"] / 1e3,
-              library_device_ms=k5["device_us"]["sdpa"] / 1e3),
+              "q (2,256,16,80), k/v (2,328,16,80) bf16, masked", device_ms=ms_of(k5["device_us"]["kernel"]),
+              library_device_ms=ms_of(k5["device_us"]["sdpa"])),
         entry("fused_attn_block", "attn_block.cu", "paella_tpu/kernels/attn_block.py:178", k6,
-              "x (2,16,16,1280), kv (2,72,1280) bf16, 16 heads, masked"),
+              "x (2,16,16,1280), kv (2,72,1280) bf16, 16 heads, masked", device_ms=k6["device_ms"]),
     ]
     print(json.dumps({
         "kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"],
         "pipeline_p50_ms": {name: c["p50_ms"] for name, c in pipe["calls"].items()}, "build_s": build["build_s"],
         "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
+        "serve_batch_pixel_share_256x384": served["batch_pixel_share_256x384"],
         "k1_shapes": k1["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
         "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"],
     }))

@@ -1,117 +1,50 @@
-// The attention core shared by K5 (attention.cu) and K6 (attn_block.cu):
-// one block of 4 warps computes 64 query rows of one head,
+// The masked multi-head attention core of K5 (attention.cu) and of K6's
+// attention phase (attn_block.cu), for Hopper (sm_90a), bf16 or f32:
 //
 //   s = (q . k) * scale              f32, scale = D^-1/2 of the true head dim
 //   s = -1e9 where the key is masked
 //   p = exp(s - max_j s) / sum_j exp(s - max_j s)     f32
 //   o = sum_j round_T(p) * v_j       f32 accumulation, rounded to T at the end
 //
-// which are the rounding points of paella_tpu/kernels/attention.py:32-53 and
-// of the attention phase of paella_tpu/kernels/attn_block.py:93-127.
+// the rounding points of paella_tpu/kernels/attention.py:32-53 and of the
+// attention phase of paella_tpu/kernels/attn_block.py:93-127. One block of
+// 1-8 warps takes a query tile of one (batch, head): 16 query rows a warp,
+// the key tiles split among the warps that share query rows (attention.cu's
+// header has the design and what it measured).
 //
-// K and V stream through shared memory in tiles of 64 keys, so any sequence
-// length fits; keys past the end score -inf (weight exactly 0) and read as
-// zero rows. Two passes over the key tiles: the first finds each row's max
-// and the sum of exp(s - max); the second recomputes the scores with the same
-// instructions, normalises p in f32, rounds it to T (the point where the TPU
-// kernel rounds it) and accumulates p @ V. An online softmax would round the
-// unnormalised p instead, a different point. No atomics: every sum has a
-// fixed order.
+// Keys j < prefix always attend; key j >= prefix attends where
+// mask[b][j - prefix] (mask (B, S - prefix) bytes, or null for all). K5
+// passes prefix 0 and its (B, S) mask; K6 passes N, its pixel rows, and the
+// (B, S_cond) cond mask, so no (B, S) mask is built.
 //
-// Each warp owns 16 query rows. bf16 tiles run on mma.sync m16n8k16 with f32
-// accumulation: QK^T in k-steps of 16 over D (D = 80 is 5 steps, no padding)
-// against 8 key tiles of 8, PV in 10 n-tiles of 8 over D = 80. f32 tiles run
-// as FMA in the same fragment layout, so an f32 call is full f32.
+// Head dims: D % 8 == 0 up to 128. In bf16 a head is zero-padded to the next
+// multiple of 16 in shared memory only (the m16n8k16 k-step): the padded q
+// and k columns add zero to the scores, and the padded output columns are
+// never stored. f32 runs FMA over D itself.
 #pragma once
 
 #include <math.h>
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace paella {
 
-constexpr int kAttnRows = 64;  // query rows per block (16 per warp)
-constexpr int kAttnKeys = 64;  // keys per streamed tile
 constexpr int kAttnMaxD = 128;
-constexpr int kKeyTiles = kAttnKeys / 8;
-constexpr float kMaskedScore = -1e9f;  // nn/attention.py's mask fill
+constexpr int kTileKeys = 64;                  // keys per K / V tile
+constexpr int kKeyTiles = kTileKeys / 8;       // n8 tiles of the scores per key tile
+constexpr float kMaskedScore = -1e9f;          // nn/attention.py's mask fill
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kResidentBytes = 200 * 1024;  // K and V kept whole up to here
+constexpr size_t kMaxSmem = 227 * 1024;        // a block's shared memory on an H100
 
-// c[nt] (16x8 tiles, mma C layout: lane (g, t) holds rows g and g+8,
-// columns 2t and 2t+1) += A[16][kdepth] * B[nt*8 .. nt*8+8][kdepth]^T for
-// nt < count <= NT, both K-contiguous in shared memory. The A fragment is
-// loaded once per k-step and the NT independent products follow it.
-template <typename T, int NT>
-__device__ __forceinline__ void warp_tiles(const T* A, int lda, const T* B, int ldb, int kdepth,
-                                           float c[NT][4], int count) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  if constexpr (is_bf16<T>()) {
-    for (int kk = 0; kk < kdepth; kk += 16) {
-      const T* pa = A + g * lda + kk + 2 * t;
-      const uint32_t a0 = ld_b32(pa), a1 = ld_b32(pa + 8 * lda), a2 = ld_b32(pa + 8),
-                     a3 = ld_b32(pa + 8 * lda + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        if (nt >= count) break;
-        const T* pb = B + (nt * 8 + g) * ldb + kk + 2 * t;
-        const uint32_t b0 = ld_b32(pb), b1 = ld_b32(pb + 8);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(c[nt][0]), "+f"(c[nt][1]), "+f"(c[nt][2]), "+f"(c[nt][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-    }
-  } else {
-    for (int k = 0; k < kdepth; ++k) {
-      const float a_lo = A[g * lda + k], a_hi = A[(g + 8) * lda + k];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        if (nt >= count) break;
-        const float b_0 = B[(nt * 8 + 2 * t) * ldb + k], b_1 = B[(nt * 8 + 2 * t + 1) * ldb + k];
-        c[nt][0] = fmaf(a_lo, b_0, c[nt][0]);
-        c[nt][1] = fmaf(a_lo, b_1, c[nt][1]);
-        c[nt][2] = fmaf(a_hi, b_0, c[nt][2]);
-        c[nt][3] = fmaf(a_hi, b_1, c[nt][3]);
-      }
-    }
-  }
-}
-
-// Rows [0, nrows) x columns [0, D) of a global tile (leading dimension ld)
-// into shared memory, smem[r][d] (or smem[d][r] with TRANSPOSE); rows at or
-// past nvalid read as zero. 16-byte global loads: D, ld and the base are
-// multiples of 16 bytes (the wrappers check).
-template <typename T, bool TRANSPOSE>
-__device__ __forceinline__ void load_rows(T* smem, int lds, const T* g, int ld, int nvalid, int nrows,
-                                          int D) {
-  constexpr int V = 16 / sizeof(T);
-  const int vpr = D / V;
-  for (int e = threadIdx.x; e < nrows * vpr; e += blockDim.x) {
-    const int r = e / vpr, d = (e % vpr) * V;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) u = *reinterpret_cast<const uint4*>(g + (size_t)r * ld + d);
-    const T* pv = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      if (TRANSPOSE)
-        smem[(d + i) * lds + r] = pv[i];
-      else
-        smem[r * lds + d + i] = pv[i];
-    }
-  }
-}
-
+// The head dim as shared memory holds it: bf16 rounds it up to the k-step.
 template <typename T>
-__host__ __device__ constexpr int attn_ld_d(int D) { return D + smem_pad<T>(); }
+__host__ __device__ constexpr int padded_head(int D) { return is_bf16<T>() ? (D + 15) & ~15 : D; }
+// Row stride of a shared-memory tile: 16-byte rows that put the 8 rows of one
+// ldmatrix in distinct banks (Dp + 8 bf16, Dp + 4 f32).
 template <typename T>
-__host__ __device__ constexpr int attn_ld_keys() { return kAttnKeys + smem_pad<T>(); }
-
-// Dynamic shared memory of one attention block: Q and K tiles [64][D], V^T
-// [D][64] and the warps' p rows [64][64].
-template <typename T>
-__host__ __device__ constexpr size_t attn_smem_bytes(int D) {
-  return (size_t)(2 * kAttnRows * attn_ld_d<T>(D) + (D + kAttnRows) * attn_ld_keys<T>()) * sizeof(T);
-}
+__host__ __device__ constexpr int ring_ld(int Dp) { return Dp + (is_bf16<T>() ? 8 : 4); }
+__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -122,114 +55,378 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The warp's scores for keys [s0, s0 + 64) in the C layout (sc[n-tile][i]).
-// Key j attends iff mask is null, j < mask_from, or mask[j - mask_from].
+// Up to n cp.async groups of this thread may stay pending (n >= 15: 15).
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  switch (n) {
+#define PAELLA_WAIT(k) case k: sm90::cp_async_wait<k>(); break;
+    PAELLA_WAIT(0) PAELLA_WAIT(1) PAELLA_WAIT(2) PAELLA_WAIT(3) PAELLA_WAIT(4) PAELLA_WAIT(5) PAELLA_WAIT(6)
+    PAELLA_WAIT(7) PAELLA_WAIT(8) PAELLA_WAIT(9) PAELLA_WAIT(10) PAELLA_WAIT(11) PAELLA_WAIT(12) PAELLA_WAIT(13)
+    PAELLA_WAIT(14)
+#undef PAELLA_WAIT
+    default: sm90::cp_async_wait<15>();
+  }
+}
+
+// Rows [0, nrows) x [0, Dp) of a global tile (leading dimension ld) into
+// smem[r][d] (leading dimension lds) with 16-byte cp.async; rows at or past
+// nvalid and columns at or past D (the head's padding) are zero-filled.
 template <typename T>
-__device__ __forceinline__ void tile_scores(const T* Qw, const T* Ks, int ldd, int D, float scale,
-                                            int s0, int S, const uint8_t* mask, int mask_from,
-                                            float sc[kKeyTiles][4]) {
-  const int t = threadIdx.x & 3;
+__device__ __forceinline__ void copy_rows(T* smem, int lds, const T* g, int ld, int nvalid, int nrows, int D,
+                                          int Dp) {
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = Dp / V;
+  if (D == Dp) {  // no padding (the flagship's D 80): rows only
+    for (int e = threadIdx.x; e < nrows * vpr; e += blockDim.x) {
+      const int r = e / vpr, d = (e % vpr) * V;
+      const bool ok = r < nvalid;
+      sm90::cp_async16(sm90::smem_addr(smem + r * lds + d), g + (size_t)(ok ? r : 0) * ld + d, ok);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < nrows * vpr; e += blockDim.x) {
+    const int r = e / vpr, d = (e % vpr) * V;
+    const bool ok = r < nvalid && d < D;
+    sm90::cp_async16(sm90::smem_addr(smem + r * lds + d), g + (ok ? (size_t)r * ld + d : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The warp's raw scores against one key tile, sc[n-tile][i] in the m16n8k16
+// C layout (rows g, g + 8; keys 8 nt + 2t + i % 2). bf16: Q's A-fragments
+// are in registers (qf), K's B-fragments come from ldmatrix. f32: both from
+// shared memory on FMA, in the same layout.
+template <typename T>
+__device__ __forceinline__ void raw_scores(const uint32_t (&qf)[kAttnMaxD / 16][4], const T* Qw, const T* Kt, int ld,
+                                           int D, float (&sc)[kKeyTiles][4]) {
 #pragma unroll
   for (int nt = 0; nt < kKeyTiles; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-  warp_tiles<T, kKeyTiles>(Qw, ldd, Ks, ldd, D, sc, kKeyTiles);
+  const int lane = threadIdx.x & 31;
+  if constexpr (is_bf16<T>()) {
 #pragma unroll
-  for (int nt = 0; nt < kKeyTiles; ++nt) {
+    for (int kk = 0; kk < kAttnMaxD / 16; ++kk) {
+      if (kk * 16 >= D) break;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = s0 + nt * 8 + 2 * t + (i & 1);
-      float s = sc[nt][i] * scale;
-      if (j >= S)
-        s = -INFINITY;
-      else if (mask != nullptr && j >= mask_from && !mask[j - mask_from])
-        s = kMaskedScore;
-      sc[nt][i] = s;
+      for (int np = 0; np < kKeyTiles / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, Kt + ((2 * np + (lane >> 4)) * 8 + (lane & 7)) * ld + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    for (int k = 0; k < D; ++k) {
+      const float a_lo = Qw[g * ld + k], a_hi = Qw[(g + 8) * ld + k];
+#pragma unroll
+      for (int nt = 0; nt < kKeyTiles; ++nt) {
+        const float b_0 = Kt[(nt * 8 + 2 * t) * ld + k], b_1 = Kt[(nt * 8 + 2 * t + 1) * ld + k];
+        sc[nt][0] = fmaf(a_lo, b_0, sc[nt][0]);
+        sc[nt][1] = fmaf(a_lo, b_1, sc[nt][1]);
+        sc[nt][2] = fmaf(a_hi, b_0, sc[nt][2]);
+        sc[nt][3] = fmaf(a_hi, b_1, sc[nt][3]);
+      }
     }
   }
 }
 
-// One block (kThreads) computes out rows [0, n_rows) (n_rows <= 64) of one
-// head: q, k, v and out point at the head's first element of their first
-// row; ld* are row strides in elements. smem holds attn_smem_bytes<T>(D).
+// o (rows g, g + 8; d columns 8 dn + 2t + i % 2) += round_T(p) @ V over one
+// key tile, p (f32, normalised) in the scores' C layout. bf16 rounds p to
+// nearest even as it packs the A-fragments; f32 takes it as it is.
 template <typename T>
-__device__ void attention_tile(const T* __restrict__ q, int ldq, int n_rows, const T* __restrict__ k,
-                               int ldk, const T* __restrict__ v, int ldv, int S,
-                               const uint8_t* __restrict__ mask, int mask_from, T* __restrict__ out,
-                               int ldo, int D, float scale, T* smem) {
-  const int ldd = attn_ld_d<T>(D), ldp = attn_ld_keys<T>();
-  T* Qs = smem;
-  T* Ks = Qs + kAttnRows * ldd;
-  T* Vt = Ks + kAttnKeys * ldd;
-  T* Ps = Vt + D * ldp;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const T* Qw = Qs + warp * 16 * ldd;
-  T* Pw = Ps + warp * 16 * ldp;
-
-  load_rows<T, false>(Qs, ldd, q, ldq, n_rows, kAttnRows, D);
-
-  // pass 1: row max and sum of exp(s - max) (rows g and g + 8 of the warp)
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  float sc[kKeyTiles][4];
-  for (int s0 = 0; s0 < S; s0 += kAttnKeys) {
-    const int nk = min(kAttnKeys, S - s0);
-    load_rows<T, false>(Ks, ldd, k + (size_t)s0 * ldk, ldk, nk, kAttnKeys, D);
-    __syncthreads();
-    tile_scores<T>(Qw, Ks, ldd, D, scale, s0, S, mask, mask_from, sc);
-    __syncthreads();
+__device__ __forceinline__ void add_pv(const float (&p)[kKeyTiles][4], const T* Vt, int ld, int D,
+                                       float (&o)[kAttnMaxD / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (is_bf16<T>()) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
+    for (int c = 0; c < kKeyTiles / 2; ++c) {
+      const uint32_t a[4] = {pack_bf16(p[2 * c][0], p[2 * c][1]), pack_bf16(p[2 * c][2], p[2 * c][3]),
+                             pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]), pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3])};
+      const T* vrow = Vt + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
 #pragma unroll
-      for (int nt = 0; nt < kKeyTiles; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
-      const float m_new = fmaxf(m_run[r], quad_max(mx));  // finite: key s0 is real
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kKeyTiles; ++nt)
-        sum += expf(sc[nt][2 * r] - m_new) + expf(sc[nt][2 * r + 1] - m_new);
-      l_run[r] = l_run[r] * expf(m_run[r] - m_new) + quad_sum(sum);
-      m_run[r] = m_new;
+      for (int dp = 0; dp < kAttnMaxD / 16; ++dp) {
+        if (dp * 16 >= D) break;
+        uint32_t b[4];
+        ldsm_x4_trans(b, vrow + dp * 16);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
     }
-  }
-
-  // pass 2: p = exp(s - max) / sum rounded to T, o += p @ V
-  const int nd = D / 8;
-  float o[kAttnMaxD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kAttnMaxD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  for (int s0 = 0; s0 < S; s0 += kAttnKeys) {
-    const int nk = min(kAttnKeys, S - s0);
-    load_rows<T, false>(Ks, ldd, k + (size_t)s0 * ldk, ldk, nk, kAttnKeys, D);
-    load_rows<T, true>(Vt, ldp, v + (size_t)s0 * ldv, ldv, nk, kAttnKeys, D);
-    __syncthreads();
-    tile_scores<T>(Qw, Ks, ldd, D, scale, s0, S, mask, mask_from, sc);
+  } else {
+    const int t = lane & 3, quad = lane & ~3;
 #pragma unroll
     for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const float p = __fdiv_rn(expf(sc[nt][i] - m_run[r]), l_run[r]);
-        Pw[(g + 8 * r) * ldp + nt * 8 + 2 * t + (i & 1)] = from_f<T>(p);
+      for (int e = 0; e < 8; ++e) {  // key 8 nt + e, held by lane (g, e / 2)
+        const float p_lo = __shfl_sync(0xffffffffu, p[nt][e & 1], quad | (e >> 1));
+        const float p_hi = __shfl_sync(0xffffffffu, p[nt][2 + (e & 1)], quad | (e >> 1));
+        const T* vrow = Vt + (nt * 8 + e) * ld + 2 * t;
+#pragma unroll
+        for (int dn = 0; dn < kAttnMaxD / 8; ++dn) {
+          if (dn * 8 >= D) break;
+          const float2 v = *reinterpret_cast<const float2*>(vrow + dn * 8);
+          o[dn][0] = fmaf(p_lo, v.x, o[dn][0]);
+          o[dn][1] = fmaf(p_lo, v.y, o[dn][1]);
+          o[dn][2] = fmaf(p_hi, v.x, o[dn][2]);
+          o[dn][3] = fmaf(p_hi, v.y, o[dn][3]);
+        }
       }
-    __syncwarp();
-    warp_tiles<T, kAttnMaxD / 8>(Pw, ldp, Vt, ldp, kAttnKeys, o, nd);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int dn = 0; dn < kAttnMaxD / 8; ++dn) {
-    if (dn >= nd) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = warp * 16 + g + 8 * (i >> 1);
-      if (row < n_rows) out[(size_t)row * ldo + dn * 8 + 2 * t + (i & 1)] = from_f<T>(o[dn][i]);
-    }
   }
 }
 
-// Shared memory above 48 KB needs the kernel's opt-in before the launch.
-template <typename Kernel>
-__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// Grid (ceil(N / (16 wq)), H, B), 32 wq wk threads: warp w takes query rows
+// [16 (w % wq), +16) and, in round r of each pass, key tile r wk + w / wq.
+// q row n of item b is at q + b qbs + n ldq; k and v rows at b S ld + j ld;
+// out is (B, N, H, D) contiguous. Shared memory: the item's key flags [S
+// rounded up to 64, then 16 bytes] (1 attend, 0 masked, 2 past S), the key
+// groups' row statistics [wk][16 wq][2] f32, Q [16 wq][ld], then the K tiles
+// and the V tiles, each [64][ld]: all ceil(S / 64) of them where resident
+// (ring == 0), tile j in slot j, every copy issued at once; else a ring of
+// `ring` rounds of wk tiles, K (pass 1) then K and V (pass 2), ring - 1
+// rounds in flight. Each round is one cp.async group (round 0's also holds
+// Q). The key groups' (max, sum) are merged after pass 1 and their p @ V
+// partials summed after pass 2, both in group order.
+template <typename T>
+__device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                                               T* __restrict__ out, int N, int S, int H, int D, int ldq, int ldk,
+                                               int ldv, size_t qbs, int prefix, float scale, int wq, int ring) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wk = (blockDim.x >> 5) / wq, qw = warp % wq, kgrp = warp / wq, rows = 16 * wq;
+  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
+  const int nkt = (S + kTileKeys - 1) / kTileKeys, Dp = padded_head<T>(D), ld = ring_ld<T>(Dp);
+  const int rounds = (nkt + wk - 1) / wk, resident = ring == 0, slots = resident ? nkt : ring * wk;
+  uint8_t* flags = smem_raw;
+  float* stats = reinterpret_cast<float*>(smem_raw + round16(nkt * kTileKeys));
+  T* Qs = reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(stats) + round16(wk * rows * 8));
+  T* Ks = Qs + rows * ld;
+  T* Vs = Ks + slots * kTileKeys * ld;
+  const T* kg = k + (size_t)b * S * ldk + h * D;
+  const T* vg = v + (size_t)b * S * ldv + h * D;
+  const int n_rows = min(rows, N - q0);
+
+  // round i < rounds: K tiles of pass 1; round rounds + r: V tiles (and K
+  // tiles unless resident) of pass 2
+  const int jobs = 2 * rounds;
+  auto slot_of = [&](int i, int grp) { return resident ? (i % rounds) * wk + grp : (i % ring) * wk + grp; };
+  auto issue = [&](int i) {
+    if (i < jobs) {
+      const bool pass2 = i >= rounds;
+      for (int grp = 0; grp < wk; ++grp) {
+        const int j = (i % rounds) * wk + grp, slot = slot_of(i, grp);
+        if (j >= nkt) break;
+        const int nk = min(kTileKeys, S - j * kTileKeys);
+        if (!pass2 || !resident)
+          copy_rows(Ks + slot * kTileKeys * ld, ld, kg + (size_t)j * kTileKeys * ldk, ldk, nk, kTileKeys, D, Dp);
+        if (pass2)
+          copy_rows(Vs + slot * kTileKeys * ld, ld, vg + (size_t)j * kTileKeys * ldv, ldv, nk, kTileKeys, D, Dp);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  copy_rows(Qs, ld, q + b * qbs + (size_t)q0 * ldq + h * D, ldq, n_rows, rows, D, Dp);
+  int issued = 0;
+  for (; issued < (resident ? jobs : ring - 1); ++issued) issue(issued);
+  const uint8_t* mb = mask != nullptr ? mask + (size_t)b * (S - prefix) : nullptr;
+  for (int j = threadIdx.x; j < nkt * kTileKeys; j += blockDim.x)
+    flags[j] = j >= S ? 2 : (j < prefix || mb == nullptr || mb[j - prefix] ? 1 : 0);
+
+  const T* Qw = Qs + qw * 16 * ld;
+  uint32_t qf[kAttnMaxD / 16][4];
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, inv_l[2];
+  float o[kAttnMaxD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kAttnMaxD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  bool q_loaded = false;
+
+  // Scores are kept in log2 units, s2 = s log2 e (masked: -1e9 log2 e), so
+  // each exponential is one exp2f: exp2(s2 - m2) = exp(s - m).
+  const float scale2 = scale * kLog2e;
+  // one key tile j (in `slot`) of pass 1 or 2, after a barrier that made it visible
+  auto step = [&](bool pass2, int j, int slot) {
+    if constexpr (is_bf16<T>()) {
+      if (!q_loaded) {
+#pragma unroll
+        for (int kk = 0; kk < kAttnMaxD / 16; ++kk)
+          if (kk * 16 < D) ldsm_x4(qf[kk], Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk * 16 + (lane >> 4) * 8);
+        q_loaded = true;
+      }
+    }
+    const int s0 = j * kTileKeys;
+    float sc[kKeyTiles][4];
+    raw_scores<T>(qf, Qw, Ks + slot * kTileKeys * ld, ld, D, sc);
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = flags[s0 + nt * 8 + 2 * t + (e & 1)];
+        sc[nt][e] = f == 1 ? sc[nt][e] * scale2 : (f == 0 ? kMaskedScore * kLog2e : -INFINITY);
+      }
+    if (!pass2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kKeyTiles; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+        const float m_new = fmaxf(m_run[r], quad_max(mx));  // finite: key s0 is real
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kKeyTiles; ++nt) sum += exp2f(sc[nt][2 * r] - m_new) + exp2f(sc[nt][2 * r + 1] - m_new);
+        l_run[r] = l_run[r] * exp2f(m_run[r] - m_new) + quad_sum(sum);
+        m_run[r] = m_new;
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = exp2f(sc[nt][e] - m_run[e >> 1]) * inv_l[e >> 1];
+      add_pv<T>(sc, Vs + slot * kTileKeys * ld, ld, D, o);
+    }
+  };
+
+  for (int i = 0; i < jobs; ++i) {
+    cp_async_wait_at_most(issued - i - 1);  // round i has landed (this thread's copies)
+    __syncthreads();                        // everyone's; and every warp is past round i - 1
+    if (!resident) issue(issued++);         // into the slots round i - 1 used
+    if (i == rounds) {                      // pass 1 is done in every warp
+      if (wk > 1) {                         // merge the key groups' (max, sum) in group order
+        const int row = qw * 16 + g;
+        if (t == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            stats[(kgrp * rows + row + 8 * r) * 2] = m_run[r];
+            stats[(kgrp * rows + row + 8 * r) * 2 + 1] = l_run[r];
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float* st = stats + (row + 8 * r) * 2;
+          float m = -INFINITY, l = 0.f;
+          for (int grp = 0; grp < wk; ++grp) m = fmaxf(m, st[grp * rows * 2]);
+          for (int grp = 0; grp < wk; ++grp) l += st[grp * rows * 2 + 1] * exp2f(st[grp * rows * 2] - m);
+          m_run[r] = m;
+          l_run[r] = l;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / l_run[r];
+    }
+    const int j = (i % rounds) * wk + kgrp;
+    if (j < nkt) step(i >= rounds, j, slot_of(i, kgrp));
+  }
+
+  const int ldo = H * D;
+  T* og = out + ((size_t)b * N + q0) * ldo + h * D;
+  if (wk == 1) {
+#pragma unroll
+    for (int dn = 0; dn < kAttnMaxD / 8; ++dn) {
+      if (dn * 8 >= D) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = qw * 16 + g + 8 * r;
+        if (row >= n_rows) continue;
+        T* dst = og + (size_t)row * ldo + dn * 8 + 2 * t;
+        dst[0] = from_f<T>(o[dn][2 * r]);
+        dst[1] = from_f<T>(o[dn][2 * r + 1]);
+      }
+    }
+    return;
+  }
+  // sum the key groups' p @ V partials in group order, over the K/V tiles
+  float* part = reinterpret_cast<float*>(Ks);  // [wk][rows][D]
+  sm90::cp_async_wait<0>();                    // no copy still lands there
+  __syncthreads();                             // every warp is done with K and V
+#pragma unroll
+  for (int dn = 0; dn < kAttnMaxD / 8; ++dn) {
+    if (dn * 8 >= D) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* dst = part + (size_t)(kgrp * rows + qw * 16 + g + 8 * r) * D + dn * 8 + 2 * t;
+      dst[0] = o[dn][2 * r];
+      dst[1] = o[dn][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * D; e += blockDim.x) {
+    const int row = e / D, col = e % D;
+    float sum = part[(size_t)row * D + col];
+    for (int grp = 1; grp < wk; ++grp) sum += part[(size_t)(grp * rows + row) * D + col];
+    og[(size_t)row * ldo + col] = from_f<T>(sum);
+  }
+}
+
+// The same kernel under two names, so that a profile tells K5's launches
+// (attention.cu) from K6's attention phase (attn_block.cu).
+#define PAELLA_ATTENTION_KERNEL(name)                                                                              \
+  template <typename T>                                                                                             \
+  __global__ void __launch_bounds__(256)                                                                            \
+      name(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,                               \
+           const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int D, int ldq, int ldk,     \
+           int ldv, size_t qbs, int prefix, float scale, int wq, int ring) {                                        \
+    attention_ring<T>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq, ring);                 \
+  }
+PAELLA_ATTENTION_KERNEL(attention_ring_kernel)
+PAELLA_ATTENTION_KERNEL(block_attention_kernel)
+#undef PAELLA_ATTENTION_KERNEL
+
+template <typename T, bool kBlock>
+constexpr auto attention_kernel() {
+  if constexpr (kBlock) return &block_attention_kernel<T>;
+  else return &attention_ring_kernel<T>;
+}
+
+// The launch policy, shared by K5 and K6 (kBlock: under K6's kernel name):
+// about four query blocks per (batch, head), 16-row warps, at most 4; the
+// key tiles split among up to 8 / wq groups, so that every SM has more than
+// one warp per scheduler to hide latency. K and V stay resident in shared
+// memory up to kResidentBytes, else stream through a ring of 3 rounds (fewer
+// groups, or 2 rounds, if shared memory is short). Nothing here depends on B.
+template <typename T, bool kBlock>
+cudaError_t launch_attention(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
+                             int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
+                             cudaStream_t st) {
+  const int wq = min(4, (N + 63) / 64), rows = 16 * wq;
+  const int nkt = (S + kTileKeys - 1) / kTileKeys, ld = ring_ld<T>(padded_head<T>(D));
+  const size_t tile = (size_t)kTileKeys * ld * sizeof(T);
+  const size_t fixed = round16(nkt * kTileKeys) + (size_t)rows * ld * sizeof(T);
+  int wk = min(nkt, 8 / wq), ring = 0;
+  auto bytes = [&]() { return fixed + round16(wk * rows * 8) + 2 * (ring == 0 ? nkt : ring * wk) * tile; };
+  if (bytes() > kResidentBytes) {
+    ring = 3;
+    while (bytes() > kMaxSmem && wk > 1) --wk;
+    if (bytes() > kMaxSmem) ring = 2;
+  }
+  if (bytes() > kMaxSmem) return cudaErrorInvalidValue;
+  constexpr auto kernel = attention_kernel<T, kBlock>();
+  cudaError_t err = sm90::reserve_smem<kernel>(bytes());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((N + rows - 1) / rows, H, B), 32 * wq * wk, bytes(), st>>>(q, k, v, mask, out, N, S, H, D, ldq, ldk,
+                                                                          ldv, qbs, prefix, scale, wq, ring);
+  return cudaGetLastError();
 }
 
 }  // namespace paella

@@ -23,7 +23,12 @@
 //   2. fc1           xn @ W1^T with a bias + GELU epilogue that writes h
 //                    (M, 4C) and, for each batch item the M-tile touches,
 //                    each column's f32 sum of squares over the tile's rows
-//                    into a partials buffer (no atomics).
+//                    into a partials buffer (no atomics). The M-tiles cut
+//                    every image at the same image-relative rows: absolute
+//                    tiles where hw % bm == 0 or bm % hw == 0 (the
+//                    flagship's 256^2 canvas), else tiles per image
+//                    (tile_rows), so the GRN sums of an image do not
+//                    depend on where it sits in the batch at any canvas.
 //   3. grn_scale_kernel  one block per batch item: sums its partials in tile
 //                    order (so the GRN scale is the same on every run, as the
 //                    Pallas kernel's sequential grid makes it) -> scale (B, 4C).
@@ -209,6 +214,23 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
   }
 }
 
+// Rows [m0, mend) of fc1 M-tile `tile` (bm rows). tpi 0: tiles at absolute
+// multiples of bm, used where they cut every image at the same image-relative
+// rows (hw % bm == 0, or bm % hw == 0: each image inside one tile). Else tpi
+// tiles per image, each inside its image (the last one short), so an image's
+// row partition, and the order of its GRN sums, never depend on where it
+// sits in the batch (kernels/resblock.py::launch_plan decides).
+__device__ __forceinline__ void tile_rows(int tile, int bm, int M, int hw, int tpi, int& m0, int& mend) {
+  if (tpi > 0) {
+    const int b = tile / tpi;
+    m0 = b * hw + (tile % tpi) * bm;
+    mend = min(m0 + bm, (b + 1) * hw);
+  } else {
+    m0 = tile * bm;
+    mend = min(m0 + bm, M);
+  }
+}
+
 // Phase 2: fc1 tile, bias + GELU epilogue, GRN partials. h is written in the
 // dtype (float and weight-only) or in f32 (W8A8, for the requant phase).
 template <typename T, int MODE>
@@ -218,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
                                                        const float* __restrict__ s1,
                                                        const float* __restrict__ sx,
                                                        void* __restrict__ h_, float* __restrict__ gx_part,
-                                                       int M, int K, int N, int hw, int slots) {
+                                                       int M, int K, int N, int hw, int slots, int tpi) {
   constexpr bool Q8 = MODE == kW8A8;
   using TA = std::conditional_t<Q8, int8_t, T>;  // the operands' type in shared memory
   constexpr int TBK = Q8 ? BK8 : BK;
@@ -227,18 +249,20 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
   __shared__ __align__(16) TA Bs[BN * LDS];
   __shared__ float Cs[BM * LDC];
   __shared__ float half_sq[kThreads];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * BN;
+  int m0, mend;
+  tile_rows(blockIdx.y, BM, M, hw, tpi, m0, mend);
   const TA* xn = static_cast<const TA*>(xn_);
   std::conditional_t<Q8, TileProductS8<BM, BN>, TileProduct<T, BM, BN>> tile;
   tile.zero();
   for (int k0 = 0; k0 < K; k0 += TBK) {
     if constexpr (Q8) {
-      load_tile_s8<int8_t, BM, BK8>(As, LDS, xn, K, m0, M, k0);
+      load_tile_s8<int8_t, BM, BK8>(As, LDS, xn, K, m0, mend, k0);
     } else {
-      load_tile<T, BM, BK>(As, LDS, xn, K, m0, M, k0);
+      load_tile<T, BM, BK>(As, LDS, xn, K, m0, mend, k0, K);
     }
     if constexpr (MODE == kFloat) {
-      load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(w1_), K, n0, N, k0);
+      load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(w1_), K, n0, N, k0, K);
     } else {
       load_tile_s8<TA, BN, TBK>(Bs, LDS, static_cast<const int8_t*>(w1_), K, n0, N, k0);
     }
@@ -255,11 +279,12 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
   // epilogue: one column per thread, rows strided by kThreads / BN; the f32
   // GELU output replaces the product in Cs for the GRN statistics
   const int c = threadIdx.x % BN, n = n0 + c;
-  const float bias = to_f<T>(b1[n]);
-  const float s1n = MODE == kFloat ? 1.f : s1[n];
+  const bool col = n < N;  // a ragged last column tile (narrow widths)
+  const float bias = col ? to_f<T>(b1[n]) : 0.f;
+  const float s1n = MODE == kFloat || !col ? 1.f : s1[n];
   for (int r = threadIdx.x / BN; r < BM; r += kThreads / BN) {
     const int m = m0 + r;
-    if (m >= M) break;
+    if (m >= mend) break;
     float v;
     if constexpr (Q8) {
       const float acc = (float)reinterpret_cast<const int*>(Cs)[r * LDC + c];
@@ -270,10 +295,12 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
       v = Cs[r * LDC + c] + bias;
     }
     v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    if constexpr (Q8) {
-      static_cast<float*>(h_)[(size_t)m * N + n] = v;
-    } else {
-      static_cast<T*>(h_)[(size_t)m * N + n] = from_f<T>(v);
+    if (col) {
+      if constexpr (Q8) {
+        static_cast<float*>(h_)[(size_t)m * N + n] = v;
+      } else {
+        static_cast<T*>(h_)[(size_t)m * N + n] = from_f<T>(v);
+      }
     }
     Cs[r * LDC + c] = v;
   }
@@ -281,9 +308,10 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
   // GRN statistics from the f32 values, before rounding, one partial per
   // batch item the tile touches, at slot (tile, batch item - the tile's first
   // batch item). A tile inside one batch item (every tile at the flagship's
-  // shapes): two threads per column sum rows [0, 32) and [32, 64), added in
-  // that order. Otherwise one thread per column walks the rows in order.
-  const int first_b = m0 / hw, rows = min(BM, M - m0);
+  // shapes, and every tile with tpi): two threads per column sum rows [0, 32)
+  // and [32, 64), added in that order. Otherwise (images of fewer than 64
+  // rows, each inside this tile) one thread per column walks the rows in order.
+  const int first_b = m0 / hw, rows = mend - m0;
   if ((m0 + rows - 1) / hw == first_b) {
     const int half = threadIdx.x / BN;
     float sq = 0.f;
@@ -294,12 +322,12 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
     }
     half_sq[threadIdx.x] = sq;
     __syncthreads();
-    if (threadIdx.x < BN) gx_part[(size_t)blockIdx.y * slots * N + n] = half_sq[c] + half_sq[BN + c];
-  } else if (threadIdx.x < BN) {
+    if (threadIdx.x < BN && col) gx_part[(size_t)blockIdx.y * slots * N + n] = half_sq[c] + half_sq[BN + c];
+  } else if (threadIdx.x < BN && col) {
     float* part = gx_part + (size_t)blockIdx.y * slots * N + n;
     int cur_b = first_b;
     float sq = 0.f;
-    for (int r = 0; r < BM && m0 + r < M; ++r) {
+    for (int r = 0; r < rows; ++r) {
       const int bi = (m0 + r) / hw;
       if (bi != cur_b) {
         part[(size_t)(cur_b - first_b) * N] = sq;
@@ -317,32 +345,39 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
 // xn @ W1^T, then + b1 and GELU from the accumulators, staged in shared
 // memory as f32 to store h coalesced (rounded to bf16) and to take each
 // column's GRN sum of squares over the tile's rows in a fixed order: where
-// hw is a multiple of 32 (the flagship's shapes), four 32-row segments, each
-// inside one image, summed row by row and then added segment by segment per
-// image; otherwise one thread per column walks the rows in order. One
-// partial per image the tile touches, at slot (tile, image - the tile's
-// first image), as fc1_kernel writes them for 64-row tiles.
-template <int BN>
+// every 32-row segment of the tile lies inside one image (hw a multiple of
+// 32, as at the flagship's shapes, or tpi tiles per image), the segments are
+// summed row by row and then added segment by segment per image; otherwise
+// (images of fewer than 32 rows, each inside this tile) one thread per
+// column walks the rows in order. One partial per image the tile touches, at
+// slot (tile, image - the tile's first image), as fc1_kernel writes them for
+// 64-row tiles.
+template <int BN, bool kRagged>
 __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
     const __nv_bfloat16* __restrict__ xn, const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
-    __nv_bfloat16* __restrict__ h, float* __restrict__ gx_part, int M, int K, int N, int hw, int slots) {
+    __nv_bfloat16* __restrict__ h, float* __restrict__ gx_part, int M, int K, int N, int hw, int slots, int tpi) {
   using Tile = sm90::GemmTile<BN>;
   constexpr int LDC = BN + 4, kSeg = 32, kSegs = sm90::kBM / kSeg;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align1024(smem_raw);
-  const int m0 = blockIdx.y * sm90::kBM, n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * BN;
+  int m0, mend;
+  tile_rows(blockIdx.y, sm90::kBM, M, hw, tpi, m0, mend);
   Tile tile;
-  tile.run(smem, xn, w1, K, M, m0, n0, 0, K / sm90::kBK);
+  tile.template run<kRagged>(smem, xn, w1, K, mend, N, K, m0, n0, 0, (K + sm90::kBK - 1) / sm90::kBK);
   float* Cs = reinterpret_cast<float*>(smem);  // [128][LDC], over the drained ring
   float* seg = Cs + sm90::kBM * LDC;            // [kSegs][BN]
+  const int ncols = kRagged ? min(BN, N - n0) : BN;  // fewer in a ragged last column tile
   tile.for_each([&](int r, int c, float v) {
-    v = v + __bfloat162float(b1[n0 + c]);
+    v = v + (c < ncols ? __bfloat162float(b1[n0 + c]) : 0.f);
     Cs[r * LDC + c] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
   });
   __syncthreads();
+  const int rows = mend - m0, first_b = m0 / hw, last_b = (m0 + rows - 1) / hw;
   for (int e = threadIdx.x; e < sm90::kBM * (BN / 8); e += blockDim.x) {
     const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-    if (m0 + r >= M) break;
+    if (r >= rows) break;
+    if (c >= ncols) continue;
     const float* src = Cs + r * LDC + c;
     uint4 u;
     __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
@@ -350,9 +385,8 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
     for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
     *reinterpret_cast<uint4*>(h + (size_t)(m0 + r) * N + n0 + c) = u;
   }
-  const int rows = min(sm90::kBM, M - m0), first_b = m0 / hw, last_b = (m0 + rows - 1) / hw;
   float* part = gx_part + (size_t)blockIdx.y * slots * N + n0;
-  if (hw % kSeg == 0) {
+  if (tpi > 0 || hw % kSeg == 0) {
     for (int e = threadIdx.x; e < kSegs * BN; e += blockDim.x) {
       const int s = e / BN, c = e % BN;
       float sq = 0.f;
@@ -365,13 +399,14 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
     __syncthreads();
     for (int e = threadIdx.x; e < (last_b - first_b + 1) * BN; e += blockDim.x) {
       const int slot = e / BN, c = e % BN;
+      if (c >= ncols) continue;
       float g = 0.f;
 #pragma unroll
       for (int s = 0; s < kSegs; ++s)
         if (s * kSeg < rows && (m0 + s * kSeg) / hw == first_b + slot) g += seg[s * BN + c];
       part[(size_t)slot * N + c] = g;
     }
-  } else if (threadIdx.x < BN) {
+  } else if (threadIdx.x < ncols) {
     const int c = threadIdx.x;
     int cur_b = first_b;
     float sq = 0.f;
@@ -390,21 +425,22 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
 }
 
 // One block of 1024 threads per batch item b: each column's gx = sum of its
-// partials, tile by tile in order (tiles of bm rows), kept in shared memory
-// (N floats), then the GRN scale gamma * gx / (mean_N gx + 1e-6) + 1.
+// partials, tile by tile in order (tiles of bm rows, absolute or tpi per
+// image as tile_rows cuts them), kept in shared memory (N floats), then the
+// GRN scale gamma * gx / (mean_N gx + 1e-6) + 1.
 __global__ void __launch_bounds__(1024) grn_scale_kernel(const float* __restrict__ gx_part,
                                                          const float* __restrict__ gamma,
                                                          float* __restrict__ scale, int N, int hw,
-                                                         int slots, int bm) {
+                                                         int slots, int bm, int tpi) {
   extern __shared__ float s_norm[];
   __shared__ float red[32];
   const int b = blockIdx.x;
-  const int t0 = b * hw / bm, t1 = ((b + 1) * hw - 1) / bm;
+  const int t0 = tpi > 0 ? b * tpi : b * hw / bm, t1 = tpi > 0 ? t0 + tpi - 1 : ((b + 1) * hw - 1) / bm;
   float s = 0.f;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float g = 0.f;
 #pragma unroll 4
-    for (int t = t0; t <= t1; ++t) g += gx_part[((size_t)t * slots + b - t * bm / hw) * N + n];
+    for (int t = t0; t <= t1; ++t) g += gx_part[((size_t)t * slots + (tpi > 0 ? 0 : b - t * bm / hw)) * N + n];
     s_norm[n] = sqrtf(g);
     s += s_norm[n];
   }
@@ -506,10 +542,10 @@ __global__ void __launch_bounds__(kThreads) fc2_kernel(Fc2Args a, int M, int K, 
     if constexpr (Q8) {
       load_tile_s8<int8_t, BM, BK8>(As, LDS, h, K, m0, M, k0);
     } else {
-      load_tile<T, BM, BK>(As, LDS, h, K, m0, M, k0, a.scale, K, hw);  // GRN scale as A loads
+      load_tile<T, BM, BK>(As, LDS, h, K, m0, M, k0, K, a.scale, K, hw);  // GRN scale as A loads
     }
     if constexpr (MODE == kFloat) {
-      load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(a.w2), K, n0, N, k0);
+      load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(a.w2), K, n0, N, k0, K);
     } else {
       load_tile_s8<TA, BN, TBK>(Bs, LDS, static_cast<const int8_t*>(a.w2), K, n0, N, k0);
     }
@@ -524,6 +560,7 @@ __global__ void __launch_bounds__(kThreads) fc2_kernel(Fc2Args a, int M, int K, 
   }
   __syncthreads();
   const int c = threadIdx.x % BN, n = n0 + c;
+  if (n >= N) return;  // a ragged last column tile (narrow widths)
   for (int r = threadIdx.x / BN; r < BM; r += kThreads / BN) {
     const int m = m0 + r;
     if (m >= M) break;
@@ -584,7 +621,7 @@ __global__ void __launch_bounds__(256) grn_apply_kernel(__nv_bfloat16* __restric
 // K range of split blockIdx.z (h already scaled), then the epilogue as
 // fc2_kernel: fc2_finish with one split, else the partial to part[z] for
 // fc2_reduce_kernel.
-template <int BN>
+template <int BN, bool kRagged>
 __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc2_wgmma_kernel(Fc2Args a, int M, int K, int N, int hw,
                                                                           int k_split) {
   using T = __nv_bfloat16;
@@ -593,8 +630,8 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc2_wgmma_kernel(Fc2Arg
   uint8_t* smem = sm90::align1024(smem_raw);
   const int m0 = blockIdx.y * sm90::kBM, n0 = blockIdx.x * BN;
   sm90::GemmTile<BN> tile;
-  tile.run(smem, static_cast<const T*>(a.h), static_cast<const T*>(a.w2), K, M, m0, n0, blockIdx.z * k_split,
-           k_split / sm90::kBK);
+  tile.template run<kRagged>(smem, static_cast<const T*>(a.h), static_cast<const T*>(a.w2), K, M, N, K, m0, n0,
+                             blockIdx.z * k_split, (k_split + sm90::kBK - 1) / sm90::kBK);
   float* Cs = reinterpret_cast<float*>(smem);
   tile.for_each([&](int r, int c, float v) { Cs[r * LDC + c] = v; });
   __syncthreads();
@@ -602,6 +639,7 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc2_wgmma_kernel(Fc2Arg
   for (int e = threadIdx.x; e < sm90::kBM * (BN / 8); e += blockDim.x) {
     const int r = e / (BN / 8), c = (e % (BN / 8)) * 8, m = m0 + r;
     if (m >= M) break;
+    if (kRagged && n0 + c >= N) continue;
     const size_t i = (size_t)m * N + n0 + c;
     const float4 v0 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
     const float4 v1 = *reinterpret_cast<const float4*>(Cs + r * LDC + c + 4);
@@ -633,54 +671,70 @@ struct Args {
   float *gx_part, *scale, *part, *sx;
   int8_t* hq;
   float* sh2;
-  int slots, splits, B, H, W, C, group, bn1, bn2;
+  int slots, splits, B, H, W, C, group, bn1, bn2, tpi;
 };
 
-template <int BN>
+// fc1's M-tiles of bm rows: tpi per image, or absolute (tile_rows).
+inline int fc1_tiles(const Args& a, int bm) {
+  return a.tpi > 0 ? a.B * a.tpi : (a.B * a.H * a.W + bm - 1) / bm;
+}
+
+template <int BN, bool kRagged>
 cudaError_t launch_fc1_wgmma(const Args& a, int M, int N1, int hw, cudaStream_t st) {
   constexpr int smem = sm90::GemmTile<BN>::kSmem;
-  cudaError_t err = sm90::reserve_smem<fc1_wgmma_kernel<BN>>(smem);
+  cudaError_t err = sm90::reserve_smem<fc1_wgmma_kernel<BN, kRagged>>(smem);
   if (err != cudaSuccess) return err;
-  fc1_wgmma_kernel<BN><<<dim3(N1 / BN, (M + sm90::kBM - 1) / sm90::kBM), sm90::kGemmThreads, smem, st>>>(
+  fc1_wgmma_kernel<BN, kRagged><<<dim3((N1 + BN - 1) / BN, fc1_tiles(a, sm90::kBM)), sm90::kGemmThreads, smem, st>>>(
       (const __nv_bfloat16*)a.xn, (const __nv_bfloat16*)a.w1, (const __nv_bfloat16*)a.b1, (__nv_bfloat16*)a.h,
-      a.gx_part, M, a.C, N1, hw, a.slots);
+      a.gx_part, M, a.C, N1, hw, a.slots, a.tpi);
   return cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, bool kRagged>
 cudaError_t launch_fc2_wgmma(const Fc2Args& f, int M, int N1, int C, int hw, int splits, cudaStream_t st) {
   constexpr int smem = sm90::GemmTile<BN>::kSmem;
-  cudaError_t err = sm90::reserve_smem<fc2_wgmma_kernel<BN>>(smem);
+  cudaError_t err = sm90::reserve_smem<fc2_wgmma_kernel<BN, kRagged>>(smem);
   if (err != cudaSuccess) return err;
-  fc2_wgmma_kernel<BN><<<dim3(C / BN, (M + sm90::kBM - 1) / sm90::kBM, splits), sm90::kGemmThreads, smem, st>>>(
-      f, M, N1, C, hw, N1 / splits);
+  fc2_wgmma_kernel<BN, kRagged><<<dim3((C + BN - 1) / BN, (M + sm90::kBM - 1) / sm90::kBM, splits), sm90::kGemmThreads, smem,
+                         st>>>(f, M, N1, C, hw, N1 / splits);
   return cudaGetLastError();
 }
 
 // bf16 float mode: dw+LN, fc1 on wgmma (128-row tiles, bn1 wide), the GRN
 // scale over 128-row tile partials, its in-place application to h, fc2 on
-// wgmma (bn2 wide, `splits` K splits) and, with splits, the fixed-order
-// reduce. bn1, bn2 and splits come from kernels/resblock.py::wgmma_tiles.
+// wgmma (bn2 wide, `splits` K splits of whole 64-deep steps) and, with
+// splits, the fixed-order reduce. bn1, bn2, splits and tpi come from
+// kernels/resblock.py::launch_plan.
 int launch_bf16_float(const Args& a, cudaStream_t st) {
   using T = __nv_bfloat16;
   const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C;
-  const bool tiles_ok = (a.bn1 == 64 || a.bn1 == 128) && N1 % a.bn1 == 0 && (a.bn2 == 64 || a.bn2 == 128) &&
-                        C % a.bn2 == 0 && a.splits >= 1 && N1 % a.splits == 0 && (N1 / a.splits) % sm90::kBK == 0;
+  const bool tiles_ok = (a.bn1 == 64 || a.bn1 == 128) && (a.bn2 == 64 || a.bn2 == 128) && a.splits >= 1 &&
+                        (a.splits == 1 || N1 % (a.splits * sm90::kBK) == 0);
   if (!tiles_ok) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   dw_ln_kernel<T, false><<<M, kThreads, C * sizeof(float), st>>>(
       (const T*)a.x, (const T*)a.skip, (const T*)a.dw_w, (const T*)a.dw_b, a.xn, nullptr, a.H, a.W, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  err = a.bn1 == 128 ? launch_fc1_wgmma<128>(a, M, N1, hw, st) : launch_fc1_wgmma<64>(a, M, N1, hw, st);
+  // the ragged tile variants only where K or N leaves a partial tile (C % 64 != 0)
+  const bool ragged1 = C % sm90::kBK || N1 % a.bn1, ragged2 = N1 % sm90::kBK || C % a.bn2;
+  if (a.bn1 == 128)
+    err = ragged1 ? launch_fc1_wgmma<128, true>(a, M, N1, hw, st) : launch_fc1_wgmma<128, false>(a, M, N1, hw, st);
+  else
+    err = ragged1 ? launch_fc1_wgmma<64, true>(a, M, N1, hw, st) : launch_fc1_wgmma<64, false>(a, M, N1, hw, st);
   if (err != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, sm90::kBM);
+  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, sm90::kBM,
+                                                          a.tpi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t vecs = (size_t)M * N1 / 8;
   grn_apply_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>((T*)a.h, a.scale, M, N1, hw);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   Fc2Args f{a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film, a.out, a.splits > 1 ? a.part : nullptr};
-  err = a.bn2 == 128 ? launch_fc2_wgmma<128>(f, M, N1, C, hw, a.splits, st)
-                     : launch_fc2_wgmma<64>(f, M, N1, C, hw, a.splits, st);
+  if (a.bn2 == 128)
+    err = ragged2 ? launch_fc2_wgmma<128, true>(f, M, N1, C, hw, a.splits, st)
+                  : launch_fc2_wgmma<128, false>(f, M, N1, C, hw, a.splits, st);
+  else
+    err = ragged2 ? launch_fc2_wgmma<64, true>(f, M, N1, C, hw, a.splits, st)
+                  : launch_fc2_wgmma<64, false>(f, M, N1, C, hw, a.splits, st);
   if (err != cudaSuccess || a.splits == 1) return (int)err;
   fc2_reduce_kernel<T, kFloat><<<(M * C + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
   return (int)cudaGetLastError();
@@ -696,10 +750,10 @@ int launch(const Args& a, cudaStream_t st) {
   dw_ln_kernel<T, Q8><<<M, kThreads, C * sizeof(float), st>>>(
       (const T*)a.x, (const T*)a.skip, (const T*)a.dw_w, (const T*)a.dw_b, a.xn, a.sx, a.H, a.W, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fc1_kernel<T, MODE><<<dim3(N1 / BN, (M + BM - 1) / BM), kThreads, 0, st>>>(
-      a.xn, a.w1, (const T*)a.b1, a.s1, a.sx, a.h, a.gx_part, M, C, N1, hw, a.slots);
+  fc1_kernel<T, MODE><<<dim3((N1 + BN - 1) / BN, fc1_tiles(a, BM)), kThreads, 0, st>>>(
+      a.xn, a.w1, (const T*)a.b1, a.s1, a.sx, a.h, a.gx_part, M, C, N1, hw, a.slots, a.tpi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, BM);
+  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, BM, a.tpi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if constexpr (Q8) {
     requant_kernel<<<M, 256, N1 * sizeof(float), st>>>((const float*)a.h, a.scale, a.hq, a.sh2, N1, hw, a.group);
@@ -707,8 +761,8 @@ int launch(const Args& a, cudaStream_t st) {
   }
   Fc2Args f{Q8 ? (const void*)a.hq : (const void*)a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film,
             a.out, a.splits > 1 ? a.part : nullptr};
-  fc2_kernel<T, MODE><<<dim3(C / BN, (M + BM - 1) / BM, a.splits), kThreads, 0, st>>>(f, M, N1, C, hw,
-                                                                                       N1 / a.splits);
+  fc2_kernel<T, MODE><<<dim3((C + BN - 1) / BN, (M + BM - 1) / BM, a.splits), kThreads, 0, st>>>(f, M, N1, C, hw,
+                                                                                                 N1 / a.splits);
   if ((err = cudaGetLastError()) != cudaSuccess || a.splits == 1) return (int)err;
   const int n_out = M * C;
   fc2_reduce_kernel<T, MODE><<<(n_out + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
@@ -733,29 +787,31 @@ int launch_mode(const Args& a, int mode, cudaStream_t st) {
 // C interface for ctypes. Shapes: x, skip, out (B,H,W,C); dw_w (3,3,cpg,C);
 // dw_b, b2 (C); w1 (4C,C); b1 (4C); gamma (4C) f32; w2 (C,4C); bw2 (C) f32;
 // film (B,2C) [a | b]; scratch xn (B*H*W, C), h (B*H*W, 4C), gx_part
-// (ceil(B*H*W / bm) * slots, 4C) f32 with slots the most batch items one
-// bm-row tile touches (bm 128 in bf16 float mode, else 64), scale (B, 4C)
-// f32, and with splits > 1 part (splits, B*H*W, C) f32, the fc2 split-K
-// partials (4C / splits a multiple of 32, and of 64 in W8A8 and in bf16
-// float mode: whole K tiles). bn1, bn2: the bf16 float mode's fc1 and fc2
-// tile widths (64 or 128); other modes ignore them.
+// (fc1 tiles * slots, 4C) f32 with fc1 tiles B*tpi (tpi > 0: tpi bm-row tiles
+// per image) or ceil(B*H*W / bm) (tpi 0: absolute tiles) and slots the most
+// batch items one tile touches (bm 128 in bf16 float mode, else 64), scale
+// (B, 4C) f32, and with splits > 1 part (splits, B*H*W, C) f32, the fc2
+// split-K partials (4C / splits a multiple of 32, and of 64 in W8A8 and in
+// bf16 float mode: whole K tiles). bn1, bn2: the bf16 float mode's fc1 and
+// fc2 tile widths (64 or 128); other modes ignore them.
 // mode 0 (float): w1, w2, xn and h in the dtype; s1, s2, sx, hq, sh2 null.
 // mode 1 (weight-only int8): w1, w2 int8 codes with f32 scales s1 (4C), s2
 // (C). mode 2 (W8A8): as mode 1, plus xn int8 with sx (B*H*W) f32, h f32,
 // hq (B*H*W, 4C) int8 and sh2 (B*H*W) f32, and h's provisional codes taken
 // per `group` columns (4C % group == 0). skip and film may be null.
-// C % 64 == 0. Returns a cudaError_t.
+// C % 8 == 0 in float mode, C % 64 == 0 in the int8 modes. Returns a
+// cudaError_t.
 extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w, const void* dw_b,
                                const void* w1, const void* b1, const void* gamma, const void* w2,
                                const void* bw2, const void* b2, const void* film, const void* s1,
                                const void* s2, void* out, void* xn, void* h, void* gx_part, void* scale,
                                void* part, void* sx, void* hq, void* sh2, int slots, int splits, int B,
                                int H, int W, int C, int is_bf16, int mode, int group, int bn1, int bn2,
-                               void* stream) {
+                               int tpi, void* stream) {
   using namespace paella;
   const Args a{x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2, b2, film,
                (const float*)s1, (const float*)s2, out, xn, h, (float*)gx_part, (float*)scale,
-               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group, bn1, bn2};
+               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group, bn1, bn2, tpi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_mode<__nv_bfloat16>(a, mode, st) : launch_mode<float>(a, mode, st);
 }

@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) head_kernel(
   for (int n0 = 0; n0 < K; n0 += BN) {
     tile.zero();
     for (int k0 = 0; k0 < C; k0 += BK) {
-      load_tile<T, BN, BK>(Bs, LDB, w, C, n0, K, k0);
+      load_tile<T, BN, BK>(Bs, LDB, w, C, n0, K, k0, C);
       __syncthreads();
       tile.step(As + k0, lda, Bs, LDB, BK);
       __syncthreads();

@@ -58,8 +58,11 @@ attention_plain.launches = 0
 
 
 def check_head_dim(d: int, what: str) -> None:
-    if d % 16 or d > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} (the kernel takes multiples of 16 up to {MAX_HEAD_DIM})")
+    """The kernel's head dims: whole 16-byte rows of bf16 (D % 8 == 0; bf16
+    pads a head to the next multiple of 16 in shared memory), at most 128
+    (its per-warp register tiles)."""
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} (the kernel takes multiples of 8 up to {MAX_HEAD_DIM})")
 
 
 def _row_stride(t: torch.Tensor, name: str) -> int:

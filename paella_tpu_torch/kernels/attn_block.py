@@ -19,16 +19,32 @@ the JAX module does against the JAX kernel.
 tensors and runs `attn_block_plain`, the same computation in torch ops, on CPU
 tensors only. Weights stay in the reference's packed layout (in_proj_weight
 (3C, C), q|k|v rows; out_proj (C, C)), with no head padding.
+
+The kernel in bf16 (the flagship's path): LN; the q|k|v product over every
+row ([pixels ; cond], the cond rows' q unread) on the Hopper wgmma tile of K1
+(csrc/gemm_sm90.cuh, a 6-stage cp.async ring), with bias in the epilogue;
+the attention phase on K5's kernel (csrc/attention.cuh) reading q, k and v
+straight out of the product's output, the pixel keys as an always-attended
+prefix of the cond mask; then the o-projection + bias + x on the same tile,
+rounded once. `attn_block_plan` picks the products' tile widths and K splits
+from one CFG pair's shapes, never from the batch, and every sum has a fixed
+order: two runs are bitwise equal and an image's output does not depend on
+its batchmates. f32 keeps 64x64 FMA tiles for the products. C % 8 == 0 and
+head dims D % 8 == 0 up to 128. What bounds it, what was tried and what it
+measured: csrc/attn_block.cu's header; PERF.md has the device time per
+sub-kernel before and after this design.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from ._build import check_operands, check_rc, load_library, stream_handle
 from .attention import attention_core, check_head_dim, score_scale
+from .resblock import gemm_tiles
 
 
 class AttnBlockWeights(NamedTuple):
@@ -89,6 +105,34 @@ def attn_block_plain(
 attn_block_plain.launches = 0
 
 
+class AttnBlockPlan(NamedTuple):
+    """How the bf16 kernel runs its two products (see `attn_block_plan`)."""
+
+    bn_qkv: int  # tile width of the (B*S, 3C) q|k|v product (64 or 128)
+    splits_qkv: int  # its K splits
+    bn_o: int  # tile width of the o-projection
+    splits_o: int  # its K splits
+
+
+@functools.lru_cache(maxsize=None)
+def attn_block_plan(n: int, s_c: int, c: int, nhead: int, dtype: torch.dtype, n_sm: int) -> AttnBlockPlan:
+    """The bf16 kernel's tile widths and K splits for N pixel rows, S_cond
+    cond rows and width C, from the row counts of one CFG pair (two images)
+    and never from the batch, so an image's bits do not depend on its
+    batchmates: K1's rule (`resblock.gemm_tiles`) for the (2S, 3C) q|k|v
+    product and the (2N, C) o-projection, both over K = C. At the
+    flagship's levels on 132 SMs: (128, 1, 64, 1) at N 256 and
+    (128, 1, 64, 4) at N 64. f32 takes no plan (its FMA tiles)."""
+    if dtype != torch.bfloat16:
+        return AttnBlockPlan(0, 1, 0, 1)
+    return AttnBlockPlan(*gemm_tiles(2 * (n + s_c), 3 * c, c, n_sm), *gemm_tiles(2 * n, c, c, n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fused_attn_block(
     x: torch.Tensor,
     kv: torch.Tensor,
@@ -109,8 +153,8 @@ def fused_attn_block(
     b, hh, ww, c = x.shape
     n = hh * ww
     s_c = kv.shape[1]
-    if c % 64 or c % nhead:
-        raise ValueError(f"fused_attn_block: C={c} must be a multiple of 64 and of nhead={nhead}")
+    if c % 8 or c % nhead:
+        raise ValueError(f"fused_attn_block: C={c} must be a multiple of 8 and of nhead={nhead}")
     check_head_dim(c // nhead, "fused_attn_block")
     if kv.shape != (b, s_c, c) or kv.dtype != dt:
         raise ValueError(f"fused_attn_block: kv must be ({b}, S, {c}) {dt}, got {tuple(kv.shape)} {kv.dtype}")
@@ -122,19 +166,7 @@ def fused_attn_block(
     if cond_mask is not None and (cond_mask.shape != (b, s_c) or cond_mask.dtype != torch.bool):
         raise ValueError(f"fused_attn_block: cond_mask must be ({b}, {s_c}) bool")
     check_operands("fused_attn_block", x.device, {"x": x, "kv": kv, "cond_mask": cond_mask, **w._asdict()})
-
-    s = n + s_c
-    out = torch.empty_like(x)
-    xn, qb, att = (torch.empty((b * n, c), dtype=dt, device=x.device) for _ in range(3))
-    rows = torch.empty((b * s, c), dtype=dt, device=x.device)
-    kvb = torch.empty((b * s, 2 * c), dtype=dt, device=x.device)
-    rc = _library().paella_attn_block(
-        x.data_ptr(), kv.data_ptr(), None if cond_mask is None else cond_mask.data_ptr(),
-        w.wqkv.data_ptr(), w.bqkv.data_ptr(), w.wo.data_ptr(), w.bo.data_ptr(), out.data_ptr(),
-        xn.data_ptr(), rows.data_ptr(), qb.data_ptr(), kvb.data_ptr(), att.data_ptr(),
-        b, n, s_c, c, nhead, score_scale(c // nhead), int(dt == torch.bfloat16), stream_handle(x),
-    )
-    check_rc(rc, "fused_attn_block")
+    out = _launch(x, kv, w, nhead, cond_mask, attn_block_plan(n, s_c, c, nhead, dt, _sm_count(x.device)))
     fused_attn_block.launches += 1
     return out
 
@@ -142,10 +174,33 @@ def fused_attn_block(
 fused_attn_block.launches = 0
 
 
+def _launch(x, kv, w: AttnBlockWeights, nhead: int, cond_mask, plan: AttnBlockPlan) -> torch.Tensor:
+    """The kernel's launch on operands `fused_attn_block` has checked, tiled
+    as `plan` says (scripts/k6_tilings.py times other plans through it)."""
+    dt, dev = x.dtype, x.device
+    b, hh, ww, c = x.shape
+    n, s_c = hh * ww, kv.shape[1]
+    s = n + s_c
+    out = torch.empty_like(x)
+    empty = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+    rows, qkv, att = empty(b * s, c), empty(b * s, 3 * c), empty(b * n, c)
+    part_len = max(plan.splits_qkv * b * s * 3 * c if plan.splits_qkv > 1 else 0,
+                   plan.splits_o * b * n * c if plan.splits_o > 1 else 0)
+    part = empty(part_len, dtype=torch.float32) if part_len else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _library().paella_attn_block(
+        ptr(x), ptr(kv), ptr(cond_mask), ptr(w.wqkv), ptr(w.bqkv), ptr(w.wo), ptr(w.bo), ptr(out),
+        ptr(rows), ptr(qkv), ptr(att), ptr(part), b, n, s_c, c, nhead, score_scale(c // nhead),
+        int(dt == torch.bfloat16), plan.bn_qkv, plan.splits_qkv, plan.bn_o, plan.splits_o, stream_handle(x),
+    )
+    check_rc(rc, "fused_attn_block")
+    return out
+
+
 def _library() -> ctypes.CDLL:
     lib = load_library("attn_block")
     fn = lib.paella_attn_block
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

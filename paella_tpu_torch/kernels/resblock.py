@@ -209,7 +209,7 @@ def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
     passes the M of one CFG pair (two images), whatever the batch, so an
     image's sums do not depend on its batchmates. At the flagship's shapes on
     132 SMs: 1 at M 2048 x C 640, 2 at 512 x 1280, 8 at 128 x 1280."""
-    blocks = (c // 64) * -(-m // 64)
+    blocks = -(-c // 64) * -(-m // 64)
     k_tiles = 4 * c // bk
     s = 1
     while blocks * s < 2 * n_sm and k_tiles % (2 * s) == 0 and k_tiles // (2 * s) >= 4:
@@ -218,31 +218,40 @@ def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def wgmma_tiles(m: int, c: int, n_sm: int) -> tuple[int, int, int]:
-    """(fc1 tile width, fc2 tile width, fc2 K splits) of the bf16 float
-    mode's wgmma phases (128-row tiles, 64-deep K steps) for M rows. The
-    wrapper passes the M of one CFG pair, whatever the batch, as for
-    `fc2_splits`, so an image's sums do not depend on its batchmates.
-    - fc1 (N = 4C, no split: its epilogue needs whole sums): 128 wide where
-      that gives at least one tile per SM, else 64 (twice the tiles).
-    - fc2 (N = C): 128 wide where that gives at least n_sm / 2 tiles, else
-      64; then, while the grid still holds fewer than n_sm / 2 tiles, its
-      K = 4C is halved, each split keeping at least 4 K steps. On the card,
-      64-wide tiles without a split beat both 128-wide tiles with idle SMs
-      and a split (whose partials make a round trip through memory to the
-      reduce launch); a tile's ring fills its SM's shared memory, so one
-      tile runs per SM.
-    At the flagship's shapes on 132 SMs: (128, 128, 1) at M 2048 x C 640,
-    (128, 64, 1) at 512 x 1280, (64, 64, 4) at 128 x 1280."""
+def gemm_tiles(m: int, n: int, k: int, n_sm: int) -> tuple[int, int]:
+    """(tile width, K splits) of one (M, N) product over depth K on the
+    wgmma tile (csrc/gemm_sm90.cuh: 128-row tiles, 64-deep K steps), for
+    K1's and K6's bf16 products alike. 128 wide where N is a multiple of 128
+    and that gives at least n_sm / 2 tiles, else 64; then, while the grid
+    still holds fewer than n_sm / 2 tiles, K is halved, each split keeping
+    at least 4 whole K steps (none where K is not a multiple of 64: the
+    narrow widths). A tile's ring fills its SM's shared memory, so one tile
+    runs per SM: a 64-wide step costs ~0.7 of a 128-wide one, so 64 wins
+    where its twice as many tiles still fit one wave, and 128 where they
+    would not; a split pays only where the grid is short, because its
+    partials make a round trip through memory to the reduce launch (K6's
+    tiling sweep, scripts/k6_tilings.py). A product that cannot split (K1's
+    fc1, whose epilogue needs whole sums) takes the width alone."""
     m_tiles = -(-m // 128)
-    bn1 = 128 if m_tiles * (4 * c // 128) >= n_sm else 64
-    bn2 = 128 if c % 128 == 0 and m_tiles * (c // 128) >= n_sm // 2 else 64
-    tiles = m_tiles * (c // bn2)
-    k_steps = 4 * c // 64
+    bn = 128 if n % 128 == 0 and m_tiles * (n // 128) >= n_sm // 2 else 64
+    tiles = m_tiles * -(-n // bn)
+    k_steps = k // 64 if k % 64 == 0 else 0
     s = 1
     while tiles * s < n_sm // 2 and k_steps % (2 * s) == 0 and k_steps // (2 * s) >= 4:
         s *= 2
-    return bn1, bn2, s
+    return bn, s
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_tiles(m: int, c: int, n_sm: int) -> tuple[int, int, int]:
+    """(fc1 tile width, fc2 tile width, fc2 K splits) of the bf16 float
+    mode's wgmma phases for M rows, from `gemm_tiles`: fc1 (N = 4C) takes
+    its width only, fc2 (N = C, K = 4C) its width and splits. The wrapper
+    passes the M of one CFG pair, whatever the batch, as for `fc2_splits`,
+    so an image's sums do not depend on its batchmates. At the flagship's
+    shapes on 132 SMs: (128, 128, 1) at M 2048 x C 640, (128, 64, 1) at
+    512 x 1280, (64, 64, 4) at 128 x 1280."""
+    return gemm_tiles(m, 4 * c, c, n_sm)[0], *gemm_tiles(m, c, 4 * c, n_sm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,6 +266,15 @@ def grn_slots(b: int, hw: int, bm: int = 64) -> int:
     return max(min(m0 + bm - 1, m - 1) // hw - m0 // hw + 1 for m0 in range(0, m, bm))
 
 
+def tiles_per_image(hw: int, bm: int) -> int:
+    """fc1's M-tiles per image: 0 where tiles at absolute multiples of bm
+    rows cut every image at the same image-relative rows (hw a multiple of bm,
+    or bm of hw: the flagship's hw 1024, 256 and 64), else ceil(hw / bm)
+    tiles inside each image (hw 96 and 144 at 256x384 and 384x384 canvases),
+    so an image's GRN sums never depend on where it sits in the batch."""
+    return 0 if hw % bm == 0 or bm % hw == 0 else -(-hw // bm)
+
+
 class LaunchPlan(NamedTuple):
     """How the kernel tiles one call (see `launch_plan`)."""
 
@@ -265,19 +283,21 @@ class LaunchPlan(NamedTuple):
     bn2: int  # bf16 float mode: fc2 tile width (0 in the other modes)
     splits: int  # fc2 K splits
     slots: int  # GRN partial slots per fc1 M-tile
+    tiles_per_image: int  # fc1 M-tiles per image, or 0: absolute tiles
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(b: int, hw: int, c: int, mode: str, dtype: torch.dtype, n_sm: int) -> LaunchPlan:
     """The tiling of one call at batch b, hw pixels an image, width c. The
     tile widths and the split count come from one CFG pair's M = 2 hw and
-    never from b, so an image's bits do not depend on its batchmates; only
-    the partials buffer's slot count follows b."""
+    the fc1 row tiles from hw, never from b, so an image's bits do not
+    depend on its batchmates; only the partials buffer's slot count follows b."""
     if mode == "float" and dtype == torch.bfloat16:
-        bn1, bn2, splits = wgmma_tiles(2 * hw, c, n_sm)
-        return LaunchPlan(128, bn1, bn2, splits, grn_slots(b, hw, 128))
-    splits = fc2_splits(2 * hw, c, n_sm, 64 if mode == "w8a8" else 32)
-    return LaunchPlan(64, 0, 0, splits, grn_slots(b, hw, 64))
+        bm, (bn1, bn2, splits) = 128, wgmma_tiles(2 * hw, c, n_sm)
+    else:
+        bm, bn1, bn2, splits = 64, 0, 0, fc2_splits(2 * hw, c, n_sm, 64 if mode == "w8a8" else 32)
+    tpi = tiles_per_image(hw, bm)
+    return LaunchPlan(bm, bn1, bn2, splits, 1 if tpi else grn_slots(b, hw, bm), tpi)
 
 
 @functools.lru_cache(maxsize=None)
@@ -293,8 +313,9 @@ def _check_args(what: str, x, w: ResBlockWeights, film, skip) -> None:
         raise ValueError(f"{what}: dtype {dt} (kernel takes float32 or bfloat16)")
     b, hh, ww, c = x.shape
     cpg = 1 if skip is None else 2
-    if c % 64:
-        raise ValueError(f"{what}: C={c} must be a multiple of 64")
+    align = 8 if w.s1 is None else 64  # 16-byte rows; the int8 modes keep JAX's alignment
+    if c % align:
+        raise ValueError(f"{what}: C={c} must be a multiple of {align}")
     if w.dw.shape != (3, 3, cpg, c) or w.w1.shape != (4 * c, c) or w.w2.shape != (c, 4 * c):
         raise ValueError(
             f"{what}: weight shapes dw {tuple(w.dw.shape)}, w1 "
@@ -323,11 +344,12 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
     q8 = mode == MODES["w8a8"]
     m = b * hh * ww
     dev = x.device
-    bm, bn1, bn2, splits, slots = launch_plan(b, hh * ww, c, w.mode, dt, _sm_count(dev))
+    bm, bn1, bn2, splits, slots, tpi = launch_plan(b, hh * ww, c, w.mode, dt, _sm_count(dev))
     out = torch.empty_like(x)
     xn = torch.empty((m, c), dtype=torch.int8 if q8 else dt, device=dev)
     h = torch.empty((m, 4 * c), dtype=torch.float32 if q8 else dt, device=dev)
-    gx_part = torch.empty((-(-m // bm) * slots, 4 * c), dtype=torch.float32, device=dev)
+    tiles = b * tpi if tpi else -(-m // bm)
+    gx_part = torch.empty((tiles * slots, 4 * c), dtype=torch.float32, device=dev)
     scale = torch.empty((b, 4 * c), dtype=torch.float32, device=dev)
     part = torch.empty((splits, m, c), dtype=torch.float32, device=dev) if splits > 1 else None
     sx = torch.empty(m, dtype=torch.float32, device=dev) if q8 else None
@@ -340,7 +362,7 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
         ptr(x), ptr(skip), ptr(w.dw), ptr(w.dw_b), ptr(w.w1), ptr(w.b1), ptr(w.gamma),
         ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(w.s1), ptr(w.s2), ptr(out), ptr(xn), ptr(h),
         ptr(gx_part), ptr(scale), ptr(part), ptr(sx), ptr(hq), ptr(sh2),
-        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, bn1, bn2, stream_handle(x),
+        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, bn1, bn2, tpi, stream_handle(x),
     )
     check_rc(rc, "fused_resblock")
     return out
@@ -379,6 +401,6 @@ def _library() -> ctypes.CDLL:
     lib = load_library("resblock")
     fn = lib.paella_resblock
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -21,6 +21,8 @@ from jax.experimental.pallas import tpu as pltpu
 from paella_tpu.kernels.attn_block import fused_attn_block_stacked, pad_attn_weights
 from paella_tpu_torch.config import PaellaConfig
 from paella_tpu_torch.kernels.attention import attention_plain
+from paella_tpu_torch.kernels import attn_block as kblk
+from paella_tpu_torch.kernels import resblock as kres
 from paella_tpu_torch.kernels.attn_block import attn_block_plain, prepare_attn_block_weights
 from paella_tpu_torch.models import Paella
 from paella_tpu_torch.nn.blocks import AttnBlock
@@ -35,8 +37,10 @@ FLAGS = dict(attention_impl="pallas", attn_block_kernel=True)
 
 
 @pytest.mark.parametrize("with_mask", [False, True])
-@pytest.mark.parametrize("c,nhead,s_c", [(128, 4, 6), (640, 8, 9)])
+@pytest.mark.parametrize("c,nhead,s_c", [(128, 4, 6), (640, 8, 9), (96, 4, 7)])
 def test_attn_block_plain_matches_jax_kernel(c, nhead, s_c, with_mask):
+    """C 96 with 4 heads is head dim 24, a narrow width the CUDA kernel takes
+    (D % 8 == 0, padded to 32 in shared memory); JAX's tile_o must divide C."""
     b, hh = 2, 4
     rng = np.random.default_rng(c + with_mask)
     x = (rng.standard_normal((b, hh, hh, c)) * 0.5).astype(np.float32)
@@ -53,7 +57,7 @@ def test_attn_block_plain_matches_jax_kernel(c, nhead, s_c, with_mask):
     wqkv_p, bqkv_p, wo_p = pad_attn_weights(jnp.asarray(wqkv.T)[None], jnp.asarray(bqkv)[None], jnp.asarray(wo.T)[None], nhead)
     want = fused_attn_block_stacked(
         jnp.asarray(x), jnp.asarray(kv)[None], wqkv_p, bqkv_p, wo_p, jnp.asarray(bo)[None], 0, nhead,
-        cond_mask=None if mask is None else jnp.asarray(mask), head_chunk=2, tile_qkv=128, tile_o=128,
+        cond_mask=None if mask is None else jnp.asarray(mask), head_chunk=2, tile_qkv=128, tile_o=min(c, 128),
         interpret=True,
     )
     t = torch.from_numpy
@@ -144,3 +148,31 @@ def test_attn_block_routes_fixed_at_build():
         AttnBlock(128, 32, 4, kernel="flash")
     with pytest.raises(ValueError, match="attention_impl"):
         Paella(dataclasses.replace(ATTN_CFG, attention_impl="triton"))
+
+
+K6_PLANS = {  # (N, S_cond, C, heads): the bf16 plan on an H100's 132 SMs
+    (256, 72, 1280, 16): (128, 1, 64, 1),  # the flagship's level 1
+    (64, 72, 1280, 16): (128, 1, 64, 4),  # level 2: o has one 128-row tile
+    (96, 72, 1280, 16): (128, 1, 64, 2),  # level 2 of a 256x384 canvas
+    (81, 7, 1280, 16): (64, 1, 64, 2),  # chip_smoke.py's ragged case
+    (16, 9, 1280, 16): (64, 2, 64, 4),
+    (64, 9, 64, 4): (64, 1, 64, 1),  # K = 64: one step, no split
+    (16, 9, 96, 4): (64, 1, 64, 1),
+}
+
+
+@pytest.mark.parametrize("n,s_c,c,nhead", list(K6_PLANS))
+def test_attn_block_plan(n, s_c, c, nhead):
+    """K6's bf16 plan is a function of one CFG pair's shapes and the card,
+    never of the batch (the signature takes none): K1's rule
+    (`resblock.gemm_tiles`) for each product, pinned on an H100's 132 SMs.
+    Each product's K splits cover K = C in whole 64-deep steps."""
+    import inspect
+
+    assert "b" not in inspect.signature(kblk.attn_block_plan).parameters
+    plan = kblk.attn_block_plan(n, s_c, c, nhead, torch.bfloat16, 132)
+    assert plan == kblk.AttnBlockPlan(*K6_PLANS[n, s_c, c, nhead])
+    assert plan[:2] == kres.gemm_tiles(2 * (n + s_c), 3 * c, c, 132) and plan[2:] == kres.gemm_tiles(2 * n, c, c, 132)
+    for splits in (plan.splits_qkv, plan.splits_o):
+        assert splits == 1 or (c % (64 * splits) == 0 and c // (64 * splits) >= 4)
+    assert kblk.attn_block_plan(n, s_c, c, nhead, torch.float32, 132) == kblk.AttnBlockPlan(0, 1, 0, 1)

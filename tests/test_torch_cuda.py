@@ -283,9 +283,12 @@ def test_attention_kernel_takes_projection_halves(cuda):
 
 @pytest.mark.parametrize("with_mask", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4, 128, 4, 6), (2, 8, 640, 8, 9), (2, 16, 1280, 16, 72)])
+@pytest.mark.parametrize("shape", [(2, 4, 128, 4, 6), (2, 8, 640, 8, 9), (2, 16, 1280, 16, 72), (2, 8, 1280, 16, 72),
+                                   (2, 9, 1280, 16, 7), (2, 5, 96, 4, 9), (2, 6, 160, 4, 5), (2, 7, 576, 8, 11)])
 def test_attn_block_kernel_matches_plain(cuda, dtype, with_mask, shape):
-    """(B, HW, C, heads, S_cond): K6 against its plain version; f32 within
+    """(B, HW, C, heads, S_cond): K6 against its plain version at the
+    flagship's levels 1 and 2, a ragged N (81, not a multiple of 64) with an
+    odd S_cond, and the narrow head dims 24, 40 and 72; f32 within
     1e-4 (products of depth C in another order), bf16 within 2e-2 of the
     largest output (q, k, v and a are rounded to bf16, so a value on a
     rounding boundary may round the other way, as in K1)."""
@@ -343,3 +346,153 @@ def test_codebook_lookup_kernel_matches_plain(cuda, m, k):
     got, want = fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb)
     assert got.dtype == torch.int32 and got.shape == (m,)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def sampler_batch(pool_cond, pool_uncond, b):
+    """The sampler's CFG batch of b requests: [cond_0..cond_b-1 ;
+    uncond_0..uncond_b-1] (sampling/sampler.py), so request 0's uncond image
+    sits at index b."""
+    return torch.cat([pool_cond[:b], pool_uncond[:b]])
+
+
+@pytest.mark.parametrize("mode,dtype,c", [("float", torch.bfloat16, 1280), ("float", torch.float32, 128),
+                                          ("int8", torch.bfloat16, 128), ("w8a8", torch.bfloat16, 128)])
+@pytest.mark.parametrize("hw", [(8, 12), (12, 12)])
+def test_resblock_uncond_image_does_not_depend_on_batch(cuda, mode, dtype, c, hw):
+    """K1 and K1b at hw 96 and 144 (level 2 of 256x384 and 384x384
+    canvases, whose fc1 tiles do not divide the image): request 0's uncond
+    image gets the same bits at batch 1, 2 and 4, as a server's micro-batch
+    needs."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    hh, ww = hw
+    w = bf16_resblock(c, g) if dtype == torch.bfloat16 else None
+    if mode != "float":
+        w = int8_resblock(c, 1, dtype, g, mode == "w8a8")
+    elif dtype == torch.float32:
+        r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
+        w = prepare_resblock_weights(
+            r(c, 1, 3, 3, std=0.2), r(c, std=0.1), r(4 * c, c, std=c**-0.5), r(4 * c, std=0.1), r(4 * c, std=0.2),
+            r(4 * c, std=0.2), r(c, 4 * c, std=(4 * c) ** -0.5), r(c, std=0.1), dtype,
+        )
+    xs = [torch.randn(4, hh, ww, c, generator=g, device=cuda).to(dtype) for _ in range(2)]
+    fs = [(torch.randn(4, 2 * c, generator=g, device=cuda) * 0.2).to(dtype) for _ in range(2)]
+    outs = [fused_resblock(sampler_batch(*xs, b), w, film=sampler_batch(*fs, b))[b] for b in (1, 2, 4)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_attn_block_uncond_image_does_not_depend_on_batch(cuda):
+    """K6 at hw 96 (level 2 of a 256x384 canvas) with the CFG cond mask:
+    request 0's uncond image gets the same bits at batch 1, 2 and 4."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
+    c = 1280
+    w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05),
+                                   torch.bfloat16)
+    xs = [r(4, 8, 12, c, std=1.0).to(torch.bfloat16) for _ in range(2)]
+    kvs = [r(4, 72, c, std=1.0).to(torch.bfloat16) for _ in range(2)]
+    masks = [torch.ones(4, 72, dtype=torch.bool, device=cuda), torch.rand(4, 72, generator=g, device=cuda) < 0.3]
+    outs = [fused_attn_block(sampler_batch(*xs, b), sampler_batch(*kvs, b), w, 16, sampler_batch(*masks, b))[b]
+            for b in (1, 2, 4)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (2, 6, 10, 96), (1, 5, 7, 40)])
+def test_resblock_narrow_widths_match_plain(cuda, dtype, with_skip, shape):
+    """K1 at widths that are multiples of 8 but not of 64 (PaellaConfig.tiny()'s
+    32): a ragged K tile, a ragged column tile in both products."""
+    b, hh, ww, c = shape
+    g = torch.Generator(device=cuda).manual_seed(23)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
+    w = prepare_resblock_weights(
+        r(c, 2 if with_skip else 1, 3, 3, std=0.2), r(c, std=0.1), r(4 * c, c, std=c**-0.5),
+        r(4 * c, std=0.1), r(4 * c, std=0.2), r(4 * c, std=0.2), r(c, 4 * c, std=(4 * c) ** -0.5),
+        r(c, std=0.1), dtype,
+    )
+    x = r(b, hh, ww, c, std=1.0).to(dtype)
+    skip = r(b, hh, ww, c, std=1.0).to(dtype) if with_skip else None
+    film = r(b, 2 * c, std=0.2).to(dtype)
+    check_resblock(x, w, film, skip)
+    assert torch.equal(fused_resblock(x, w, film=film, skip=skip), fused_resblock(x, w, film=film, skip=skip))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [24, 40, 72])
+def test_attention_narrow_head_dims_match_plain(cuda, dtype, d):
+    """K5 at head dims that are multiples of 8 but not of 16: bf16 pads the
+    head to the next multiple of 16 in shared memory only."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    b, n, s, h = 2, 70, 133, 3
+    q, k, v = (torch.randn(b, length, h, d, generator=g, device=cuda).to(dtype) for length in (n, s, s))
+    mask = torch.rand(b, s, generator=g, device=cuda) < 0.6
+    mask[:, 0] = True
+    got = fused_attention(q, k, v, mask)
+    close_in_dtype(got, attention_plain(q, k, v, mask))
+    assert torch.equal(fused_attention(q, k, v, mask), got)
+
+
+@pytest.mark.parametrize("hw,s_c", [((16, 16), 72), ((8, 8), 72), ((9, 9), 7), ((4, 4), 9)])
+def test_attn_block_every_plan_matches_plain(cuda, hw, s_c):
+    """K6's bf16 products at the C 1280 shapes where `attn_block_plan`
+    picks each of its tilings on an H100's 132 SMs (q|k|v 128 wide unsplit
+    or 64 wide split in 2, o 64 wide unsplit or split in 2 or 4; pinned by
+    tests/test_torch_attn_block.py::test_attn_block_plan), against the plain
+    version, masked, and bitwise repeatable."""
+    c = 1280
+    g = torch.Generator(device=cuda).manual_seed(25)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
+    w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05),
+                                   torch.bfloat16)
+    x, kv = r(2, *hw, c, std=1.0).to(torch.bfloat16), r(2, s_c, c, std=1.0).to(torch.bfloat16)
+    mask = torch.rand(2, s_c, generator=g, device=cuda) < 0.7
+    mask[:, 0] = True
+    got = fused_attn_block(x, kv, w, 16, mask)
+    want = attn_block_plain(x, kv, w, 16, mask)
+    assert (got.float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
+    assert torch.equal(fused_attn_block(x, kv, w, 16, mask), got)
+
+
+# K5's outputs on seeded numpy inputs, as SHA-256 digests of their bytes,
+# recorded on an H100 80GB HBM3 from the kernel as it stood before its move
+# into csrc/attention.cuh (key prefix, padded heads): any card and torch
+# version draws the same inputs
+K5_CASES = {  # name: (B, N, S, H, D, dtype, masked)
+    "level1_bf16": (2, 256, 328, 16, 80, torch.bfloat16, True),
+    "level2_bf16": (2, 64, 136, 16, 80, torch.bfloat16, True),
+    "streamed_bf16": (2, 256, 1036, 16, 80, torch.bfloat16, True),
+    "level2_f32": (2, 64, 136, 16, 80, torch.float32, True),
+    "ragged_bf16": (1, 200, 130, 2, 64, torch.bfloat16, False),
+}
+K5_DIGESTS = {
+    "level1_bf16": "1664802a69fac1c1df6fc959652e4702845aeb33f5e54b25883254cb9ce83506",
+    "level2_bf16": "4998ba47f87d85ca83e9ed609b348cf7d2b5691aab49efbe7f5ff759c8b75a22",
+    "streamed_bf16": "6369d7d908496cad8ed91376da01458a9579af7fd2993f1a4e20b65b1e6172a1",
+    "level2_f32": "d41f202d9e2a74fdfec7198f6b0af30c73c238f4f67b6020a509f62421a305b6",
+    "ragged_bf16": "57d178f2ab1a25e111f294301a0c207011a8f13d66887b164151ed912d71a830",
+}
+
+
+def k5_digests() -> dict:
+    import hashlib
+
+    out = {}
+    for i, (name, (b, n, s, h, d, dtype, masked)) in enumerate(K5_CASES.items()):
+        rng = np.random.default_rng(100 + i)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, ln, h, d)).astype(np.float32)).to(dtype).cuda()
+                   for ln in (n, s, s))
+        mask = None
+        if masked:
+            m = rng.uniform(size=(b, s)) < 0.7
+            m[:, 0] = True
+            mask = torch.from_numpy(m).cuda()
+        o = fused_attention(q, k, v, mask).cpu()
+        raw = o.view(torch.int16) if dtype == torch.bfloat16 else o.view(torch.int32)
+        out[name] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def test_attention_outputs_keep_their_bits(cuda):
+    """K5 (D 80, the flagship's, and D 64) gives the same bits as before its
+    kernel moved into attention.cuh and took a key prefix and padded heads."""
+    assert k5_digests() == K5_DIGESTS

@@ -133,6 +133,7 @@ def test_wgmma_tile_policy():
     for m, c in ((2048, 640), (512, 1280), (128, 1280), (128, 128), (70, 64)):
         bn1, bn2, s = kres.wgmma_tiles(m, c, 132)
         assert (4 * c) % bn1 == 0 and c % bn2 == 0 and (4 * c // s) % 64 == 0
+        assert (bn1, bn2, s) == (kres.gemm_tiles(m, 4 * c, c, 132)[0], *kres.gemm_tiles(m, c, 4 * c, 132))
 
 
 def test_grn_slots_of_128_row_tiles():
@@ -153,3 +154,88 @@ def test_launch_plan_does_not_depend_on_batch(mode, dtype):
         two, eight = (kres.launch_plan(b, hw, c, mode, dtype, 132) for b in (2, 8))
         assert two[:4] == eight[:4] and two.slots == eight.slots
         assert two.bm == (128 if (mode, dtype) == ("float", torch.bfloat16) else 64)
+
+
+@pytest.mark.parametrize("mode,dtype", [("float", torch.bfloat16), ("float", torch.float32), ("int8", torch.bfloat16)])
+@pytest.mark.parametrize("hw", [64, 96, 144, 256])
+def test_grn_partition_does_not_depend_on_batch_position(mode, dtype, hw):
+    """An image's GRN sums are cut into the same image-relative rows wherever
+    it sits in the batch: request 0's uncond image at index B of the
+    sampler's batch [cond_0..cond_B-1 ; uncond_0..uncond_B-1] at B = 1, 2 and
+    4, and the cond image 0. What the kernel receives, `launch_plan`'s tile
+    rows bm and tiles per image, is the same at every B; hw 96 and 144
+    (level 2 of 256x384 and 384x384 canvases) take ceil(hw / bm) tiles per
+    image, where absolute tiles would cut the image differently at each B.
+    Inside a tile fc1 sums 32-row segments, which start on image rows that
+    are multiples of 32 wherever a tile holds several images."""
+
+    def cuts(plan, image):  # image-relative rows where fc1's M-tiles cut it (csrc/resblock.cu::tile_rows)
+        if plan.tiles_per_image:
+            return [t * plan.bm for t in range(1, plan.tiles_per_image)]
+        return [m - image * hw for m in range(0, (image + 1) * hw, plan.bm) if m > image * hw]
+
+    plans = [kres.launch_plan(2 * b, hw, 128, mode, dtype, 132) for b in (1, 2, 4)]
+    assert len({p._replace(slots=0) for p in plans}) == 1
+    plan = plans[0]
+    bm = 128 if (mode, dtype) == ("float", torch.bfloat16) else 64
+    assert (plan.bm, plan.tiles_per_image) == (bm, {96: -(-96 // bm), 144: -(-144 // bm)}.get(hw, 0))
+    for b, p in zip((1, 2, 4), plans):
+        assert cuts(p, b) == cuts(plans[0], 1) and cuts(p, 0) == cuts(plans[0], 0)
+    if plan.tiles_per_image:
+        assert (plan.tiles_per_image - 1) * bm < hw  # no tile past the image's rows
+        absolute = plan._replace(tiles_per_image=0)
+        assert cuts(absolute, 1) != cuts(absolute, 2)
+    else:
+        assert hw % bm == 0 or (bm % hw == 0 and hw % 32 == 0)
+
+
+def test_narrow_widths_plan():
+    """C % 8 widths (PaellaConfig.tiny()'s 32): no fc2 split where 4C is not
+    a whole number of 64-deep steps, and fc2's grid counts a ragged column
+    tile."""
+    assert kres.wgmma_tiles(2 * 256, 32, 132)[2] == 1
+    assert kres.wgmma_tiles(2 * 64, 40, 132)[2] == 1  # 4C = 160: 2.5 steps
+    assert kres.fc2_splits(128, 96, 132) >= 1
+    for c in (32, 40, 96):
+        bn1, bn2, s = kres.wgmma_tiles(128, c, 132)
+        assert s == 1 or (4 * c // s) % 64 == 0
+
+
+def test_xla_route_differs_from_kernel_by_a_bounded_gap():
+    """Where JAX's VMEM gate refuses the fused kernel, JAX runs its XLA
+    ResBlock + TimestepBlock modules and the port runs K1: a difference by
+    design (ROADMAP §C). fuse_mode refuses the level-0 up-path skip block of
+    a 256x384 canvas (hw 1536, C 640, bf16) and every level-0 block at
+    384x384 (hw 2304), while the port plans a K1 launch for each. At a small
+    bf16 shape the two routes, on the same weights, differ (they round at
+    other points) by at most 3% of the largest output."""
+    from paella_tpu.kernels.resblock import fuse_mode
+    from paella_tpu.nn.blocks import ResBlock as JaxResBlock
+    from paella_tpu.nn.blocks import TimestepBlock as JaxTimestepBlock
+
+    for shape, skip in (((2, 32, 48, 640), True), ((2, 48, 48, 640), False), ((2, 48, 48, 640), True)):
+        assert fuse_mode(shape, jnp.bfloat16, 640, 3, with_skip=skip) is None
+        b, hh, ww, c = shape
+        assert kres.launch_plan(b, hh * ww, c, "float", torch.bfloat16, 132).bn1 in (64, 128)
+    assert fuse_mode((2, 32, 32, 640), jnp.bfloat16, 640, 3, with_skip=True) == "batch"  # the 256^2 flagship fuses
+
+    a = make_inputs(5, hw=8, c=128)
+    c, c_r = 128, 16
+    rng = np.random.default_rng(6)
+    r_embed = rng.standard_normal((2, c_r)).astype(np.float32)
+    wm, bm = (rng.standard_normal((c_r, 2 * c)) * 0.1).astype(np.float32), (rng.standard_normal(2 * c) * 0.1).astype(np.float32)
+    params = {
+        "depthwise": {"kernel": a["dw_k"], "bias": a["dw_b"]},
+        "channelwise": {"fc1": {"kernel": a["w1"], "bias": a["b1"]}, "grn": {"gamma": a["gamma"], "beta": a["beta"]},
+                        "fc2": {"kernel": a["w2"], "bias": a["b2"]}},
+    }
+    x = jnp.asarray(a["x"]).astype(jnp.bfloat16)
+    h = JaxResBlock(c, dtype=jnp.bfloat16).apply({"params": params}, x)
+    want = JaxTimestepBlock(c, c_r, dtype=jnp.bfloat16).apply({"params": {"mapper": {"kernel": wm, "bias": bm}}},
+                                                             h, jnp.asarray(r_embed))
+    want = np.asarray(want.astype(jnp.float32))
+    t = torch.from_numpy
+    film = torch.nn.functional.linear(t(r_embed).bfloat16(), t(wm.T.copy()).bfloat16(), t(bm).bfloat16())
+    got = fused_resblock(t(a["x"]).bfloat16(), port_weights(a, torch.bfloat16), film=film).float().numpy()
+    gap = np.abs(got - want).max()
+    assert 0 < gap <= 0.03 * np.abs(want).max(), (gap, np.abs(want).max())
