@@ -29,8 +29,10 @@ limit):
                reweight, each with its launch counts, output checks and p50
   8. small     PaellaConfig.tiny() in f32 (C 32/64/64, head dim 16) on the
                card against the same weights on the CPU (plain versions), in
-               the default and in the attention config, and the tiny codec,
-               encoder included
+               the default and in the attention config, two variants in the
+               attention config at widths the kernels take since C3's repair
+               (C 36/60/60 with head dim 15; C 32/320/320 with head dim 160),
+               and the tiny codec, encoder included
   9. K5, K6    fused attention core and fused attention block against their
                plain versions at the flagship's level-1 and level-2 shapes,
                bf16 and f32, and two runs bitwise equal; K5 in turns with
@@ -53,7 +55,11 @@ limit):
                quant.quantize_paella_int8 does), weight-only and W8A8, at the
                four K1 shapes in bf16 (weight-only also f32 at one): against
                its plain version, two runs bitwise equal, an image's output
-               equal at batch 2 and 8, and timed beside the float K1
+               equal at batch 2 and 8, and timed beside the float K1; per
+               bf16 shape its device time per sub-kernel (torch.profiler), the
+               two products' TOP/s beside torch._int_mm's (W8A8) or
+               torch.matmul's (weight-only, on the codes widened once, as a
+               yardstick only), and the host's time to enqueue a call
  13. int8 e2e  the flagship with every ResBlock quantized
                (quantize_paella_int8 over fuse_eligible_levels, include_first),
                weight-only and W8A8: one CFG forward's launch counts (56 K1b,
@@ -64,7 +70,7 @@ limit):
                pipeline; the W8A8 quality proxies' rows
 Then a JSON line of the kernels (each with its time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time; K1, K5 and K6 also with their device time alone, `device_ms`, null
+time; K1, K1b, K5 and K6 also with their device time alone, `device_ms`, null
 where torch.profiler traced nothing), the card's name and power limit, and, last, {"ok": true, "device":
 {...}}. Any failed check raises; without a CUDA device the script exits
 non-zero and prints no result.
@@ -332,9 +338,10 @@ def group_kernels(kernels: dict, groups) -> dict:
     return out
 
 
-# K1's sub-kernels by name (csrc/resblock.cu), in launch order
+# K1's and K1b's sub-kernels by name (csrc/resblock.cu), in launch order
 K1_PHASES = [("dw+LN", ("dw_ln_kernel",)), ("fc1", ("fc1_",)), ("GRN scale", ("grn_scale_kernel",)),
-             ("GRN apply", ("grn_apply_kernel",)), ("fc2 reduce", ("fc2_reduce_kernel",)), ("fc2", ("fc2_",))]
+             ("GRN apply", ("grn_apply_kernel",)), ("requant", ("requant_kernel",)),
+             ("fc2 reduce", ("fc2_reduce_kernel",)), ("fc2", ("fc2_",))]
 # a generation's kernels by owner (K6 before K5: block_attention_kernel)
 GENERATION_GROUPS = [
     ("K1", ("dw_ln_kernel", "fc1_", "grn_scale_kernel", "grn_apply_kernel", "fc2_", "requant_kernel")),
@@ -347,15 +354,20 @@ GENERATION_GROUPS = [
 
 
 def k1_split(x, w, film, skip, tag: str) -> dict:
-    """K1's device time per sub-kernel (torch.profiler, 10 calls), its two
-    products' rate, and torch.matmul of the same two bf16 products as a
-    printed yardstick (not a library_ms: no one PyTorch call is a ResBlock)."""
+    """K1's (or, for int8 weights, K1b's) device time per sub-kernel
+    (torch.profiler, 10 calls), its two products' rate, and one PyTorch call
+    of each product as a printed yardstick (not a library_ms: no one PyTorch
+    call is a ResBlock): torch.matmul of the bf16 products (weight-only: of
+    the codes widened to bf16 once, outside the timing), torch._int_mm of
+    the s8 products (W8A8)."""
     import torch
 
     from paella_tpu_torch.kernels.resblock import fused_resblock
 
     b, hh, ww, c = x.shape
     m = b * hh * ww
+    mode = w.mode
+    label = "K1" if mode == "float" else f"K1b {mode}"
     call = lambda: fused_resblock(x, w, film=film, skip=skip)  # noqa: E731
     split = group_kernels(profile_kernels(call, runs=10)[0], K1_PHASES)
     parts = ", ".join(f"{k} {us:.2f} ({n:g})" for k, (us, n) in split.items() if n)
@@ -363,24 +375,35 @@ def k1_split(x, w, film, skip, tag: str) -> dict:
     traced = bool(parts)  # else profile_kernels said so: no device time, and no rates
     dev = sum(us for us, _ in split.values()) if traced else None
     print(
-        f"[K1] ({b},{hh},{ww},{c}) skip={skip is not None} bf16 per sub-kernel, device µs per call (launches): "
+        f"[{label}] ({b},{hh},{ww},{c}) skip={skip is not None} bf16 per sub-kernel, device µs per call (launches): "
         f"{parts or 'not traced'}; all {us_text(dev)} µs on the device, {host:.2f} µs on the host to enqueue a call ({tag})"
     )
     ops = 8 * m * c * c  # each product: 2 M C 4C
-    xn = torch.randn(m, c, device="cuda").to(torch.bfloat16)
-    h = torch.randn(m, 4 * c, device="cuda").to(torch.bfloat16)
-    mm1 = cuda_time_ms(lambda: xn @ w.w1.t())
-    mm2 = cuda_time_ms(lambda: h @ w.w2.t())
+    w1, w2 = w.w1[:, :c], w.w2[:, : 4 * c]
+    if mode == "w8a8":
+        xn = torch.randint(-127, 128, (m, c), device="cuda", dtype=torch.int8)
+        h = torch.randint(-127, 128, (m, 4 * c), device="cuda", dtype=torch.int8)
+        mm1 = cuda_time_ms(lambda: torch._int_mm(xn, w1.t()))
+        mm2 = cuda_time_ms(lambda: torch._int_mm(h, w2.t()))
+        unit, yard = "TOP/s", "torch._int_mm"
+    else:
+        xn = torch.randn(m, c, device="cuda").to(torch.bfloat16)
+        h = torch.randn(m, 4 * c, device="cuda").to(torch.bfloat16)
+        w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+        mm1 = cuda_time_ms(lambda: xn @ w1.t())
+        mm2 = cuda_time_ms(lambda: h @ w2.t())
+        unit, yard = "TFLOP/s", "torch.matmul"
     fc1_us, fc2_us = (split["fc1"][0], split["fc2"][0] + split["fc2 reduce"][0]) if traced else (None, None)
     rate = lambda us: None if us is None else ops / us / 1e6  # noqa: E731
-    text = lambda us: "not traced" if us is None else f"{us:.2f} µs = {rate(us):.1f} TFLOP/s"  # noqa: E731
+    text = lambda us: "not traced" if us is None else f"{us:.2f} µs = {rate(us):.1f} {unit}"  # noqa: E731
     print(
-        f"[K1] ({b},{hh},{ww},{c}) products, {ops / 1e9:.2f} GOP each: fc1 {text(fc1_us)}, fc2 (+ reduce) "
-        f"{text(fc2_us)}; yardstick torch.matmul {mm1 * 1e3:.2f} µs = {ops / mm1 / 1e9:.1f} and {mm2 * 1e3:.2f} µs = "
-        f"{ops / mm2 / 1e9:.1f} TFLOP/s ({tag})"
+        f"[{label}] ({b},{hh},{ww},{c}) products, {ops / 1e9:.2f} GOP each: fc1 {text(fc1_us)}, fc2 (+ reduce) "
+        f"{text(fc2_us)}; yardstick {yard} {mm1 * 1e3:.2f} µs = {ops / mm1 / 1e9:.1f} and {mm2 * 1e3:.2f} µs = "
+        f"{ops / mm2 / 1e9:.1f} {unit} ({tag})"
     )
     return {"sub_kernels_us": {k: v[0] for k, v in split.items() if v[1]}, "device_us": dev, "host_us": host,
-            "fc1_tflops": rate(fc1_us), "fc2_tflops": rate(fc2_us), "matmul_tflops": [ops / mm1 / 1e9, ops / mm2 / 1e9]}
+            "fc1_rate": rate(fc1_us), "fc2_rate": rate(fc2_us), "yardstick_rate": [ops / mm1 / 1e9, ops / mm2 / 1e9],
+            "rate_unit": unit}
 
 
 def phase_k1(tag: str) -> dict:
@@ -794,11 +817,20 @@ def phase_pipeline(tag: str) -> dict:
     return result
 
 
+# PaellaConfig.tiny() variants at widths the kernels take since C3's repair:
+# C and head dims not multiples of 8, and heads wider than 128
+TINY_VARIANTS = {
+    "odd widths": dict(c_hidden=(36, 60, 60), nhead=(-1, 4, 4)),  # head dim 15
+    "wide heads": dict(c_hidden=(32, 320, 320), nhead=(-1, 2, 2)),  # head dim 160
+}
+
+
 def phase_small_reference(tag: str) -> None:
     """PaellaConfig.tiny() in f32 on the card (kernels; K1 at C 32, K5 and K6
     at head dim 16) against the same weights on the CPU (plain versions), in
-    the default and in the attention config: features, tokens; then the tiny
-    codec: image, encoder and encode."""
+    the default and in the attention config, and its two TINY_VARIANTS in
+    the attention config: features, tokens; then the tiny codec: image,
+    encoder and encode."""
     import torch
 
     from paella_tpu_torch.codec import VQModel
@@ -807,6 +839,8 @@ def phase_small_reference(tag: str) -> None:
     for name, flags in (("default", {}), ("attention", ATTN_FLAGS)):
         cfg = dataclasses.replace(PaellaConfig.tiny(), **flags)
         t_cpu = small_model_against_cpu(cfg, name, tag)
+    for name, widths in TINY_VARIANTS.items():
+        small_model_against_cpu(dataclasses.replace(PaellaConfig.tiny(), **ATTN_FLAGS, **widths), f"attention, {name}", tag)
     gen = torch.Generator().manual_seed(3)
     g = torch.Generator().manual_seed(5)
     vcfg = dataclasses.replace(VQConfig.tiny(), codebook_size=cfg.num_labels)
@@ -876,8 +910,8 @@ def small_model_against_cpu(cfg, name: str, tag: str):
     check(ferr <= 1e-3, f"tiny {name} model features differ by {ferr}")
     check(agree >= 0.95, f"tiny {name} model tokens agree {agree} < 0.95")
     check(launches["fused_resblock"] > 0, f"tiny {name} model ran no K1")
-    if name == "attention":
-        check(launches["fused_attention"] > 0 and launches["fused_attn_block"] > 0, "tiny attention model ran no K5 or K6")
+    if cfg.attention_impl == "pallas":
+        check(launches["fused_attention"] > 0 and launches["fused_attn_block"] > 0, f"tiny {name} model ran no K5 or K6")
     return t_cpu
 
 
@@ -1096,7 +1130,8 @@ def phase_k6(tag: str) -> dict:
         cmask[:, 0] = True
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *shape, std: torch.randn(*shape, generator=gen, device="cuda") * std  # noqa: E731
-            w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), dtype)
+            w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05),
+                                           dtype, h)
             x = r(b, side, side, c, std=1.0).to(dtype)
             kv = r(b, s_c, c, std=1.0).to(dtype)
             got = fused_attn_block(x, kv, w, h, cmask)
@@ -1335,14 +1370,15 @@ def phase_serve(tag: str) -> dict:
 
 def phase_k1b(tag: str) -> dict:
     """K1b, both int8 modes, at the flagship's ResBlock shapes: against its
-    plain version, run twice, at batch 2 and 8, and timed beside the float
-    K1 on float weights of the same shape."""
+    plain version, run twice, at batch 2 and 8, timed beside the float K1 on
+    float weights of the same shape, and in bf16 its device time per
+    sub-kernel, products' rate and host time (k1_split)."""
     import torch
 
     from paella_tpu_torch.kernels.resblock import fused_resblock, resblock_plain
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    result = {"max_abs_err": 0.0, "modes": {}}
+    result = {"max_abs_err": 0.0, "modes": {}, "shapes": {}}
     for b, hh, ww, c, with_skip in RESBLOCK_SHAPES:
         cpg = 2 if with_skip else 1
         cases = [("int8", torch.bfloat16), ("w8a8", torch.bfloat16)]
@@ -1387,9 +1423,12 @@ def phase_k1b(tag: str) -> dict:
             check(invariant, f"K1b {mode}: an image's output depends on its batchmates")
             if dtype == torch.bfloat16:
                 result["max_abs_err"] = max(result["max_abs_err"], err)
+                split = k1_split(x, w, film, skip, tag)
+                result["shapes"].setdefault(mode, {})[f"({b},{hh},{ww},{c}) skip={with_skip}"] = {
+                    "ms": ms, "plain_ms": plain_ms, "float_k1_ms": float_ms, "equal_share": equal, **bd, **split}
                 if (b, hh, ww, c, with_skip) == K1_SHAPE:
                     result["modes"][mode] = {"ms": ms, "plain_ms": plain_ms, "float_k1_ms": float_ms,
-                                             "equal_share": equal, **bd}
+                                             "equal_share": equal, "device_ms": ms_of(split["device_us"]), **bd}
     result.update(result["modes"]["w8a8"])
     return result
 
@@ -1648,7 +1687,7 @@ def main() -> int:
               counts=["fused_resblock[float]"], device_ms=k1["device_ms"]),
         entry("fused_resblock (int8 modes)", "resblock.cu", "paella_tpu/kernels/resblock.py:316 (int8 modes)", k1b,
               "x (2,16,16,1280) bf16 + FiLM, W8A8 (both modes under 'modes')",
-              counts=["fused_resblock[int8]", "fused_resblock[w8a8]"], modes=k1b["modes"]),
+              counts=["fused_resblock[int8]", "fused_resblock[w8a8]"], device_ms=k1b["device_ms"], modes=k1b["modes"]),
         entry("fused_head_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:151", k2,
               "feat (1,64,64,256) x2, W_out (8192,256) bf16"),
         entry("gumbel_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:224", k3, "logits (1,64,64,8192) bf16"),
@@ -1666,7 +1705,7 @@ def main() -> int:
         "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
         "serve_batch_pixel_share_256x384": served["batch_pixel_share_256x384"],
-        "k1_shapes": k1["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
+        "k1_shapes": k1["shapes"], "k1b_shapes": k1b["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
         "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"],
     }))
     print(tag)

@@ -13,8 +13,10 @@
 // kernel holds one (batch, head)'s whole problem in VMEM; here one block of
 // 1-8 warps takes a query tile of one (batch, head): 16 query rows a warp,
 // the key tiles split among the warps that share query rows. Head dims
-// D % 8 == 0 up to 128; bf16 zero-pads a head to the next multiple of 16 in
-// shared memory only (D 80, the flagship's, is not padded).
+// D % 8 == 0 (kernels/attention.py pads others); bf16 zero-pads a head to
+// the next multiple of 16 in shared memory only (D 80, the flagship's, is not
+// padded); heads wider than 128 split their output columns among blocks
+// (attention.cuh).
 //
 // What bounds it on an H100: at the flagship's shapes (B 2, H 16, D 80; N 256,
 // S 328 at level 1; N 64, S 136 at level 2) it is 0.86 and 0.09 GFLOP over
@@ -62,7 +64,10 @@
 // C interface for ctypes. q (B,N,H,D), k, v (B,S,H,D) with contiguous (H,D)
 // rows ldq, ldk, ldv elements apart (a multiple of 8 bf16 or 4 f32 values);
 // out (B,N,H,D) contiguous; mask (B,S) bytes (1 = attend) or null. Pointers
-// 16-byte aligned. D % 8 == 0, D <= 128, S >= 1. scale = D^-1/2 in f32.
+// 16-byte aligned. D % 8 == 0, S >= 1. scale = D^-1/2 of the true head dim
+// in f32 (D may be that dim padded with zero columns). Returns
+// cudaErrorInvalidValue where even the smallest tiles of a head dim this wide
+// exceed shared memory (D over ~1100 in f32, ~2200 in bf16).
 // Returns a cudaError_t.
 extern "C" int paella_attention(const void* q, const void* k, const void* v, const void* mask,
                                 void* out, int B, int N, int S, int H, int D, int ldq, int ldk,

@@ -17,10 +17,20 @@
 // passes prefix 0 and its (B, S) mask; K6 passes N, its pixel rows, and the
 // (B, S_cond) cond mask, so no (B, S) mask is built.
 //
-// Head dims: D % 8 == 0 up to 128. In bf16 a head is zero-padded to the next
-// multiple of 16 in shared memory only (the m16n8k16 k-step): the padded q
-// and k columns add zero to the scores, and the padded output columns are
-// never stored. f32 runs FMA over D itself.
+// Head dims: any D % 8 == 0 (the wrappers pad other head dims to the next
+// multiple of 8 with zeros, passing the true head dim's scale). In bf16 a
+// head is zero-padded to the next multiple of 16 in shared memory only (the
+// m16n8k16 k-step): the padded q and k columns add zero to the scores, and
+// the padded output columns are never stored. f32 runs FMA over D itself.
+// Up to kAttnMaxD (128) a warp keeps its 16 x D outputs, and in bf16 its Q
+// fragments, in registers. A wider head (the kWide variant) splits the
+// output columns into 128-wide chunks, one per block (a grid dimension):
+// each block takes the scores over the whole D from shared memory, 16 head
+// dims a k-step, with the same instructions in every chunk, so every chunk
+// normalises the same p; it keeps only its chunk of each V tile, its key
+// tiles hold 16 keys, so that the K tiles of a wide head fit shared memory
+// (up to D ~1100 in f32, ~2200 in bf16), and its key tiles are not split
+// among warps.
 #pragma once
 
 #include <math.h>
@@ -29,14 +39,15 @@
 
 namespace paella {
 
-constexpr int kAttnMaxD = 128;
-constexpr int kTileKeys = 64;                  // keys per K / V tile
-constexpr int kKeyTiles = kTileKeys / 8;       // n8 tiles of the scores per key tile
+constexpr int kAttnMaxD = 128;                 // output columns a warp keeps in registers
 constexpr float kMaskedScore = -1e9f;          // nn/attention.py's mask fill
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kResidentBytes = 200 * 1024;  // K and V kept whole up to here
 constexpr size_t kMaxSmem = 227 * 1024;        // a block's shared memory on an H100
 
+// Keys per K / V tile: 64, or 16 for a wide head.
+template <bool kWide>
+__host__ __device__ constexpr int tile_keys() { return kWide ? 16 : 64; }
 // The head dim as shared memory holds it: bf16 rounds it up to the k-step.
 template <typename T>
 __host__ __device__ constexpr int padded_head(int D) { return is_bf16<T>() ? (D + 15) & ~15 : D; }
@@ -114,17 +125,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The warp's raw scores against one key tile, sc[n-tile][i] in the m16n8k16
-// C layout (rows g, g + 8; keys 8 nt + 2t + i % 2). bf16: Q's A-fragments
-// are in registers (qf), K's B-fragments come from ldmatrix. f32: both from
-// shared memory on FMA, in the same layout.
+// A warp's Q A-fragment of k-step kk (its 16 rows x head dims [16 kk, +16)).
 template <typename T>
-__device__ __forceinline__ void raw_scores(const uint32_t (&qf)[kAttnMaxD / 16][4], const T* Qw, const T* Kt, int ld,
-                                           int D, float (&sc)[kKeyTiles][4]) {
+__device__ __forceinline__ void q_fragment(uint32_t (&a)[4], const T* Qw, int ld, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk * 16 + (lane >> 4) * 8);
+}
+
+// The warp's raw scores against one key tile of KT keys, sc[n-tile][i] in
+// the m16n8k16 C layout (rows g, g + 8; keys 8 nt + 2t + i % 2). bf16: Q's
+// A-fragments are in registers (qf), or (kWide) loaded from shared memory
+// k-step by k-step, K's B-fragments come from ldmatrix. f32: both from
+// shared memory on FMA, in the same layout.
+template <typename T, int KT, bool kWide, int NQ>
+__device__ __forceinline__ void raw_scores(const uint32_t (&qf)[NQ][4], const T* Qw, const T* Kt, int ld, int D,
+                                           float (&sc)[KT / 8][4]) {
+  constexpr int kKeyTiles = KT / 8;
 #pragma unroll
   for (int nt = 0; nt < kKeyTiles; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
   const int lane = threadIdx.x & 31;
-  if constexpr (is_bf16<T>()) {
+  if constexpr (is_bf16<T>() && kWide) {
+    for (int kk = 0; kk * 16 < D; ++kk) {
+      uint32_t a[4];
+      q_fragment(a, Qw, ld, kk);
+#pragma unroll
+      for (int np = 0; np < kKeyTiles / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, Kt + ((2 * np + (lane >> 4)) * 8 + (lane & 7)) * ld + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], a, b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  } else if constexpr (is_bf16<T>()) {
 #pragma unroll
     for (int kk = 0; kk < kAttnMaxD / 16; ++kk) {
       if (kk * 16 >= D) break;
@@ -153,11 +185,13 @@ __device__ __forceinline__ void raw_scores(const uint32_t (&qf)[kAttnMaxD / 16][
 }
 
 // o (rows g, g + 8; d columns 8 dn + 2t + i % 2) += round_T(p) @ V over one
-// key tile, p (f32, normalised) in the scores' C layout. bf16 rounds p to
-// nearest even as it packs the A-fragments; f32 takes it as it is.
-template <typename T>
-__device__ __forceinline__ void add_pv(const float (&p)[kKeyTiles][4], const T* Vt, int ld, int D,
+// key tile of KT keys and D columns, p (f32, normalised) in the scores' C
+// layout. bf16 rounds p to nearest even as it packs the A-fragments; f32
+// takes it as it is.
+template <typename T, int KT>
+__device__ __forceinline__ void add_pv(const float (&p)[KT / 8][4], const T* Vt, int ld, int D,
                                        float (&o)[kAttnMaxD / 8][4]) {
+  constexpr int kKeyTiles = KT / 8;
   const int lane = threadIdx.x & 31;
   if constexpr (is_bf16<T>()) {
 #pragma unroll
@@ -196,36 +230,43 @@ __device__ __forceinline__ void add_pv(const float (&p)[kKeyTiles][4], const T* 
   }
 }
 
-// Grid (ceil(N / (16 wq)), H, B), 32 wq wk threads: warp w takes query rows
-// [16 (w % wq), +16) and, in round r of each pass, key tile r wk + w / wq.
-// q row n of item b is at q + b qbs + n ldq; k and v rows at b S ld + j ld;
-// out is (B, N, H, D) contiguous. Shared memory: the item's key flags [S
-// rounded up to 64, then 16 bytes] (1 attend, 0 masked, 2 past S), the key
-// groups' row statistics [wk][16 wq][2] f32, Q [16 wq][ld], then the K tiles
-// and the V tiles, each [64][ld]: all ceil(S / 64) of them where resident
-// (ring == 0), tile j in slot j, every copy issued at once; else a ring of
-// `ring` rounds of wk tiles, K (pass 1) then K and V (pass 2), ring - 1
-// rounds in flight. Each round is one cp.async group (round 0's also holds
-// Q). The key groups' (max, sum) are merged after pass 1 and their p @ V
-// partials summed after pass 2, both in group order.
-template <typename T>
+// Grid (ceil(N / (16 wq)) x chunks, H, B), 32 wq wk threads: warp w takes
+// query rows [16 (w % wq), +16) and, in round r of each pass, key tile r wk
+// + w / wq; block x takes query tile x / chunks and output columns [128 (x %
+// chunks), +128) (chunks 1 unless kWide). q row n of item b is at q + b qbs
+// + n ldq; k and v rows at b S ld + j ld; out is (B, N, H, D) contiguous.
+// Shared memory: the item's key flags [S rounded up to KT, then 16 bytes]
+// (1 attend, 0 masked, 2 past S), the key groups' row statistics [wk][16
+// wq][2] f32, Q [16 wq][ld], then the K tiles [KT][ld] and the V tiles
+// [KT][ldv] (ldv = ld, or a 128-column chunk's in kWide): all ceil(S / KT)
+// of them where resident (ring == 0), tile j in slot j, every copy issued at
+// once; else a ring of `ring` rounds of wk tiles, K (pass 1) then K and V
+// (pass 2), ring - 1 rounds in flight. Each round is one cp.async group
+// (round 0's also holds Q). The key groups' (max, sum) are merged after pass
+// 1 and their p @ V partials summed after pass 2, both in group order.
+template <typename T, bool kWide>
 __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T* __restrict__ k,
                                                const T* __restrict__ v, const uint8_t* __restrict__ mask,
                                                T* __restrict__ out, int N, int S, int H, int D, int ldq, int ldk,
                                                int ldv, size_t qbs, int prefix, float scale, int wq, int ring) {
+  constexpr int KT = tile_keys<kWide>(), kKeyTiles = KT / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wk = (blockDim.x >> 5) / wq, qw = warp % wq, kgrp = warp / wq, rows = 16 * wq;
-  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
-  const int nkt = (S + kTileKeys - 1) / kTileKeys, Dp = padded_head<T>(D), ld = ring_ld<T>(Dp);
+  const int Dp = padded_head<T>(D), ld = ring_ld<T>(Dp);
+  const int chunks = kWide ? (Dp + kAttnMaxD - 1) / kAttnMaxD : 1, d0 = kWide ? blockIdx.x % chunks * kAttnMaxD : 0;
+  const int Dv = kWide ? min(D - d0, kAttnMaxD) : D, Dvp = kWide ? min(Dp - d0, kAttnMaxD) : Dp;
+  const int ldvs = kWide ? ring_ld<T>(kAttnMaxD) : ld;
+  const int q0 = blockIdx.x / chunks * rows, h = blockIdx.y, b = blockIdx.z;
+  const int nkt = (S + KT - 1) / KT;
   const int rounds = (nkt + wk - 1) / wk, resident = ring == 0, slots = resident ? nkt : ring * wk;
   uint8_t* flags = smem_raw;
-  float* stats = reinterpret_cast<float*>(smem_raw + round16(nkt * kTileKeys));
+  float* stats = reinterpret_cast<float*>(smem_raw + round16(nkt * KT));
   T* Qs = reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(stats) + round16(wk * rows * 8));
   T* Ks = Qs + rows * ld;
-  T* Vs = Ks + slots * kTileKeys * ld;
+  T* Vs = Ks + slots * KT * ld;
   const T* kg = k + (size_t)b * S * ldk + h * D;
-  const T* vg = v + (size_t)b * S * ldv + h * D;
+  const T* vg = v + (size_t)b * S * ldv + h * D + d0;
   const int n_rows = min(rows, N - q0);
 
   // round i < rounds: K tiles of pass 1; round rounds + r: V tiles (and K
@@ -238,11 +279,9 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
       for (int grp = 0; grp < wk; ++grp) {
         const int j = (i % rounds) * wk + grp, slot = slot_of(i, grp);
         if (j >= nkt) break;
-        const int nk = min(kTileKeys, S - j * kTileKeys);
-        if (!pass2 || !resident)
-          copy_rows(Ks + slot * kTileKeys * ld, ld, kg + (size_t)j * kTileKeys * ldk, ldk, nk, kTileKeys, D, Dp);
-        if (pass2)
-          copy_rows(Vs + slot * kTileKeys * ld, ld, vg + (size_t)j * kTileKeys * ldv, ldv, nk, kTileKeys, D, Dp);
+        const int nk = min(KT, S - j * KT);
+        if (!pass2 || !resident) copy_rows(Ks + slot * KT * ld, ld, kg + (size_t)j * KT * ldk, ldk, nk, KT, D, Dp);
+        if (pass2) copy_rows(Vs + slot * KT * ldvs, ldvs, vg + (size_t)j * KT * ldv, ldv, nk, KT, Dv, Dvp);
       }
     }
     sm90::cp_async_commit();
@@ -251,11 +290,11 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
   int issued = 0;
   for (; issued < (resident ? jobs : ring - 1); ++issued) issue(issued);
   const uint8_t* mb = mask != nullptr ? mask + (size_t)b * (S - prefix) : nullptr;
-  for (int j = threadIdx.x; j < nkt * kTileKeys; j += blockDim.x)
+  for (int j = threadIdx.x; j < nkt * KT; j += blockDim.x)
     flags[j] = j >= S ? 2 : (j < prefix || mb == nullptr || mb[j - prefix] ? 1 : 0);
 
   const T* Qw = Qs + qw * 16 * ld;
-  uint32_t qf[kAttnMaxD / 16][4];
+  uint32_t qf[kWide ? 1 : kAttnMaxD / 16][4];
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, inv_l[2];
   float o[kAttnMaxD / 8][4];
 #pragma unroll
@@ -267,17 +306,17 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
   const float scale2 = scale * kLog2e;
   // one key tile j (in `slot`) of pass 1 or 2, after a barrier that made it visible
   auto step = [&](bool pass2, int j, int slot) {
-    if constexpr (is_bf16<T>()) {
+    if constexpr (is_bf16<T>() && !kWide) {
       if (!q_loaded) {
 #pragma unroll
         for (int kk = 0; kk < kAttnMaxD / 16; ++kk)
-          if (kk * 16 < D) ldsm_x4(qf[kk], Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk * 16 + (lane >> 4) * 8);
+          if (kk * 16 < D) q_fragment(qf[kk], Qw, ld, kk);
         q_loaded = true;
       }
     }
-    const int s0 = j * kTileKeys;
+    const int s0 = j * KT;
     float sc[kKeyTiles][4];
-    raw_scores<T>(qf, Qw, Ks + slot * kTileKeys * ld, ld, D, sc);
+    raw_scores<T, KT, kWide>(qf, Qw, Ks + slot * KT * ld, ld, D, sc);
 #pragma unroll
     for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
@@ -303,7 +342,7 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
       for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[nt][e] = exp2f(sc[nt][e] - m_run[e >> 1]) * inv_l[e >> 1];
-      add_pv<T>(sc, Vs + slot * kTileKeys * ld, ld, D, o);
+      add_pv<T, KT>(sc, Vs + slot * KT * ldvs, ldvs, Dv, o);
     }
   };
 
@@ -340,11 +379,11 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
   }
 
   const int ldo = H * D;
-  T* og = out + ((size_t)b * N + q0) * ldo + h * D;
+  T* og = out + ((size_t)b * N + q0) * ldo + h * D + d0;
   if (wk == 1) {
 #pragma unroll
     for (int dn = 0; dn < kAttnMaxD / 8; ++dn) {
-      if (dn * 8 >= D) break;
+      if (dn * 8 >= Dv) break;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = qw * 16 + g + 8 * r;
@@ -357,6 +396,7 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
     return;
   }
   // sum the key groups' p @ V partials in group order, over the K/V tiles
+  // (never kWide: its launch keeps one key group)
   float* part = reinterpret_cast<float*>(Ks);  // [wk][rows][D]
   sm90::cp_async_wait<0>();                    // no copy still lands there
   __syncthreads();                             // every warp is done with K and V
@@ -382,51 +422,71 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
 // The same kernel under two names, so that a profile tells K5's launches
 // (attention.cu) from K6's attention phase (attn_block.cu).
 #define PAELLA_ATTENTION_KERNEL(name)                                                                              \
-  template <typename T>                                                                                             \
+  template <typename T, bool kWide>                                                                                 \
   __global__ void __launch_bounds__(256)                                                                            \
       name(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,                               \
            const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int D, int ldq, int ldk,     \
            int ldv, size_t qbs, int prefix, float scale, int wq, int ring) {                                        \
-    attention_ring<T>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq, ring);                 \
+    attention_ring<T, kWide>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq, ring);          \
   }
 PAELLA_ATTENTION_KERNEL(attention_ring_kernel)
 PAELLA_ATTENTION_KERNEL(block_attention_kernel)
 #undef PAELLA_ATTENTION_KERNEL
 
-template <typename T, bool kBlock>
+template <typename T, bool kBlock, bool kWide>
 constexpr auto attention_kernel() {
-  if constexpr (kBlock) return &block_attention_kernel<T>;
-  else return &attention_ring_kernel<T>;
+  if constexpr (kBlock) return &block_attention_kernel<T, kWide>;
+  else return &attention_ring_kernel<T, kWide>;
 }
 
 // The launch policy, shared by K5 and K6 (kBlock: under K6's kernel name):
 // about four query blocks per (batch, head), 16-row warps, at most 4; the
-// key tiles split among up to 8 / wq groups, so that every SM has more than
-// one warp per scheduler to hide latency. K and V stay resident in shared
-// memory up to kResidentBytes, else stream through a ring of 3 rounds (fewer
-// groups, or 2 rounds, if shared memory is short). Nothing here depends on B.
-template <typename T, bool kBlock>
-cudaError_t launch_attention(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
-                             int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
-                             cudaStream_t st) {
-  const int wq = min(4, (N + 63) / 64), rows = 16 * wq;
-  const int nkt = (S + kTileKeys - 1) / kTileKeys, ld = ring_ld<T>(padded_head<T>(D));
-  const size_t tile = (size_t)kTileKeys * ld * sizeof(T);
-  const size_t fixed = round16(nkt * kTileKeys) + (size_t)rows * ld * sizeof(T);
-  int wk = min(nkt, 8 / wq), ring = 0;
-  auto bytes = [&]() { return fixed + round16(wk * rows * 8) + 2 * (ring == 0 ? nkt : ring * wk) * tile; };
+// key tiles split among up to 8 / wq groups (one for a wide head), so that
+// every SM has more than one warp per scheduler to hide latency. K and V
+// stay resident in shared memory up to kResidentBytes, else stream through a
+// ring of 3 rounds (fewer groups, or 2 rounds, or fewer query warps, if
+// shared memory is short). Nothing here depends on B.
+template <typename T, bool kBlock, bool kWide>
+cudaError_t launch_attention_at(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
+                                int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
+                                cudaStream_t st) {
+  constexpr int KT = tile_keys<kWide>();
+  const int Dp = padded_head<T>(D), ld = ring_ld<T>(Dp), ldvs = kWide ? ring_ld<T>(kAttnMaxD) : ld;
+  const int chunks = kWide ? (Dp + kAttnMaxD - 1) / kAttnMaxD : 1, nkt = (S + KT - 1) / KT;
+  const size_t tiles = (size_t)KT * (ld + ldvs) * sizeof(T);  // one K and one V tile
+  int wq = min(4, (N + 63) / 64), wk = kWide ? 1 : min(nkt, 8 / wq), ring = 0;
+  auto bytes = [&]() {
+    const int rows = 16 * wq;
+    return round16(nkt * KT) + (size_t)rows * ld * sizeof(T) + round16(wk * rows * 8) +
+           (ring == 0 ? nkt : ring * wk) * tiles;
+  };
   if (bytes() > kResidentBytes) {
     ring = 3;
     while (bytes() > kMaxSmem && wk > 1) --wk;
     if (bytes() > kMaxSmem) ring = 2;
+    while (bytes() > kMaxSmem && wq > 1) --wq;
   }
   if (bytes() > kMaxSmem) return cudaErrorInvalidValue;
-  constexpr auto kernel = attention_kernel<T, kBlock>();
+  constexpr auto kernel = attention_kernel<T, kBlock, kWide>();
   cudaError_t err = sm90::reserve_smem<kernel>(bytes());
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((N + rows - 1) / rows, H, B), 32 * wq * wk, bytes(), st>>>(q, k, v, mask, out, N, S, H, D, ldq, ldk,
-                                                                          ldv, qbs, prefix, scale, wq, ring);
+  const int rows = 16 * wq;
+  kernel<<<dim3((N + rows - 1) / rows * chunks, H, B), 32 * wq * wk, bytes(), st>>>(q, k, v, mask, out, N, S, H, D, ldq,
+                                                                                   ldk, ldv, qbs, prefix, scale, wq,
+                                                                                   ring);
   return cudaGetLastError();
+}
+
+template <typename T, bool kBlock>
+cudaError_t launch_attention(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
+                             int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
+                             cudaStream_t st) {
+  if (D % 8) return cudaErrorInvalidValue;
+  if (padded_head<T>(D) > kAttnMaxD)
+    return launch_attention_at<T, kBlock, true>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale,
+                                                st);
+  return launch_attention_at<T, kBlock, false>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale,
+                                               st);
 }
 
 }  // namespace paella

@@ -69,18 +69,23 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int BM = 64, BN = 64, BK = 32;  // linear_kernel's f32 tiles
 
-// LN of pixel row j of item b into rows[b S + j]; cond row j >= N is the kv
-// mapper's row, copied as it is.
-template <typename T>
+__host__ __device__ constexpr int round8(int n) { return (n + 7) & ~7; }
+
+// LN of pixel row j of item b into rows[b S + j] (pitch C, or with kPadded
+// pitch ldr, its columns past C zero; compiled apart, as resblock.cu's
+// dw_ln_kernel is); cond row j >= N is the kv mapper's row, copied as it is.
+template <typename T, bool kPadded>
 __global__ void __launch_bounds__(kThreads) ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ kv,
-                                                           T* __restrict__ rows, int N, int S, int C) {
+                                                           T* __restrict__ rows, int N, int S, int C, int ldr) {
   extern __shared__ float s_row[];  // C floats
   __shared__ float red[32];
   const int row = blockIdx.x, b = row / S, j = row % S;
-  T* dst = rows + (size_t)row * C;
+  T* dst = rows + (size_t)row * (kPadded ? ldr : C);
   if (j >= N) {  // a conditioning token, as the kv mapper gave it
     const T* src = kv + ((size_t)b * (S - N) + (j - N)) * C;
     for (int c = threadIdx.x; c < C; c += blockDim.x) dst[c] = src[c];
+    if constexpr (kPadded)
+      for (int c = C + threadIdx.x; c < ldr; c += blockDim.x) dst[c] = from_f<T>(0.f);
     return;
   }
   const T* src = x + ((size_t)b * N + j) * C;
@@ -98,6 +103,8 @@ __global__ void __launch_bounds__(kThreads) ln_rows_kernel(const T* __restrict__
   }
   const float inv = rsqrtf(block_sum(lvar, red) / C + 1e-6f);
   for (int c = threadIdx.x; c < C; c += blockDim.x) dst[c] = from_f<T>((s_row[c] - mean) * inv);
+  if constexpr (kPadded)
+    for (int c = C + threadIdx.x; c < ldr; c += blockDim.x) dst[c] = from_f<T>(0.f);
 }
 
 // f32: out (M, N) = A (M, K) @ W (N, K)^T + bias [+ resid], in that order,
@@ -137,7 +144,9 @@ __global__ void __launch_bounds__(kThreads) linear_kernel(const float* __restric
 // One product of the bf16 path: out (M, N) = round(A (M, K) @ W (N, K)^T +
 // bias [+ resid]) with every row ld K (A, W) or N (resid, out); with K
 // splits, each split (k_split columns of K, whole 64-deep steps) writes its
-// f32 partial to part (splits, M, N) instead.
+// f32 partial to part (splits, M, N) instead. N % 8 != 0 (the o-projection
+// at C % 8 != 0) takes the kScalar variants, which store one value at a
+// time.
 struct Product {
   const bf16* A;
   const bf16* W;
@@ -166,10 +175,17 @@ __device__ __forceinline__ void finish8(const Product& p, size_t i, int n, const
   *reinterpret_cast<uint4*>(p.out + i) = u;
 }
 
+// out[i] of row m, column n = v + bias [+ resid], rounded once.
+__device__ __forceinline__ void finish1(const Product& p, size_t i, int n, float v) {
+  float y = v + __bfloat162float(p.bias[n]);
+  if (p.resid != nullptr) y = y + __bfloat162float(p.resid[i]);
+  p.out[i] = __float2bfloat16_rn(y);
+}
+
 // Grid (tiles, splits), 256 threads: one 128 x BN tile over one K split,
 // staged through shared memory (over the drained ring) to store 8
 // consecutive outputs a thread.
-template <int BNT, bool kRagged>
+template <int BNT, bool kRagged, bool kScalar>
 __global__ void __launch_bounds__(sm90::kGemmThreads, 1) linear_wgmma_kernel(const Product p) {
   constexpr int LDC = BNT + 4;
   extern __shared__ uint8_t smem_raw[];
@@ -186,6 +202,13 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) linear_wgmma_kernel(con
     if (m >= p.M) break;
     if (kRagged && n >= p.N) continue;
     const size_t i = (size_t)m * p.N + n;
+    if constexpr (kScalar) {
+      for (int j = 0; j < 8 && n + j < p.N; ++j) {
+        if (p.part != nullptr) p.part[(size_t)blockIdx.y * p.M * p.N + i + j] = Cs[r * LDC + c + j];
+        else finish1(p, i + j, n + j, Cs[r * LDC + c + j]);
+      }
+      continue;
+    }
     const float4 v0 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
     const float4 v1 = *reinterpret_cast<const float4*>(Cs + r * LDC + c + 4);
     if (p.part != nullptr) {
@@ -199,9 +222,20 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) linear_wgmma_kernel(con
   }
 }
 
-// The split partials of one product summed in split order, then finish8.
+// The split partials of one product summed in split order, then finish8
+// (kScalar: one value a thread, then finish1).
+template <bool kScalar>
 __global__ void __launch_bounds__(256) linear_reduce_kernel(const Product p, int splits) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8, mn = (size_t)p.M * p.N;
+  const size_t mn = (size_t)p.M * p.N;
+  if constexpr (kScalar) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= mn) return;
+    float v = p.part[i];
+    for (int z = 1; z < splits; ++z) v += p.part[z * mn + i];
+    finish1(p, i, (int)(i % p.N), v);
+    return;
+  }
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
   if (i >= mn) return;
   const float4* src = reinterpret_cast<const float4*>(p.part + i);
   float4 a = src[0], b = src[1];
@@ -218,16 +252,16 @@ __global__ void __launch_bounds__(256) linear_reduce_kernel(const Product p, int
 }
 
 // One product launch (BNT wide, `splits` K splits), then a split launch's reduce.
-template <int BNT, bool kRagged>
+template <int BNT, bool kRagged, bool kScalar = false>
 cudaError_t run_product(const Product& p, int splits, cudaStream_t st) {
   constexpr int smem = sm90::GemmTile<BNT>::kSmem;
-  cudaError_t err = sm90::reserve_smem<linear_wgmma_kernel<BNT, kRagged>>(smem);
+  cudaError_t err = sm90::reserve_smem<linear_wgmma_kernel<BNT, kRagged, kScalar>>(smem);
   if (err != cudaSuccess) return err;
   const int tiles = (p.M + sm90::kBM - 1) / sm90::kBM * p.n_tiles;
-  linear_wgmma_kernel<BNT, kRagged><<<dim3(tiles, splits), sm90::kGemmThreads, smem, st>>>(p);
+  linear_wgmma_kernel<BNT, kRagged, kScalar><<<dim3(tiles, splits), sm90::kGemmThreads, smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
-  const size_t vecs = (size_t)p.M * p.N / 8;
-  linear_reduce_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p, splits);
+  const size_t threads = (size_t)p.M * p.N / (kScalar ? 1 : 8);
+  linear_reduce_kernel<kScalar><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(p, splits);
   return cudaGetLastError();
 }
 
@@ -239,6 +273,7 @@ cudaError_t launch_product(const bf16* A, const bf16* W, const bf16* bias, const
   const Product p{A, W, bias, resid, out, splits > 1 ? part : nullptr, M, N, K, (N + bn - 1) / bn, K / splits};
   // the ragged tile variant only where K or N leaves a partial tile
   const bool ragged = K % sm90::kBK || N % bn;
+  if (N % 8) return bn == 128 ? run_product<128, true, true>(p, splits, st) : run_product<64, true, true>(p, splits, st);
   if (bn == 128) return ragged ? run_product<128, true>(p, splits, st) : run_product<128, false>(p, splits, st);
   return ragged ? run_product<64, true>(p, splits, st) : run_product<64, false>(p, splits, st);
 }
@@ -253,36 +288,42 @@ struct Args {
   int bn_qkv, splits_qkv, bn_o, splits_o;
 };
 
+// Widths: the rows have pitch Cp = round8(C) and each head's q, k and v
+// columns D8 = round8(D), their pads zero (kernels/attn_block.py pads Wqkv's
+// columns and head rows and Wo's head columns once), so the products run
+// over zero-padded K and the attention over zero-padded heads, with 16-byte
+// aligned rows; x and out keep pitch C.
 template <typename T>
 int launch(const Args& a, cudaStream_t st) {
-  const int S = a.N + a.Sc, C = a.C, D = C / a.H, Mq = a.B * a.N, Mkv = a.B * S;
+  const int S = a.N + a.Sc, C = a.C, Cp = round8(C), Cq = a.H * round8(C / a.H), Mq = a.B * a.N, Mkv = a.B * S;
   const T* x = static_cast<const T*>(a.x);
   const T* w = static_cast<const T*>(a.wqkv);
   const T* bias = static_cast<const T*>(a.bqkv);
   T* rows = static_cast<T*>(a.rows);
   T* qkv = static_cast<T*>(a.qkv);  // (B*S, 3C): q | k | v of every row
   T* att = static_cast<T*>(a.att);
-  ln_rows_kernel<T><<<Mkv, kThreads, C * sizeof(float), st>>>(x, static_cast<const T*>(a.kv), rows, a.N, S, C);
+  const auto ln_rows = Cp != C ? ln_rows_kernel<T, true> : ln_rows_kernel<T, false>;
+  ln_rows<<<Mkv, kThreads, C * sizeof(float), st>>>(x, static_cast<const T*>(a.kv), rows, a.N, S, C, Cp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (is_bf16<T>()) {
-    err = launch_product(rows, w, bias, nullptr, qkv, a.part, Mkv, 3 * C, C, a.bn_qkv, a.splits_qkv, st);
+    err = launch_product(rows, w, bias, nullptr, qkv, a.part, Mkv, 3 * Cq, Cp, a.bn_qkv, a.splits_qkv, st);
   } else {
-    linear_kernel<<<dim3((3 * C + BN - 1) / BN, (Mkv + BM - 1) / BM), kThreads, 0, st>>>(rows, w, bias, nullptr, qkv,
-                                                                                     Mkv, 3 * C, C);
+    linear_kernel<<<dim3((3 * Cq + BN - 1) / BN, (Mkv + BM - 1) / BM), kThreads, 0, st>>>(rows, w, bias, nullptr, qkv,
+                                                                                      Mkv, 3 * Cq, Cp);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  err = launch_attention<T, true>(qkv, qkv + C, qkv + 2 * C, a.cmask, att, a.B, a.N, S, a.H, D, 3 * C, 3 * C, 3 * C,
-                                  (size_t)S * 3 * C, a.N, a.scale, st);
+  err = launch_attention<T, true>(qkv, qkv + Cq, qkv + 2 * Cq, a.cmask, att, a.B, a.N, S, a.H, Cq / a.H, 3 * Cq,
+                                  3 * Cq, 3 * Cq, (size_t)S * 3 * Cq, a.N, a.scale, st);
   if (err != cudaSuccess) return (int)err;
   const T* wo = static_cast<const T*>(a.wo);
   const T* bo = static_cast<const T*>(a.bo);
   T* out = static_cast<T*>(a.out);
   if constexpr (is_bf16<T>()) {
-    return (int)launch_product(att, wo, bo, x, out, a.part, Mq, C, C, a.bn_o, a.splits_o, st);
+    return (int)launch_product(att, wo, bo, x, out, a.part, Mq, C, Cq, a.bn_o, a.splits_o, st);
   } else {
-    linear_kernel<<<dim3((C + BN - 1) / BN, (Mq + BM - 1) / BM), kThreads, 0, st>>>(att, wo, bo, x, out, Mq, C, C);
+    linear_kernel<<<dim3((C + BN - 1) / BN, (Mq + BM - 1) / BM), kThreads, 0, st>>>(att, wo, bo, x, out, Mq, C, Cq);
     return (int)cudaGetLastError();
   }
 }
@@ -291,14 +332,17 @@ int launch(const Args& a, cudaStream_t st) {
 }  // namespace paella
 
 // C interface for ctypes. x, out (B,H,W,C) with N = H*W; kv (B,Sc,C) the
-// block's kv-mapper output; cmask (B,Sc) bytes (1 = attend) or null; wqkv
-// (3C,C) packed q|k|v rows and bqkv (3C); wo (C,C), bo (C). Scratch in the
-// dtype: rows (B*(N+Sc), C), qkv (B*(N+Sc), 3C), att (B*N, C); part f32, with
-// splits the larger of splits_qkv * B*(N+Sc)*3C and splits_o * B*N*C, else
-// null. All contiguous and 16-byte aligned; C % 8 == 0, (C / H) % 8 == 0,
-// C / H <= 128. scale = (C/H)^-1/2 in f32. bf16 only: the products' tile
-// widths bn_qkv, bn_o (64 or 128) and K splits (each split whole 64-deep
-// steps) from kernels/attn_block.py::attn_block_plan. Returns a cudaError_t.
+// block's kv-mapper output; cmask (B,Sc) bytes (1 = attend) or null. With
+// Cp = C and D8 = C/H rounded up to multiples of 8, and Cq = H*D8: wqkv
+// (3Cq,Cp) packed q|k|v rows, each head's D8 rows and each row's Cp columns
+// zero past the true ones, and bqkv (3Cq) likewise; wo (C,Cq) with zero head
+// pad columns, bo (C). Scratch in the dtype: rows (B*(N+Sc), Cp), qkv
+// (B*(N+Sc), 3Cq), att (B*N, Cq); part f32, with splits the larger of
+// splits_qkv * B*(N+Sc)*3Cq and splits_o * B*N*C, else null. All contiguous
+// and 16-byte aligned. Any C that H divides. scale = (C/H)^-1/2 in f32. bf16
+// only: the products' tile widths bn_qkv, bn_o (64 or 128) and K splits
+// (each split whole 64-deep steps) from kernels/attn_block.py::attn_block_plan.
+// Returns a cudaError_t.
 extern "C" int paella_attn_block(const void* x, const void* kv, const void* cmask, const void* wqkv,
                                  const void* bqkv, const void* wo, const void* bo, void* out, void* rows,
                                  void* qkv, void* att, void* part, int B, int N, int Sc, int C, int H, float scale,

@@ -37,36 +37,48 @@
 //                    splits K = 4C; the splits write partials that
 //                    fc2_reduce_kernel sums in a fixed order before the same
 //                    epilogue.
-// The bf16 float mode (K1 on the flagship) runs phases 2 and 4 on wgmma
-// (gemm_sm90.cuh: 128-row tiles, 64 or 128 wide, fed by a 6-stage cp.async
-// ring): fc1_wgmma_kernel, grn_scale_kernel over 128-row tile partials,
-// grn_apply_kernel (h = round(h * scale) in place) and fc2_wgmma_kernel. The wrapper picks the tile widths and
-// the split count per CFG pair (kernels/resblock.py::wgmma_tiles). f32 and
-// the int8 modes run fc1_kernel / fc2_kernel: 64x64 tiles on common.cuh's
-// tile product (FMA for f32, mma.sync for bf16 and s8) with the GRN scale
-// applied as fc2's A tile is loaded.
+// The bf16 modes and W8A8 run phases 2 and 4 on wgmma (gemm_sm90.cuh:
+// 128-row tiles, 64 or 128 wide, fed by a 6-stage cp.async ring):
+// fc1_wgmma_kernel, grn_scale_kernel over 128-row tile partials, the GRN
+// scale's application (grn_apply_kernel, h = round(h * scale) in place; in
+// W8A8 requant_kernel) and fc2_wgmma_kernel. The wrapper picks the tile
+// widths and the split count per CFG pair (kernels/resblock.py::launch_plan).
+// f32 activations in the float and weight-only modes run fc1_kernel /
+// fc2_kernel: 64x64 tiles on common.cuh's FMA tile product with the GRN
+// scale applied as fc2's A tile is loaded.
 // Rounding follows the Pallas kernel: xn and h are stored in the activation
 // dtype, h is rescaled in f32 and rounded again, and every product
 // accumulates in f32.
 //
+// Widths: the float modes take any C. xn and h (and the derived W1, W2 and
+// the GRN scale) have a padded pitch, C and 4C rounded up to 8 with zero pad
+// columns (kernels/resblock.py::prepare_resblock_weights pads the weights
+// once), so the products run over a zero-padded K, which adds exactly
+// nothing, with 16-byte aligned rows; LN and the GRN mean divide by the true
+// C and 4C. x, skip, film and out keep their true pitch: where C % 8 != 0,
+// fc2's epilogue stores one value at a time (a variant compiled apart, as
+// kRagged is). The int8 modes keep the TPU kernel's alignment, C % 64 == 0.
+//
 // The int8 modes (K1b) keep those phases:
-// - weight-only: W1 and W2 stay int8 codes in device memory; each B tile is
-//   loaded as 16-byte vectors of codes and widened to the activation dtype
-//   (exact) as it is stored to shared memory, so the products run on the
-//   same tiles as K1 over half (bf16) or a quarter (f32) of the weight bytes.
-//   The epilogues apply the per-output-channel scales: fc1 acc*s1 + b1, fc2
+// - weight-only: W1 and W2 stay int8 codes in device memory. In bf16 the
+//   products run on the bf16 wgmma ring with each B tile's codes widened to
+//   bf16 (exact) in the kernel on their way into the swizzled stage
+//   (GemmTile::run_codes), so no bf16 copy of a weight is made and the weight
+//   bytes read are the codes'. f32 widens them into the FMA tile. The
+//   epilogues apply the per-output-channel scales: fc1 acc*s1 + b1, fc2
 //   (acc + beta@Wq2) * s2 + b2, as the TPU kernel does.
 // - W8A8: phase 1 quantizes each LN row to s8 codes with one scale (sx);
-//   fc1 and fc2 run mma.sync m16n8k32 s8 x s8 -> s32 (TileProductS8); fc1's
-//   epilogue is f32(acc) * (sx * s1) + b1 -> GELU, written to an f32 h, and
-//   the GRN sums come from it; a requant phase (requant_kernel, one block
-//   per row) takes the TPU kernel's provisional codes per (row, 512-column
-//   fc1 tile), dequantizes them, multiplies by the GRN scale and requantizes
-//   to one scale per row (sh2); fc2's epilogue is f32(acc) * (sh2 * s2) +
-//   beta_w2 + b2 + x -> FiLM. Its split-K partials are s32, exact in any
-//   order. Codes are clip(rint(v * (1/s)), +-127) with s = max(amax, 1e-6)
-//   * f32(1/127), half to even, every product and sum of the quantization
-//   rounded separately (no contraction into fma), as the TPU kernel rounds.
+//   fc1 and fc2 run wgmma m64nNk32 s8 x s8 -> s32 (GemmTile<BN, int8_t>: a
+//   128-byte stage row holds 128 codes); fc1's epilogue is f32(acc) * (sx *
+//   s1) + b1 -> GELU, written to an f32 h, and the GRN sums come from it; a
+//   requant phase (requant_kernel, one block per row) takes the TPU kernel's
+//   provisional codes per (row, 512-column fc1 tile), dequantizes them,
+//   multiplies by the GRN scale and requantizes to one scale per row (sh2);
+//   fc2's epilogue is f32(acc) * (sh2 * s2) + beta_w2 + b2 + x -> FiLM. Its
+//   split-K partials are s32, exact in any order. Codes are clip(rint(v *
+//   (1/s)), +-127) with s = max(amax, 1e-6) * f32(1/127), half to even,
+//   every product and sum of the quantization rounded separately (no
+//   contraction into fma), as the TPU kernel rounds.
 // No float atomic is used anywhere, so two runs are bitwise equal, and an
 // image's output does not depend on its batchmates (the split count is
 // chosen per CFG pair by the wrapper).
@@ -80,21 +92,21 @@
 // rate) and W8A8 doubles the tensor-core rate. The wgmma phases reach about a
 // quarter of the bf16 peak (PERF.md has the measurements and what was tried);
 // a short K (10 steps at C 640) leaves the epilogue a large share of a tile.
-// The mma.sync tiles of f32 and int8 are bound by shared-memory loads and
-// latency. xn and h make one round trip through L2/HBM, which the 50 MB L2
-// mostly absorbs.
-#include <type_traits>
-
+// Weight-only pays the codes' widening in issue slots beside the products.
+// W8A8's h makes an f32 round trip through memory for the requant phase
+// (M 4C 4 bytes: 21 MB at M 2048 x C 640). xn and h make one round trip
+// through L2/HBM, which the 50 MB L2 mostly absorbs.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
 namespace paella {
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int BK8 = 64, LDS8 = BK8 + 16;  // s8 tiles: 64 K-bytes a row, rows 80 bytes apart
+constexpr int BM = 64, BN = 64, BK = 32;  // the FMA tiles (f32 activations)
 enum Mode { kFloat = 0, kInt8 = 1, kW8A8 = 2 };
 constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), the TPU kernel's (1.0 / 127.0)
+
+__host__ __device__ constexpr int round8(int n) { return (n + 7) & ~7; }
 
 // Max over the block (values >= 0; blockDim.x a multiple of 32); every
 // thread gets it. `red` holds 32 floats of shared memory.
@@ -116,40 +128,39 @@ __device__ __forceinline__ float s8_code(float v, float inv) {
   return fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
 }
 
-// Load rows [row0, row0+ROWS) x K-columns [k0, k0+TBK) of an int8
-// row-major matrix (leading dimension ld) into smem[ROWS][lds] of type TS:
-// copied as they are for TS = int8_t, else each code widened to TS (exact).
-// Rows past nrows read as zero. 16-byte vector loads: ld and k0 are
-// multiples of 16 and the base pointer 16-byte aligned (the wrapper checks).
-template <typename TS, int ROWS, int TBK>
-__device__ __forceinline__ void load_tile_s8(TS* smem, int lds, const int8_t* g, int ld, int row0,
-                                             int nrows, int k0) {
-  constexpr int VPR = TBK / 16;
+// Load rows [row0, row0+ROWS) x K-columns [k0, k0+BK) of an int8 row-major
+// matrix (leading dimension ld) into smem[ROWS][lds] of f32, each code
+// widened (exact). Rows past nrows read as zero. 16-byte vector loads: ld
+// and k0 are multiples of 16 and the base pointer 16-byte aligned (the
+// wrapper checks).
+template <int ROWS>
+__device__ __forceinline__ void load_codes_f32(float* smem, int lds, const int8_t* g, int ld, int row0, int nrows,
+                                               int k0) {
+  constexpr int VPR = BK / 16;
   for (int e = threadIdx.x; e < ROWS * VPR; e += kThreads) {
     const int r = e / VPR, kv = (e % VPR) * 16;
     const int m = row0 + r;
     uint4 u = make_uint4(0u, 0u, 0u, 0u);
     if (m < nrows) u = *reinterpret_cast<const uint4*>(g + (size_t)m * ld + k0 + kv);
-    TS* dst = smem + r * lds + kv;
-    if constexpr (std::is_same<TS, int8_t>::value) {
-      *reinterpret_cast<uint4*>(dst) = u;
-    } else {
-      const int8_t* pv = reinterpret_cast<const int8_t*>(&u);
+    const int8_t* pv = reinterpret_cast<const int8_t*>(&u);
+    float* dst = smem + r * lds + kv;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) dst[i] = from_f<TS>((float)pv[i]);
-    }
+    for (int i = 0; i < 16; ++i) dst[i] = (float)pv[i];
   }
 }
 
-// Phase 1: depthwise 3x3 + bias + LayerNorm of token blockIdx.x -> xn, in
-// the dtype, or (Q8) as s8 codes with the row's scale in sx.
-template <typename T, bool Q8>
+// Phase 1: depthwise 3x3 + bias + LayerNorm of token blockIdx.x -> xn row
+// (pitch C, or with kPadded pitch ldo, its columns past C zero), in the
+// dtype, or (Q8) as s8 codes with the row's scale in sx. kPadded is
+// compiled apart (C % 8 != 0): the flagship's widths keep the unpadded
+// stores, which measured 10-20% faster than the padded form.
+template <typename T, bool Q8, bool kPadded>
 __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x,
                                                          const T* __restrict__ skip,
                                                          const T* __restrict__ dw_w,
                                                          const T* __restrict__ dw_b,
                                                          void* __restrict__ xn_, float* __restrict__ sx,
-                                                         int H, int W, int C) {
+                                                         int H, int W, int C, int ldo) {
   extern __shared__ float s_acc[];  // C floats
   __shared__ float red[32];
   const int m = blockIdx.x;
@@ -210,7 +221,10 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
     if (threadIdx.x == 0) sx[m] = s;
   } else {
     T* xn = static_cast<T*>(xn_);
-    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[(size_t)m * C + c] = from_f<T>((s_acc[c] - mean) * inv);
+    const int ld = kPadded ? ldo : C;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[(size_t)m * ld + c] = from_f<T>((s_acc[c] - mean) * inv);
+    if constexpr (kPadded)
+      for (int c = C + threadIdx.x; c < ldo; c += blockDim.x) xn[(size_t)m * ldo + c] = from_f<T>(0.f);
   }
 }
 
@@ -231,50 +245,49 @@ __device__ __forceinline__ void tile_rows(int tile, int bm, int M, int hw, int t
   }
 }
 
-// Phase 2: fc1 tile, bias + GELU epilogue, GRN partials. h is written in the
-// dtype (float and weight-only) or in f32 (W8A8, for the requant phase).
+// The GELU input of fc1 output (row m, column n) from its product, in the
+// Pallas kernel's order per mode: acc + b1 (float); acc * s1 + b1
+// (weight-only); f32(acc) * (sx * s1) + b1 (W8A8, acc the s32 sum).
+template <int MODE>
+__device__ __forceinline__ float fc1_pre(float acc, float b1, float s1, float sx) {
+  if constexpr (MODE == kW8A8) return __fadd_rn(__fmul_rn(acc, __fmul_rn(sx, s1)), b1);
+  else if constexpr (MODE == kInt8) return __fadd_rn(__fmul_rn(acc, s1), b1);
+  else return acc + b1;
+}
+
+__device__ __forceinline__ float gelu(float v) { return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)); }
+
+// Phase 2 on the FMA tile (f32 activations; float and weight-only): fc1
+// tile, bias + GELU epilogue, GRN partials. xn (M, K) and W1 (N, K), K the
+// padded width; h (M, ldh) in the dtype, its pad columns written as the
+// zeros they compute to.
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ xn_,
-                                                       const void* __restrict__ w1_,
-                                                       const T* __restrict__ b1,
-                                                       const float* __restrict__ s1,
-                                                       const float* __restrict__ sx,
-                                                       void* __restrict__ h_, float* __restrict__ gx_part,
-                                                       int M, int K, int N, int hw, int slots, int tpi) {
-  constexpr bool Q8 = MODE == kW8A8;
-  using TA = std::conditional_t<Q8, int8_t, T>;  // the operands' type in shared memory
-  constexpr int TBK = Q8 ? BK8 : BK;
-  constexpr int LDS = Q8 ? LDS8 : BK + smem_pad<T>(), LDC = BN + 4;
-  __shared__ __align__(16) TA As[BM * LDS];
-  __shared__ __align__(16) TA Bs[BN * LDS];
+__global__ void __launch_bounds__(kThreads) fc1_kernel(const T* __restrict__ xn, const void* __restrict__ w1_,
+                                                       const T* __restrict__ b1, const float* __restrict__ s1,
+                                                       T* __restrict__ h, float* __restrict__ gx_part, int M, int K,
+                                                       int N, int ldh, int hw, int slots, int tpi) {
+  constexpr int LDS = BK + smem_pad<T>(), LDC = BN + 4;
+  __shared__ __align__(16) T As[BM * LDS];
+  __shared__ __align__(16) T Bs[BN * LDS];
   __shared__ float Cs[BM * LDC];
   __shared__ float half_sq[kThreads];
   const int n0 = blockIdx.x * BN;
   int m0, mend;
   tile_rows(blockIdx.y, BM, M, hw, tpi, m0, mend);
-  const TA* xn = static_cast<const TA*>(xn_);
-  std::conditional_t<Q8, TileProductS8<BM, BN>, TileProduct<T, BM, BN>> tile;
+  TileProduct<T, BM, BN> tile;
   tile.zero();
-  for (int k0 = 0; k0 < K; k0 += TBK) {
-    if constexpr (Q8) {
-      load_tile_s8<int8_t, BM, BK8>(As, LDS, xn, K, m0, mend, k0);
-    } else {
-      load_tile<T, BM, BK>(As, LDS, xn, K, m0, mend, k0, K);
-    }
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_tile<T, BM, BK>(As, LDS, xn, K, m0, mend, k0, K);
     if constexpr (MODE == kFloat) {
       load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(w1_), K, n0, N, k0, K);
     } else {
-      load_tile_s8<TA, BN, TBK>(Bs, LDS, static_cast<const int8_t*>(w1_), K, n0, N, k0);
+      load_codes_f32<BN>(Bs, LDS, static_cast<const int8_t*>(w1_), K, n0, N, k0);
     }
     __syncthreads();
-    tile.step(As, LDS, Bs, LDS, TBK);
+    tile.step(As, LDS, Bs, LDS, BK);
     __syncthreads();
   }
-  if constexpr (Q8) {
-    tile.store(reinterpret_cast<int*>(Cs), LDC);
-  } else {
-    tile.store(Cs, LDC);
-  }
+  tile.store(Cs, LDC);
   __syncthreads();
   // epilogue: one column per thread, rows strided by kThreads / BN; the f32
   // GELU output replaces the product in Cs for the GRN statistics
@@ -285,23 +298,8 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
   for (int r = threadIdx.x / BN; r < BM; r += kThreads / BN) {
     const int m = m0 + r;
     if (m >= mend) break;
-    float v;
-    if constexpr (Q8) {
-      const float acc = (float)reinterpret_cast<const int*>(Cs)[r * LDC + c];
-      v = __fadd_rn(__fmul_rn(acc, __fmul_rn(sx[m], s1n)), bias);
-    } else if constexpr (MODE == kInt8) {
-      v = __fadd_rn(__fmul_rn(Cs[r * LDC + c], s1n), bias);
-    } else {
-      v = Cs[r * LDC + c] + bias;
-    }
-    v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    if (col) {
-      if constexpr (Q8) {
-        static_cast<float*>(h_)[(size_t)m * N + n] = v;
-      } else {
-        static_cast<T*>(h_)[(size_t)m * N + n] = from_f<T>(v);
-      }
-    }
+    const float v = gelu(fc1_pre<MODE>(Cs[r * LDC + c], bias, s1n, 0.f));
+    if (n < ldh) h[(size_t)m * ldh + n] = from_f<T>(v);
     Cs[r * LDC + c] = v;
   }
   __syncthreads();
@@ -341,49 +339,78 @@ __global__ void __launch_bounds__(kThreads) fc1_kernel(const void* __restrict__ 
   }
 }
 
-// bf16 float mode, phase 2 on wgmma (gemm_sm90.cuh): one 128 x BN tile of
-// xn @ W1^T, then + b1 and GELU from the accumulators, staged in shared
-// memory as f32 to store h coalesced (rounded to bf16) and to take each
-// column's GRN sum of squares over the tile's rows in a fixed order: where
-// every 32-row segment of the tile lies inside one image (hw a multiple of
-// 32, as at the flagship's shapes, or tpi tiles per image), the segments are
-// summed row by row and then added segment by segment per image; otherwise
-// (images of fewer than 32 rows, each inside this tile) one thread per
-// column walks the rows in order. One partial per image the tile touches, at
-// slot (tile, image - the tile's first image), as fc1_kernel writes them for
-// 64-row tiles.
-template <int BN, bool kRagged>
+// Phase 2 on wgmma (gemm_sm90.cuh), every mode with bf16 activations and
+// W8A8 with either: one 128 x BN tile of xn @ W1^T (bf16 products; the
+// weight-only codes widened in the kernel; s8 products in W8A8), then the
+// mode's scales, bias and GELU from the accumulators, staged in shared memory
+// as f32 to store h coalesced (rounded to bf16; f32 in W8A8, for the requant
+// phase) and to take each column's GRN sum of squares over the tile's rows
+// in a fixed order: where every 32-row segment of the tile lies inside one
+// image (hw a multiple of 32, as at the flagship's shapes, or tpi tiles per
+// image), the segments are summed row by row and then added segment by
+// segment per image; otherwise (images of fewer than 32 rows, each inside
+// this tile) one thread per column walks the rows in order. One partial per
+// image the tile touches, at slot (tile, image - the tile's first image), as
+// fc1_kernel writes them for 64-row tiles. xn (M, K) and W1 (N, K), K the
+// padded width; h (M, ldh), its pad columns written as the zeros they
+// compute to.
+template <int BN, bool kRagged, int MODE, typename T>
 __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
-    const __nv_bfloat16* __restrict__ xn, const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
-    __nv_bfloat16* __restrict__ h, float* __restrict__ gx_part, int M, int K, int N, int hw, int slots, int tpi) {
-  using Tile = sm90::GemmTile<BN>;
+    const void* __restrict__ xn, const void* __restrict__ w1, const T* __restrict__ b1, const float* __restrict__ s1,
+    const float* __restrict__ sx, void* __restrict__ h, float* __restrict__ gx_part, int M, int K, int N, int ldh,
+    int hw, int slots, int tpi) {
   constexpr int LDC = BN + 4, kSeg = 32, kSegs = sm90::kBM / kSeg;
+  using bf16 = __nv_bfloat16;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align1024(smem_raw);
   const int n0 = blockIdx.x * BN;
   int m0, mend;
   tile_rows(blockIdx.y, sm90::kBM, M, hw, tpi, m0, mend);
-  Tile tile;
-  tile.template run<kRagged>(smem, xn, w1, K, mend, N, K, m0, n0, 0, (K + sm90::kBK - 1) / sm90::kBK);
+  const int rows = mend - m0;
+  const int ncols = kRagged ? min(BN, N - n0) : BN;  // fewer in a ragged last column tile
   float* Cs = reinterpret_cast<float*>(smem);  // [128][LDC], over the drained ring
   float* seg = Cs + sm90::kBM * LDC;            // [kSegs][BN]
-  const int ncols = kRagged ? min(BN, N - n0) : BN;  // fewer in a ragged last column tile
-  tile.for_each([&](int r, int c, float v) {
-    v = v + (c < ncols ? __bfloat162float(b1[n0 + c]) : 0.f);
-    Cs[r * LDC + c] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  });
+  auto epilogue = [&](int r, int c, float acc) {
+    const bool in = c < ncols;
+    const float bias = in ? to_f<T>(b1[n0 + c]) : 0.f;
+    const float s1n = MODE == kFloat || !in ? 1.f : s1[n0 + c];
+    const float sxm = MODE == kW8A8 && r < rows ? sx[m0 + r] : 0.f;
+    Cs[r * LDC + c] = gelu(fc1_pre<MODE>(acc, bias, s1n, sxm));
+  };
+  if constexpr (MODE == kW8A8) {
+    sm90::GemmTile<BN, int8_t> tile;
+    tile.template run<kRagged>(smem, static_cast<const int8_t*>(xn), static_cast<const int8_t*>(w1), K, mend, N, K,
+                               m0, n0, 0, (K + tile.kK - 1) / tile.kK);
+    tile.for_each([&](int r, int c, int acc) { epilogue(r, c, (float)acc); });
+  } else if constexpr (MODE == kInt8) {
+    sm90::GemmTile<BN> tile;
+    tile.run_codes(smem, static_cast<const bf16*>(xn), static_cast<const int8_t*>(w1), K, mend, m0, n0, 0,
+                   K / sm90::kBK);
+    tile.for_each(epilogue);
+  } else {
+    sm90::GemmTile<BN> tile;
+    tile.template run<kRagged>(smem, static_cast<const bf16*>(xn), static_cast<const bf16*>(w1), K, mend, N, K, m0,
+                               n0, 0, (K + sm90::kBK - 1) / sm90::kBK);
+    tile.for_each(epilogue);
+  }
   __syncthreads();
-  const int rows = mend - m0, first_b = m0 / hw, last_b = (m0 + rows - 1) / hw;
+  const int first_b = m0 / hw, last_b = (m0 + rows - 1) / hw;
   for (int e = threadIdx.x; e < sm90::kBM * (BN / 8); e += blockDim.x) {
     const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
     if (r >= rows) break;
     if (c >= ncols) continue;
     const float* src = Cs + r * LDC + c;
-    uint4 u;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+    if constexpr (MODE == kW8A8) {
+      float4* dst = reinterpret_cast<float4*>(static_cast<float*>(h) + (size_t)(m0 + r) * ldh + n0 + c);
+      dst[0] = *reinterpret_cast<const float4*>(src);
+      dst[1] = *reinterpret_cast<const float4*>(src + 4);
+    } else {
+      uint4 u;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-    *reinterpret_cast<uint4*>(h + (size_t)(m0 + r) * N + n0 + c) = u;
+      for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(h) + (size_t)(m0 + r) * ldh + n0 + c) = u;
+    }
   }
   float* part = gx_part + (size_t)blockIdx.y * slots * N + n0;
   if (tpi > 0 || hw % kSeg == 0) {
@@ -427,10 +454,12 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc1_wgmma_kernel(
 // One block of 1024 threads per batch item b: each column's gx = sum of its
 // partials, tile by tile in order (tiles of bm rows, absolute or tpi per
 // image as tile_rows cuts them), kept in shared memory (N floats), then the
-// GRN scale gamma * gx / (mean_N gx + 1e-6) + 1.
+// GRN scale gamma * gx / (mean_N gx + 1e-6) + 1, at pitch N (kPadded: ld,
+// its pad columns 0).
+template <bool kPadded>
 __global__ void __launch_bounds__(1024) grn_scale_kernel(const float* __restrict__ gx_part,
                                                          const float* __restrict__ gamma,
-                                                         float* __restrict__ scale, int N, int hw,
+                                                         float* __restrict__ scale, int N, int ld, int hw,
                                                          int slots, int bm, int tpi) {
   extern __shared__ float s_norm[];
   __shared__ float red[32];
@@ -445,8 +474,10 @@ __global__ void __launch_bounds__(1024) grn_scale_kernel(const float* __restrict
     s += s_norm[n];
   }
   const float denom = block_sum(s, red) / N + 1e-6f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x)
-    scale[(size_t)b * N + n] = gamma[n] * (s_norm[n] / denom) + 1.f;
+  const int pitch = kPadded ? ld : N;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) scale[(size_t)b * pitch + n] = gamma[n] * (s_norm[n] / denom) + 1.f;
+  if constexpr (kPadded)
+    for (int n = N + threadIdx.x; n < ld; n += blockDim.x) scale[(size_t)b * ld + n] = 0.f;
 }
 
 // W8A8 phase 3b, one block per row m of h (f32, N = 4C wide): the TPU
@@ -507,7 +538,7 @@ __device__ __forceinline__ T fc2_finish(float acc, int m, int n, int N, int hw,
 }
 
 struct Fc2Args {
-  const void* h;  // (M, 4C): the dtype (GRN scale applied as A loads) or s8 codes (W8A8)
+  const void* h;  // (M, K): the dtype (scaled by the GRN already, or as the FMA tile's A loads) or s8 codes (W8A8)
   const float* scale;
   const void* w2;
   const float* bw2;
@@ -520,44 +551,35 @@ struct Fc2Args {
   float* part;  // split-K partials: f32, or s32 in W8A8
 };
 
-// fc2 over the K range of split blockIdx.z (k_split columns). With one split
-// the epilogue runs here; with several, each writes its partial tile to
-// part[z] and fc2_reduce_kernel sums the splits in a fixed order (no
-// atomics, so the result does not depend on block timing).
+// fc2 on the FMA tile (f32 activations; float and weight-only) over the K
+// range of split blockIdx.z (k_split columns); K is the padded width, the
+// pitch of h, W2 and the GRN scale. With one split the epilogue runs here;
+// with several, each writes its partial tile to part[z] and
+// fc2_reduce_kernel sums the splits in a fixed order (no atomics, so the
+// result does not depend on block timing).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads) fc2_kernel(Fc2Args a, int M, int K, int N, int hw, int k_split) {
-  constexpr bool Q8 = MODE == kW8A8;
-  using TA = std::conditional_t<Q8, int8_t, T>;
-  constexpr int TBK = Q8 ? BK8 : BK;
-  constexpr int LDS = Q8 ? LDS8 : BK + smem_pad<T>(), LDC = BN + 4;
-  __shared__ __align__(16) TA As[BM * LDS];
-  __shared__ __align__(16) TA Bs[BN * LDS];
+  constexpr int LDS = BK + smem_pad<T>(), LDC = BN + 4;
+  __shared__ __align__(16) T As[BM * LDS];
+  __shared__ __align__(16) T Bs[BN * LDS];
   __shared__ float Cs[BM * LDC];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * k_split;
-  const TA* h = static_cast<const TA*>(a.h);
-  std::conditional_t<Q8, TileProductS8<BM, BN>, TileProduct<T, BM, BN>> tile;
+  const T* h = static_cast<const T*>(a.h);
+  TileProduct<T, BM, BN> tile;
   tile.zero();
-  for (int k0 = kb; k0 < kb + k_split; k0 += TBK) {
-    if constexpr (Q8) {
-      load_tile_s8<int8_t, BM, BK8>(As, LDS, h, K, m0, M, k0);
-    } else {
-      load_tile<T, BM, BK>(As, LDS, h, K, m0, M, k0, K, a.scale, K, hw);  // GRN scale as A loads
-    }
+  for (int k0 = kb; k0 < kb + k_split; k0 += BK) {
+    load_tile<T, BM, BK>(As, LDS, h, K, m0, M, k0, K, a.scale, K, hw);  // GRN scale as A loads
     if constexpr (MODE == kFloat) {
       load_tile<T, BN, BK>(Bs, LDS, static_cast<const T*>(a.w2), K, n0, N, k0, K);
     } else {
-      load_tile_s8<TA, BN, TBK>(Bs, LDS, static_cast<const int8_t*>(a.w2), K, n0, N, k0);
+      load_codes_f32<BN>(Bs, LDS, static_cast<const int8_t*>(a.w2), K, n0, N, k0);
     }
     __syncthreads();
-    tile.step(As, LDS, Bs, LDS, TBK);
+    tile.step(As, LDS, Bs, LDS, BK);
     __syncthreads();
   }
-  if constexpr (Q8) {
-    tile.store(reinterpret_cast<int*>(Cs), LDC);
-  } else {
-    tile.store(Cs, LDC);
-  }
+  tile.store(Cs, LDC);
   __syncthreads();
   const int c = threadIdx.x % BN, n = n0 + c;
   if (n >= N) return;  // a ragged last column tile (narrow widths)
@@ -566,15 +588,11 @@ __global__ void __launch_bounds__(kThreads) fc2_kernel(Fc2Args a, int M, int K, 
     if (m >= M) break;
     const size_t i = (size_t)m * N + n;
     if (a.part != nullptr) {
-      if constexpr (Q8) {
-        reinterpret_cast<int*>(a.part)[(size_t)blockIdx.z * M * N + i] = reinterpret_cast<const int*>(Cs)[r * LDC + c];
-      } else {
-        a.part[(size_t)blockIdx.z * M * N + i] = Cs[r * LDC + c];
-      }
+      a.part[(size_t)blockIdx.z * M * N + i] = Cs[r * LDC + c];
     } else {
-      const float acc = Q8 ? (float)reinterpret_cast<const int*>(Cs)[r * LDC + c] : Cs[r * LDC + c];
-      static_cast<T*>(a.out)[i] = fc2_finish<T, MODE>(acc, m, n, N, hw, a.bw2, a.s2, a.sh2, static_cast<const T*>(a.b2),
-                                                      static_cast<const T*>(a.x), static_cast<const T*>(a.film));
+      static_cast<T*>(a.out)[i] = fc2_finish<T, MODE>(Cs[r * LDC + c], m, n, N, hw, a.bw2, a.s2, a.sh2,
+                                                      static_cast<const T*>(a.b2), static_cast<const T*>(a.x),
+                                                      static_cast<const T*>(a.film));
     }
   }
 }
@@ -598,10 +616,11 @@ __global__ void fc2_reduce_kernel(Fc2Args a, int splits, int M, int N, int hw) {
                                                   static_cast<const T*>(a.film));
 }
 
-// bf16 float mode, between the GRN scale and fc2: h = round(h * scale[b]) in
-// place, in f32 and rounded to bf16 (load_tile's row_scale arithmetic), 8
-// values a thread. wgmma reads its operands from shared memory as the copy
-// ring lands them, so the scale cannot ride on the A tile's load.
+// bf16 float and weight-only modes, between the GRN scale and fc2: h =
+// round(h * scale[b]) in place, in f32 and rounded to bf16 (load_tile's
+// row_scale arithmetic), 8 values a thread; h and the scale have pitch N.
+// wgmma reads its operands from shared memory as the copy ring lands them,
+// so the scale cannot ride on the A tile's load.
 __global__ void __launch_bounds__(256) grn_apply_kernel(__nv_bfloat16* __restrict__ h, const float* __restrict__ scale,
                                                          int M, int N, int hw) {
   const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
@@ -617,23 +636,38 @@ __global__ void __launch_bounds__(256) grn_apply_kernel(__nv_bfloat16* __restric
   *reinterpret_cast<uint4*>(h + i) = u;
 }
 
-// bf16 float mode, phase 4 on wgmma: one 128 x BN tile of h @ W2^T over the
-// K range of split blockIdx.z (h already scaled), then the epilogue as
-// fc2_kernel: fc2_finish with one split, else the partial to part[z] for
-// fc2_reduce_kernel.
-template <int BN, bool kRagged>
+// Phase 4 on wgmma: one 128 x BN tile of h @ W2^T over the K range of split
+// blockIdx.z (h already scaled: bf16 products, the weight-only codes widened
+// in the kernel; s8 codes hq and s8 products in W8A8), K the padded width
+// (the pitch of h and W2); then the epilogue as fc2_kernel's: fc2_finish with
+// one split, else the partial (f32, or s32 in W8A8) to part[z] for
+// fc2_reduce_kernel. kScalarOut: C % 8 != 0, so out and the partials, at the
+// true pitch, are stored one value at a time.
+template <int BN, bool kRagged, int MODE, typename T, bool kScalarOut>
 __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc2_wgmma_kernel(Fc2Args a, int M, int K, int N, int hw,
                                                                           int k_split) {
-  using T = __nv_bfloat16;
+  using bf16 = __nv_bfloat16;
   constexpr int LDC = BN + 4;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align1024(smem_raw);
-  const int m0 = blockIdx.y * sm90::kBM, n0 = blockIdx.x * BN;
-  sm90::GemmTile<BN> tile;
-  tile.template run<kRagged>(smem, static_cast<const T*>(a.h), static_cast<const T*>(a.w2), K, M, N, K, m0, n0,
-                             blockIdx.z * k_split, (k_split + sm90::kBK - 1) / sm90::kBK);
-  float* Cs = reinterpret_cast<float*>(smem);
-  tile.for_each([&](int r, int c, float v) { Cs[r * LDC + c] = v; });
+  const int m0 = blockIdx.y * sm90::kBM, n0 = blockIdx.x * BN, kb = blockIdx.z * k_split;
+  float* Cs = reinterpret_cast<float*>(smem);  // f32 sums, or the s32 sums' bits in W8A8
+  if constexpr (MODE == kW8A8) {
+    sm90::GemmTile<BN, int8_t> tile;
+    tile.template run<kRagged>(smem, static_cast<const int8_t*>(a.h), static_cast<const int8_t*>(a.w2), K, M, N, K,
+                               m0, n0, kb, (k_split + tile.kK - 1) / tile.kK);
+    tile.for_each([&](int r, int c, int v) { reinterpret_cast<int*>(Cs)[r * LDC + c] = v; });
+  } else if constexpr (MODE == kInt8) {
+    sm90::GemmTile<BN> tile;
+    tile.run_codes(smem, static_cast<const bf16*>(a.h), static_cast<const int8_t*>(a.w2), K, M, m0, n0, kb,
+                   k_split / sm90::kBK);
+    tile.for_each([&](int r, int c, float v) { Cs[r * LDC + c] = v; });
+  } else {
+    sm90::GemmTile<BN> tile;
+    tile.template run<kRagged>(smem, static_cast<const bf16*>(a.h), static_cast<const bf16*>(a.w2), K, M, N, K, m0,
+                               n0, kb, (k_split + sm90::kBK - 1) / sm90::kBK);
+    tile.for_each([&](int r, int c, float v) { Cs[r * LDC + c] = v; });
+  }
   __syncthreads();
   // 8 consecutive outputs a thread, their loads independent of each other
   for (int e = threadIdx.x; e < sm90::kBM * (BN / 8); e += blockDim.x) {
@@ -641,21 +675,34 @@ __global__ void __launch_bounds__(sm90::kGemmThreads, 1) fc2_wgmma_kernel(Fc2Arg
     if (m >= M) break;
     if (kRagged && n0 + c >= N) continue;
     const size_t i = (size_t)m * N + n0 + c;
-    const float4 v0 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
-    const float4 v1 = *reinterpret_cast<const float4*>(Cs + r * LDC + c + 4);
-    if (a.part != nullptr) {
-      float4* dst = reinterpret_cast<float4*>(a.part + (size_t)blockIdx.z * M * N + i);
+    if constexpr (kScalarOut) {  // the float mode at C % 8 != 0
+      for (int j = 0; j < 8 && n0 + c + j < N; ++j) {
+        const float v = Cs[r * LDC + c + j];
+        if (a.part != nullptr) a.part[(size_t)blockIdx.z * M * N + i + j] = v;
+        else static_cast<T*>(a.out)[i + j] = fc2_finish<T, MODE>(v, m, n0 + c + j, N, hw, a.bw2, a.s2, a.sh2,
+                                                                 static_cast<const T*>(a.b2), static_cast<const T*>(a.x),
+                                                                 static_cast<const T*>(a.film));
+      }
+      continue;
+    }
+    const uint4 v0 = *reinterpret_cast<const uint4*>(Cs + r * LDC + c);
+    const uint4 v1 = *reinterpret_cast<const uint4*>(Cs + r * LDC + c + 4);
+    if (a.part != nullptr) {  // the 32 bytes as they are: f32 sums or s32 bits
+      uint4* dst = reinterpret_cast<uint4*>(a.part + (size_t)blockIdx.z * M * N + i);
       dst[0] = v0;
       dst[1] = v1;
     } else {
-      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-      uint4 u;
-      T* o = reinterpret_cast<T*>(&u);
+      const uint32_t bits[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      uint4 u[sizeof(T) / 2];  // 8 outputs
+      T* o = reinterpret_cast<T*>(u);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        o[j] = fc2_finish<T, kFloat>(v[j], m, n0 + c + j, N, hw, a.bw2, a.s2, a.sh2, static_cast<const T*>(a.b2),
-                                     static_cast<const T*>(a.x), static_cast<const T*>(a.film));
-      *reinterpret_cast<uint4*>(static_cast<T*>(a.out) + i) = u;
+      for (int j = 0; j < 8; ++j) {
+        const float v = MODE == kW8A8 ? (float)(int)bits[j] : __uint_as_float(bits[j]);
+        o[j] = fc2_finish<T, MODE>(v, m, n0 + c + j, N, hw, a.bw2, a.s2, a.sh2, static_cast<const T*>(a.b2),
+                                   static_cast<const T*>(a.x), static_cast<const T*>(a.film));
+      }
+#pragma unroll
+      for (int j = 0; j < (int)sizeof(T) / 2; ++j) reinterpret_cast<uint4*>(static_cast<T*>(a.out) + i)[j] = u[j];
     }
   }
 }
@@ -679,128 +726,161 @@ inline int fc1_tiles(const Args& a, int bm) {
   return a.tpi > 0 ? a.B * a.tpi : (a.B * a.H * a.W + bm - 1) / bm;
 }
 
-template <int BN, bool kRagged>
-cudaError_t launch_fc1_wgmma(const Args& a, int M, int N1, int hw, cudaStream_t st) {
-  constexpr int smem = sm90::GemmTile<BN>::kSmem;
-  cudaError_t err = sm90::reserve_smem<fc1_wgmma_kernel<BN, kRagged>>(smem);
-  if (err != cudaSuccess) return err;
-  fc1_wgmma_kernel<BN, kRagged><<<dim3((N1 + BN - 1) / BN, fc1_tiles(a, sm90::kBM)), sm90::kGemmThreads, smem, st>>>(
-      (const __nv_bfloat16*)a.xn, (const __nv_bfloat16*)a.w1, (const __nv_bfloat16*)a.b1, (__nv_bfloat16*)a.h,
-      a.gx_part, M, a.C, N1, hw, a.slots, a.tpi);
+// Phase 1 and the GRN scale, in their padded variants only where the pitch
+// (K1 or K2) exceeds the width.
+template <typename T, bool Q8>
+cudaError_t launch_dw_ln(const Args& a, int M, int K1, cudaStream_t st) {
+  const auto kernel = K1 != a.C ? dw_ln_kernel<T, Q8, true> : dw_ln_kernel<T, Q8, false>;
+  kernel<<<M, kThreads, a.C * sizeof(float), st>>>((const T*)a.x, (const T*)a.skip, (const T*)a.dw_w,
+                                                     (const T*)a.dw_b, a.xn, a.sx, a.H, a.W, a.C, K1);
   return cudaGetLastError();
 }
 
-template <int BN, bool kRagged>
-cudaError_t launch_fc2_wgmma(const Fc2Args& f, int M, int N1, int C, int hw, int splits, cudaStream_t st) {
-  constexpr int smem = sm90::GemmTile<BN>::kSmem;
-  cudaError_t err = sm90::reserve_smem<fc2_wgmma_kernel<BN, kRagged>>(smem);
-  if (err != cudaSuccess) return err;
-  fc2_wgmma_kernel<BN, kRagged><<<dim3((C + BN - 1) / BN, (M + sm90::kBM - 1) / sm90::kBM, splits), sm90::kGemmThreads, smem,
-                         st>>>(f, M, N1, C, hw, N1 / splits);
+inline cudaError_t launch_grn_scale(const Args& a, int N1, int K2, int hw, int bm, cudaStream_t st) {
+  const auto kernel = K2 != N1 ? grn_scale_kernel<true> : grn_scale_kernel<false>;
+  kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, K2, hw, a.slots, bm, a.tpi);
   return cudaGetLastError();
 }
 
-// bf16 float mode: dw+LN, fc1 on wgmma (128-row tiles, bn1 wide), the GRN
-// scale over 128-row tile partials, its in-place application to h, fc2 on
-// wgmma (bn2 wide, `splits` K splits of whole 64-deep steps) and, with
-// splits, the fixed-order reduce. bn1, bn2, splits and tpi come from
-// kernels/resblock.py::launch_plan.
-int launch_bf16_float(const Args& a, cudaStream_t st) {
-  using T = __nv_bfloat16;
-  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C;
+template <int BN, bool kRagged, int MODE, typename T>
+cudaError_t fc1_at(const Args& a, int M, int K, int N1, int ldh, int hw, cudaStream_t st) {
+  constexpr auto kernel = fc1_wgmma_kernel<BN, kRagged, MODE, T>;
+  constexpr int smem = MODE == kInt8 ? sm90::GemmTile<BN>::kSmemCodes : sm90::GemmTile<BN>::kSmem;
+  cudaError_t err = sm90::reserve_smem<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((N1 + BN - 1) / BN, fc1_tiles(a, sm90::kBM)), sm90::kGemmThreads, smem, st>>>(
+      a.xn, a.w1, (const T*)a.b1, a.s1, a.sx, a.h, a.gx_part, M, K, N1, ldh, hw, a.slots, a.tpi);
+  return cudaGetLastError();
+}
+
+template <int BN, bool kRagged, int MODE, typename T, bool kScalarOut = false>
+cudaError_t fc2_at(const Fc2Args& f, int M, int K, int C, int hw, int splits, cudaStream_t st) {
+  constexpr auto kernel = fc2_wgmma_kernel<BN, kRagged, MODE, T, kScalarOut>;
+  constexpr int smem = MODE == kInt8 ? sm90::GemmTile<BN>::kSmemCodes : sm90::GemmTile<BN>::kSmem;
+  cudaError_t err = sm90::reserve_smem<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((C + BN - 1) / BN, (M + sm90::kBM - 1) / sm90::kBM, splits), sm90::kGemmThreads, smem, st>>>(
+      f, M, K, C, hw, K / splits);
+  return cudaGetLastError();
+}
+
+// fc1 at the plan's width, in the tile variant its widths need: ragged where
+// K or N leaves a partial tile. Weight-only's codes need whole tiles, which
+// its widths (C % 64 == 0) give.
+template <int MODE, typename T>
+cudaError_t launch_fc1(const Args& a, int M, int K, int N1, int ldh, int hw, cudaStream_t st) {
+  constexpr int kK = MODE == kW8A8 ? 128 : sm90::kBK;
+  const bool ragged = K % kK || N1 % a.bn1;
+  if constexpr (MODE == kInt8) {
+    if (ragged) return cudaErrorInvalidValue;
+    return a.bn1 == 128 ? fc1_at<128, false, MODE, T>(a, M, K, N1, ldh, hw, st)
+                        : fc1_at<64, false, MODE, T>(a, M, K, N1, ldh, hw, st);
+  } else {
+    if (a.bn1 == 128)
+      return ragged ? fc1_at<128, true, MODE, T>(a, M, K, N1, ldh, hw, st)
+                    : fc1_at<128, false, MODE, T>(a, M, K, N1, ldh, hw, st);
+    return ragged ? fc1_at<64, true, MODE, T>(a, M, K, N1, ldh, hw, st)
+                  : fc1_at<64, false, MODE, T>(a, M, K, N1, ldh, hw, st);
+  }
+}
+
+// fc2 likewise; the int8 modes' widths never leave a partial fc2 tile, and
+// only the float mode takes C % 8 != 0 (kScalarOut).
+template <int MODE, typename T>
+cudaError_t launch_fc2(const Args& a, const Fc2Args& f, int M, int K, int C, int hw, cudaStream_t st) {
+  constexpr int kK = MODE == kW8A8 ? 128 : sm90::kBK;
+  const bool ragged = K % kK || C % a.bn2;
+  if constexpr (MODE != kFloat) {
+    if (ragged) return cudaErrorInvalidValue;
+    return a.bn2 == 128 ? fc2_at<128, false, MODE, T>(f, M, K, C, hw, a.splits, st)
+                        : fc2_at<64, false, MODE, T>(f, M, K, C, hw, a.splits, st);
+  } else {
+    if (C % 8)
+      return a.bn2 == 128 ? fc2_at<128, true, MODE, T, true>(f, M, K, C, hw, a.splits, st)
+                          : fc2_at<64, true, MODE, T, true>(f, M, K, C, hw, a.splits, st);
+    if (a.bn2 == 128)
+      return ragged ? fc2_at<128, true, MODE, T>(f, M, K, C, hw, a.splits, st)
+                    : fc2_at<128, false, MODE, T>(f, M, K, C, hw, a.splits, st);
+    return ragged ? fc2_at<64, true, MODE, T>(f, M, K, C, hw, a.splits, st)
+                  : fc2_at<64, false, MODE, T>(f, M, K, C, hw, a.splits, st);
+  }
+}
+
+// The wgmma path (every bf16 mode, and W8A8 at either dtype): dw+LN, fc1 on
+// wgmma (128-row tiles, bn1 wide), the GRN scale over 128-row tile partials,
+// its application to h (in place; W8A8 requantizes h instead), fc2 on wgmma
+// (bn2 wide, `splits` K splits of whole K steps) and, with splits, the
+// fixed-order reduce. bn1, bn2, splits and tpi come from
+// kernels/resblock.py::launch_plan. K1 = round8(C), K2 = round8(4C): the
+// padded pitches of xn and h (C and 4C in the int8 modes).
+template <typename T, int MODE>
+int launch_wgmma(const Args& a, cudaStream_t st) {
+  constexpr bool Q8 = MODE == kW8A8;
+  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C, K1 = round8(C), K2 = round8(N1);
+  const int step = Q8 ? 128 : sm90::kBK;
   const bool tiles_ok = (a.bn1 == 64 || a.bn1 == 128) && (a.bn2 == 64 || a.bn2 == 128) && a.splits >= 1 &&
-                        (a.splits == 1 || N1 % (a.splits * sm90::kBK) == 0);
+                        (a.splits == 1 || K2 % (a.splits * step) == 0);
   if (!tiles_ok) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  dw_ln_kernel<T, false><<<M, kThreads, C * sizeof(float), st>>>(
-      (const T*)a.x, (const T*)a.skip, (const T*)a.dw_w, (const T*)a.dw_b, a.xn, nullptr, a.H, a.W, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // the ragged tile variants only where K or N leaves a partial tile (C % 64 != 0)
-  const bool ragged1 = C % sm90::kBK || N1 % a.bn1, ragged2 = N1 % sm90::kBK || C % a.bn2;
-  if (a.bn1 == 128)
-    err = ragged1 ? launch_fc1_wgmma<128, true>(a, M, N1, hw, st) : launch_fc1_wgmma<128, false>(a, M, N1, hw, st);
-  else
-    err = ragged1 ? launch_fc1_wgmma<64, true>(a, M, N1, hw, st) : launch_fc1_wgmma<64, false>(a, M, N1, hw, st);
-  if (err != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, sm90::kBM,
-                                                          a.tpi);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t vecs = (size_t)M * N1 / 8;
-  grn_apply_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>((T*)a.h, a.scale, M, N1, hw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  Fc2Args f{a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film, a.out, a.splits > 1 ? a.part : nullptr};
-  if (a.bn2 == 128)
-    err = ragged2 ? launch_fc2_wgmma<128, true>(f, M, N1, C, hw, a.splits, st)
-                  : launch_fc2_wgmma<128, false>(f, M, N1, C, hw, a.splits, st);
-  else
-    err = ragged2 ? launch_fc2_wgmma<64, true>(f, M, N1, C, hw, a.splits, st)
-                  : launch_fc2_wgmma<64, false>(f, M, N1, C, hw, a.splits, st);
-  if (err != cudaSuccess || a.splits == 1) return (int)err;
-  fc2_reduce_kernel<T, kFloat><<<(M * C + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int MODE>
-int launch(const Args& a, cudaStream_t st) {
-  constexpr bool Q8 = MODE == kW8A8;
-  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C;
-  // each fc2 split must cover whole K tiles (32 deep, or 64 s8 bytes in W8A8)
-  if (a.splits < 1 || N1 % a.splits || (N1 / a.splits) % (Q8 ? BK8 : BK)) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  dw_ln_kernel<T, Q8><<<M, kThreads, C * sizeof(float), st>>>(
-      (const T*)a.x, (const T*)a.skip, (const T*)a.dw_w, (const T*)a.dw_b, a.xn, a.sx, a.H, a.W, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fc1_kernel<T, MODE><<<dim3((N1 + BN - 1) / BN, fc1_tiles(a, BM)), kThreads, 0, st>>>(
-      a.xn, a.w1, (const T*)a.b1, a.s1, a.sx, a.h, a.gx_part, M, C, N1, hw, a.slots, a.tpi);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  grn_scale_kernel<<<a.B, 1024, N1 * sizeof(float), st>>>(a.gx_part, a.gamma, a.scale, N1, hw, a.slots, BM, a.tpi);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_dw_ln<T, Q8>(a, M, K1, st)) != cudaSuccess) return (int)err;
+  if ((err = launch_fc1<MODE, T>(a, M, K1, N1, K2, hw, st)) != cudaSuccess) return (int)err;
+  if ((err = launch_grn_scale(a, N1, K2, hw, sm90::kBM, st)) != cudaSuccess) return (int)err;
   if constexpr (Q8) {
     requant_kernel<<<M, 256, N1 * sizeof(float), st>>>((const float*)a.h, a.scale, a.hq, a.sh2, N1, hw, a.group);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  } else {
+    const size_t vecs = (size_t)M * K2 / 8;
+    grn_apply_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>((__nv_bfloat16*)a.h, a.scale, M, K2, hw);
   }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   Fc2Args f{Q8 ? (const void*)a.hq : (const void*)a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film,
             a.out, a.splits > 1 ? a.part : nullptr};
-  fc2_kernel<T, MODE><<<dim3((C + BN - 1) / BN, (M + BM - 1) / BM, a.splits), kThreads, 0, st>>>(f, M, N1, C, hw,
-                                                                                                 N1 / a.splits);
-  if ((err = cudaGetLastError()) != cudaSuccess || a.splits == 1) return (int)err;
-  const int n_out = M * C;
-  fc2_reduce_kernel<T, MODE><<<(n_out + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
+  err = launch_fc2<MODE, T>(a, f, M, K2, C, hw, st);
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  fc2_reduce_kernel<T, MODE><<<(M * C + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_mode(const Args& a, int mode, cudaStream_t st) {
-  switch (mode) {
-    case kFloat:  // bf16 runs the wgmma phases; f32 keeps the FMA tile product
-      if constexpr (is_bf16<T>()) return launch_bf16_float(a, st);
-      else return launch<T, kFloat>(a, st);
-    case kInt8: return launch<T, kInt8>(a, st);
-    case kW8A8: return launch<T, kW8A8>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// f32 activations, float and weight-only modes: the same phases on the FMA
+// tiles (64-row fc1 tiles; fc2 splits of whole 32-deep K tiles).
+template <typename T, int MODE>
+int launch_fma(const Args& a, cudaStream_t st) {
+  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C, K1 = round8(C), K2 = round8(N1);
+  if (a.splits < 1 || (a.splits > 1 && (K2 % a.splits || (K2 / a.splits) % BK))) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = launch_dw_ln<T, false>(a, M, K1, st)) != cudaSuccess) return (int)err;
+  fc1_kernel<T, MODE><<<dim3((N1 + BN - 1) / BN, fc1_tiles(a, BM)), kThreads, 0, st>>>(
+      (const T*)a.xn, a.w1, (const T*)a.b1, a.s1, (T*)a.h, a.gx_part, M, K1, N1, K2, hw, a.slots, a.tpi);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_grn_scale(a, N1, K2, hw, BM, st)) != cudaSuccess) return (int)err;
+  Fc2Args f{a.h, a.scale, a.w2, a.bw2, a.s2, a.sh2, a.b2, a.x, a.film, a.out, a.splits > 1 ? a.part : nullptr};
+  fc2_kernel<T, MODE><<<dim3((C + BN - 1) / BN, (M + BM - 1) / BM, a.splits), kThreads, 0, st>>>(f, M, K2, C, hw,
+                                                                                                 K2 / a.splits);
+  if ((err = cudaGetLastError()) != cudaSuccess || a.splits == 1) return (int)err;
+  fc2_reduce_kernel<T, MODE><<<(M * C + 255) / 256, 256, 0, st>>>(f, a.splits, M, C, hw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace paella
 
 // C interface for ctypes. Shapes: x, skip, out (B,H,W,C); dw_w (3,3,cpg,C);
-// dw_b, b2 (C); w1 (4C,C); b1 (4C); gamma (4C) f32; w2 (C,4C); bw2 (C) f32;
-// film (B,2C) [a | b]; scratch xn (B*H*W, C), h (B*H*W, 4C), gx_part
-// (fc1 tiles * slots, 4C) f32 with fc1 tiles B*tpi (tpi > 0: tpi bm-row tiles
-// per image) or ceil(B*H*W / bm) (tpi 0: absolute tiles) and slots the most
-// batch items one tile touches (bm 128 in bf16 float mode, else 64), scale
-// (B, 4C) f32, and with splits > 1 part (splits, B*H*W, C) f32, the fc2
-// split-K partials (4C / splits a multiple of 32, and of 64 in W8A8 and in
-// bf16 float mode: whole K tiles). bn1, bn2: the bf16 float mode's fc1 and
-// fc2 tile widths (64 or 128); other modes ignore them.
+// dw_b, b2 (C); w1 (4C,K1); b1 (4C); gamma (4C) f32; w2 (C,K2); bw2 (C) f32;
+// film (B,2C) [a | b]; with K1 = C and K2 = 4C each rounded up to a multiple
+// of 8 (zero pad columns in w1 and w2). Scratch: xn (B*H*W, K1), h (B*H*W,
+// K2), gx_part (fc1 tiles * slots, 4C) f32 with fc1 tiles B*tpi (tpi > 0: tpi
+// bm-row tiles per image) or ceil(B*H*W / bm) (tpi 0: absolute tiles) and
+// slots the most batch items one tile touches (bm 128 on the wgmma path:
+// every bf16 mode and W8A8; 64 on the FMA path: f32 float and weight-only),
+// scale (B, K2) f32, and with splits > 1 part (splits, B*H*W, C) f32, the fc2
+// split-K partials (K2 / splits a whole number of K steps: 32 deep on the
+// FMA path, 64 bf16 or 128 s8 codes on the wgmma path). bn1, bn2: the wgmma
+// path's fc1 and fc2 tile widths (64 or 128); the FMA path ignores them.
 // mode 0 (float): w1, w2, xn and h in the dtype; s1, s2, sx, hq, sh2 null.
 // mode 1 (weight-only int8): w1, w2 int8 codes with f32 scales s1 (4C), s2
 // (C). mode 2 (W8A8): as mode 1, plus xn int8 with sx (B*H*W) f32, h f32,
 // hq (B*H*W, 4C) int8 and sh2 (B*H*W) f32, and h's provisional codes taken
-// per `group` columns (4C % group == 0). skip and film may be null.
-// C % 8 == 0 in float mode, C % 64 == 0 in the int8 modes. Returns a
-// cudaError_t.
+// per `group` columns (4C % group == 0). skip and film may be null. Any C in
+// float mode; C % 64 == 0 in the int8 modes. Returns a cudaError_t.
 extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w, const void* dw_b,
                                const void* w1, const void* b1, const void* gamma, const void* w2,
                                const void* bw2, const void* b2, const void* film, const void* s1,
@@ -809,9 +889,22 @@ extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w
                                int H, int W, int C, int is_bf16, int mode, int group, int bn1, int bn2,
                                int tpi, void* stream) {
   using namespace paella;
+  using bf16 = __nv_bfloat16;
   const Args a{x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2, b2, film,
                (const float*)s1, (const float*)s2, out, xn, h, (float*)gx_part, (float*)scale,
                (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group, bn1, bn2, tpi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_mode<__nv_bfloat16>(a, mode, st) : launch_mode<float>(a, mode, st);
+  if ((mode != kFloat && C % 64) || mode < kFloat || mode > kW8A8) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    switch (mode) {
+      case kFloat: return launch_wgmma<bf16, kFloat>(a, st);
+      case kInt8: return launch_wgmma<bf16, kInt8>(a, st);
+      default: return launch_wgmma<bf16, kW8A8>(a, st);
+    }
+  }
+  switch (mode) {  // f32: the FMA tiles, and the s8 products on wgmma
+    case kFloat: return launch_fma<float, kFloat>(a, st);
+    case kInt8: return launch_fma<float, kInt8>(a, st);
+    default: return launch_wgmma<float, kW8A8>(a, st);
+  }
 }

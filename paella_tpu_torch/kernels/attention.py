@@ -11,6 +11,9 @@ tensors and runs `attention_plain`, the same computation in torch ops with the
 same rounding points, on CPU tensors only. A call with `reweight` (the
 structural-editing hook) goes to `nn/attention.py::dot_product_attention`, as
 the JAX kernel's does; that is decided from the arguments, before any launch.
+The kernel takes any head dim: up to 128 a warp keeps its outputs in
+registers, wider heads split their output columns among blocks, and a head
+dim that is not a multiple of 8 is padded with zeros (see `fused_attention`).
 """
 from __future__ import annotations
 
@@ -19,10 +22,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._build import check_operands, check_rc, load_library, stream_handle
 
-MAX_HEAD_DIM = 128
 NEG_INF = -1e9  # the mask fill of nn/attention.py and of the TPU kernel
 
 
@@ -57,14 +60,6 @@ def attention_plain(
 attention_plain.launches = 0
 
 
-def check_head_dim(d: int, what: str) -> None:
-    """The kernel's head dims: whole 16-byte rows of bf16 (D % 8 == 0; bf16
-    pads a head to the next multiple of 16 in shared memory), at most 128
-    (its per-warp register tiles)."""
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} (the kernel takes multiples of 8 up to {MAX_HEAD_DIM})")
-
-
 def _row_stride(t: torch.Tensor, name: str) -> int:
     """The row stride of (B, L, H, D) whose (H, D) rows are contiguous and
     evenly spaced (a head split of a projection's output, say)."""
@@ -87,7 +82,12 @@ def fused_attention(
     kv_mask (B, S) bool -> (B, N, H, D) contiguous: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors, dot_product_attention for a
     reweight. The kernel takes q, k and v whose (H, D) rows are contiguous
-    and evenly spaced, such as the k and v halves of one projection."""
+    and evenly spaced, such as the k and v halves of one projection, at any
+    head dim. Its rows are copied 16 bytes at a time, so where D % 8 != 0
+    (no shipped config has such a head) this wrapper copies q, k and v into
+    heads zero-padded to the next multiple of 8 once a call, runs the kernel
+    on them with the true head dim's scale (the zero columns add nothing to
+    the scores, and their outputs are zero), and crops the output."""
     if reweight is not None:
         from ..nn.attention import dot_product_attention  # nn imports this module
 
@@ -107,22 +107,24 @@ def fused_attention(
         raise ValueError("fused_attention: q, k and v must share a dtype")
     if kv_mask is not None and (kv_mask.shape != (b, s) or kv_mask.dtype != torch.bool):
         raise ValueError(f"fused_attention: kv_mask must be ({b}, {s}) bool")
-    check_head_dim(d, "fused_attention")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"fused_attention: {name} is on {t.device}, not {q.device}")
     check_operands("fused_attention", q.device, {"kv_mask": kv_mask})
+    d8 = -(-d // 8) * 8
+    if d8 != d:  # heads zero-padded to whole 16-byte rows, once a call
+        q, k, v = (F.pad(t, (0, d8 - d)) for t in (q, k, v))
     ldq, ldk, ldv = _row_stride(q, "q"), _row_stride(k, "k"), _row_stride(v, "v")
 
-    out = torch.empty((b, n, h, d), dtype=dt, device=q.device)
+    out = torch.empty((b, n, h, d8), dtype=dt, device=q.device)
     rc = _library().paella_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
-        out.data_ptr(), b, n, s, h, d, ldq, ldk, ldv, score_scale(d), int(dt == torch.bfloat16),
+        out.data_ptr(), b, n, s, h, d8, ldq, ldk, ldv, score_scale(d), int(dt == torch.bfloat16),
         stream_handle(q),
     )
     check_rc(rc, "fused_attention")
     fused_attention.launches += 1
-    return out
+    return out if d8 == d else out[..., :d].contiguous()
 
 
 fused_attention.launches = 0

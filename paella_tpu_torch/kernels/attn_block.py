@@ -18,7 +18,12 @@ the JAX module does against the JAX kernel.
 `fused_attn_block` launches the CUDA kernel (csrc/attn_block.cu) on CUDA
 tensors and runs `attn_block_plain`, the same computation in torch ops, on CPU
 tensors only. Weights stay in the reference's packed layout (in_proj_weight
-(3C, C), q|k|v rows; out_proj (C, C)), with no head padding.
+(3C, C), q|k|v rows; out_proj (C, C)); only where C or the head dim D is not
+a multiple of 8 (no shipped config) does `prepare_attn_block_weights` pad
+them, each row to round8(C) columns and each head to round8(D) rows of q, k
+and v (and Wo's columns to match) with zeros, so that the kernel's rows are
+16-byte aligned: the products run over zero-padded K and the attention over
+zero-padded heads, which add exactly nothing.
 
 The kernel in bf16 (the flagship's path): LN; the q|k|v product over every
 row ([pixels ; cond], the cond rows' q unread) on the Hopper wgmma tile of K1
@@ -29,8 +34,8 @@ prefix of the cond mask; then the o-projection + bias + x on the same tile,
 rounded once. `attn_block_plan` picks the products' tile widths and K splits
 from one CFG pair's shapes, never from the batch, and every sum has a fixed
 order: two runs are bitwise equal and an image's output does not depend on
-its batchmates. f32 keeps 64x64 FMA tiles for the products. C % 8 == 0 and
-head dims D % 8 == 0 up to 128. What bounds it, what was tried and what it
+its batchmates. f32 keeps 64x64 FMA tiles for the products. Any C that the
+head count divides, any head dim. What bounds it, what was tried and what it
 measured: csrc/attn_block.cu's header; PERF.md has the device time per
 sub-kernel before and after this design.
 """
@@ -41,19 +46,28 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ._build import check_operands, check_rc, load_library, stream_handle
-from .attention import attention_core, check_head_dim, score_scale
-from .resblock import gemm_tiles
+from .attention import attention_core, score_scale
+from .resblock import gemm_tiles, round8
 
 
 class AttnBlockWeights(NamedTuple):
-    """One AttnBlock's attention weights in the compute dtype."""
+    """One AttnBlock's attention weights in the compute dtype, at the padded
+    widths `padded_widths` gives (the true ones wherever C and D are
+    multiples of 8)."""
 
-    wqkv: torch.Tensor  # (3C, C) in_proj_weight, q|k|v rows
-    bqkv: torch.Tensor  # (3C,)
-    wo: torch.Tensor  # (C, C) out_proj.weight
+    wqkv: torch.Tensor  # (3 H D8, Cp) in_proj_weight, q|k|v rows
+    bqkv: torch.Tensor  # (3 H D8,)
+    wo: torch.Tensor  # (C, H D8) out_proj.weight
     bo: torch.Tensor  # (C,)
+
+
+def padded_widths(c: int, nhead: int) -> tuple[int, int]:
+    """(Cp, D8): the kernel's row pitch and head pitch, C and C / nhead
+    rounded up to multiples of 8."""
+    return round8(c), round8(c // nhead)
 
 
 @torch.no_grad()
@@ -63,11 +77,36 @@ def prepare_attn_block_weights(
     out_weight: torch.Tensor,
     out_bias: torch.Tensor,
     dtype: torch.dtype,
+    nhead: int,
 ) -> AttnBlockWeights:
+    """The weights in the dtype, zero-padded to `padded_widths` (a copy
+    only where C or the head dim is not a multiple of 8)."""
+
     def cast(t: torch.Tensor) -> torch.Tensor:
         return t.detach().to(dtype).contiguous()
 
-    return AttnBlockWeights(cast(in_proj_weight), cast(in_proj_bias), cast(out_weight), cast(out_bias))
+    w = AttnBlockWeights(cast(in_proj_weight), cast(in_proj_bias), cast(out_weight), cast(out_bias))
+    c = w.wo.shape[0]
+    cp, d8 = padded_widths(c, nhead)
+    d = c // nhead
+    if (cp, d8) == (c, d):
+        return w
+    wqkv = F.pad(w.wqkv.reshape(3, nhead, d, c), (0, cp - c, 0, d8 - d)).reshape(3 * nhead * d8, cp)
+    bqkv = F.pad(w.bqkv.reshape(3, nhead, d), (0, d8 - d)).reshape(-1)
+    wo = F.pad(w.wo.reshape(c, nhead, d), (0, d8 - d)).reshape(c, nhead * d8)
+    return AttnBlockWeights(wqkv.contiguous(), bqkv.contiguous(), wo.contiguous(), w.bo)
+
+
+def true_weights(w: AttnBlockWeights, c: int, nhead: int) -> AttnBlockWeights:
+    """The weights at the true widths, their padding (if any) dropped."""
+    if w.wqkv.shape == (3 * c, c):
+        return w
+    cp, d8 = padded_widths(c, nhead)
+    d = c // nhead
+    return AttnBlockWeights(
+        w.wqkv.reshape(3, nhead, d8, cp)[:, :, :d, :c].reshape(3 * c, c), w.bqkv.reshape(3, nhead, d8)[:, :, :d].reshape(-1),
+        w.wo.reshape(c, nhead, d8)[:, :, :d].reshape(c, c), w.bo,
+    )
 
 
 def attn_block_plain(
@@ -83,6 +122,7 @@ def attn_block_plain(
     dt = x.dtype
     b, hh, ww, c = x.shape
     n = hh * ww
+    w = true_weights(w, c, nhead)
     xf = x.float().reshape(b, n, c)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
@@ -120,12 +160,15 @@ def attn_block_plan(n: int, s_c: int, c: int, nhead: int, dtype: torch.dtype, n_
     cond rows and width C, from the row counts of one CFG pair (two images)
     and never from the batch, so an image's bits do not depend on its
     batchmates: K1's rule (`resblock.gemm_tiles`) for the (2S, 3C) q|k|v
-    product and the (2N, C) o-projection, both over K = C. At the
-    flagship's levels on 132 SMs: (128, 1, 64, 1) at N 256 and
-    (128, 1, 64, 4) at N 64. f32 takes no plan (its FMA tiles)."""
+    product and the (2N, C) o-projection, both over K = C, at the padded
+    widths (`padded_widths`). At the flagship's levels on 132 SMs:
+    (128, 1, 64, 1) at N 256 and (128, 1, 64, 4) at N 64. f32 takes no plan
+    (its FMA tiles)."""
     if dtype != torch.bfloat16:
         return AttnBlockPlan(0, 1, 0, 1)
-    return AttnBlockPlan(*gemm_tiles(2 * (n + s_c), 3 * c, c, n_sm), *gemm_tiles(2 * n, c, c, n_sm))
+    cp, d8 = padded_widths(c, nhead)
+    cq = nhead * d8
+    return AttnBlockPlan(*gemm_tiles(2 * (n + s_c), 3 * cq, cp, n_sm), *gemm_tiles(2 * n, c, cq, n_sm))
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,13 +196,17 @@ def fused_attn_block(
     b, hh, ww, c = x.shape
     n = hh * ww
     s_c = kv.shape[1]
-    if c % 8 or c % nhead:
-        raise ValueError(f"fused_attn_block: C={c} must be a multiple of 8 and of nhead={nhead}")
-    check_head_dim(c // nhead, "fused_attn_block")
+    if c % nhead:
+        raise ValueError(f"fused_attn_block: C={c} must be a multiple of nhead={nhead}")
     if kv.shape != (b, s_c, c) or kv.dtype != dt:
         raise ValueError(f"fused_attn_block: kv must be ({b}, S, {c}) {dt}, got {tuple(kv.shape)} {kv.dtype}")
-    if w.wqkv.shape != (3 * c, c) or w.bqkv.shape != (3 * c,) or w.wo.shape != (c, c) or w.bo.shape != (c,):
-        raise ValueError(f"fused_attn_block: weight shapes do not fit C={c}")
+    cp, d8 = padded_widths(c, nhead)
+    cq = nhead * d8
+    if w.wqkv.shape != (3 * cq, cp) or w.bqkv.shape != (3 * cq,) or w.wo.shape != (c, cq) or w.bo.shape != (c,):
+        raise ValueError(
+            f"fused_attn_block: weight shapes do not fit C={c} with {nhead} heads "
+            f"(prepare_attn_block_weights(..., nhead={nhead}) pads them)"
+        )
     for name, t in w._asdict().items():
         if t.dtype != dt:
             raise ValueError(f"fused_attn_block: weight {name} is not {dt}")
@@ -181,10 +228,12 @@ def _launch(x, kv, w: AttnBlockWeights, nhead: int, cond_mask, plan: AttnBlockPl
     b, hh, ww, c = x.shape
     n, s_c = hh * ww, kv.shape[1]
     s = n + s_c
+    cp, d8 = padded_widths(c, nhead)
+    cq = nhead * d8
     out = torch.empty_like(x)
     empty = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
-    rows, qkv, att = empty(b * s, c), empty(b * s, 3 * c), empty(b * n, c)
-    part_len = max(plan.splits_qkv * b * s * 3 * c if plan.splits_qkv > 1 else 0,
+    rows, qkv, att = empty(b * s, cp), empty(b * s, 3 * cq), empty(b * n, cq)
+    part_len = max(plan.splits_qkv * b * s * 3 * cq if plan.splits_qkv > 1 else 0,
                    plan.splits_o * b * n * c if plan.splits_o > 1 else 0)
     part = empty(part_len, dtype=torch.float32) if part_len else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

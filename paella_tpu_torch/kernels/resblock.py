@@ -31,7 +31,16 @@ it launches the CUDA kernel of csrc/resblock.cu on CUDA tensors (K1 for
 float weights, K1b for int8 ones) and runs `resblock_plain`, the same
 computation in torch ops with the same rounding points, on CPU tensors only. Weights come in the layout the kernels
 read (`ResBlockWeights`), derived once from the module's parameters by
-`prepare_resblock_weights`.
+`prepare_resblock_weights`: float W1 and W2 take a padded pitch, C and 4C
+rounded up to a multiple of 8 with zero columns, so the kernel runs its
+products over 16-byte aligned rows at any C. The int8 modes keep the TPU
+kernel's alignment, C % 64 == 0.
+
+On the card the bf16 modes and W8A8 run their products on Hopper's wgmma
+(csrc/gemm_sm90.cuh): bf16 float products, weight-only codes widened to bf16
+inside the kernel (no bf16 copy of a weight is made), W8A8 as s8 x s8 -> s32;
+f32 activations in the float and weight-only modes take FMA tiles.
+`launch_plan` picks the tiling.
 """
 from __future__ import annotations
 
@@ -52,10 +61,10 @@ class ResBlockWeights(NamedTuple):
 
     dw: torch.Tensor  # (3, 3, cpg, C) depthwise kernel
     dw_b: torch.Tensor  # (C,)
-    w1: torch.Tensor  # (4C, C) fc1, torch Linear layout; int8 codes with s1
+    w1: torch.Tensor  # (4C, round8(C)) fc1, torch Linear layout, zero pad columns; int8 codes (4C, C) with s1
     b1: torch.Tensor  # (4C,)
     gamma: torch.Tensor  # (4C,) float32
-    w2: torch.Tensor  # (C, 4C) fc2, torch Linear layout; int8 codes with s2
+    w2: torch.Tensor  # (C, round8(4C)) fc2, torch Linear layout, zero pad columns; int8 codes (C, 4C) with s2
     bw2: torch.Tensor  # (C,) float32: beta @ W2 (see the module docstring per mode)
     b2: torch.Tensor  # (C,)
     s1: Optional[torch.Tensor] = None  # (4C,) float32 fc1 scales (int8 modes)
@@ -67,6 +76,15 @@ class ResBlockWeights(NamedTuple):
         if self.s1 is None:
             return "float"
         return "w8a8" if self.act_quant else "int8"
+
+
+def round8(n: int) -> int:
+    """n rounded up to a multiple of 8: the kernel's row pitch for C and 4C."""
+    return -(-n // 8) * 8
+
+
+def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])).contiguous()
 
 
 @torch.no_grad()
@@ -103,6 +121,9 @@ def prepare_resblock_weights(
         bw2 = (w2.float() @ beta.float()) * s2
     else:  # beta rounded to the dtype; int8 codes are exact in it
         bw2 = w2.float() @ beta.to(dtype).float()
+    if not quantized:  # the padded pitch; the int8 modes' widths need none
+        c = w1.shape[1]
+        w1, w2 = _pad_columns(w1, round8(c)), _pad_columns(w2, round8(4 * c))
     return ResBlockWeights(
         dw=cast(dw_weight.permute(2, 3, 1, 0)),
         dw_b=cast(dw_bias),
@@ -126,7 +147,7 @@ def quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _s8_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32(a @ w^T) of s8 codes (a as f32 values, w int8), exact: the s32 sum
+    """f32(a @ w^T) of s8 codes (a and w as f32 values), exact: the s32 sum
     is an integer below 2^53, so the f64 product gives it in any order, and
     rounding it to f32 is the TPU kernel's astype(float32)."""
     return (a.double() @ w.double().t()).float()
@@ -165,11 +186,12 @@ def resblock_plain(
     var = (acc - mean).square().mean(dim=-1, keepdim=True)
     xn = ((acc - mean) * torch.rsqrt(var + 1e-6)).reshape(m, c)
 
+    w1, w2 = w.w1[:, :c].float().contiguous(), w.w2[:, : 4 * c].float().contiguous()  # the true widths
     if w.act_quant:
         xq, sx = quantize_rows(xn)
-        ht = _s8_product(xq, w.w1) * (sx[:, None] * w.s1[None, :])
+        ht = _s8_product(xq, w1) * (sx[:, None] * w.s1[None, :])
     else:
-        ht = xn.to(dt).float() @ w.w1.float().t()
+        ht = xn.to(dt).float() @ w1.t()
         if w.s1 is not None:
             ht = ht * w.s1
     ht = F.gelu(ht + w.b1.float())  # (M, 4C) f32
@@ -180,11 +202,11 @@ def resblock_plain(
         hq, sh = quantize_rows(ht.reshape(m, 4 * c // tile_n1, tile_n1))
         deq = (hq * sh[..., None]).reshape(b, hw, 4 * c) * scale[:, None, :]
         h8, sh2 = quantize_rows(deq.reshape(m, 4 * c))
-        y = _s8_product(h8, w.w2) * (sh2[:, None] * w.s2[None, :])
+        y = _s8_product(h8, w2) * (sh2[:, None] * w.s2[None, :])
         y = y + w.bw2
     else:
         h = (ht.to(dt).float().reshape(b, hw, 4 * c) * scale[:, None, :]).to(dt)
-        y = h.reshape(m, 4 * c).float() @ w.w2.float().t()
+        y = h.reshape(m, 4 * c).float() @ w2.t()
         y = y + w.bw2
         if w.s2 is not None:
             y = y * w.s2
@@ -200,17 +222,19 @@ resblock_plain.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
-    """How many K splits the kernel's fc2 phase runs for M rows in f32 and
-    the int8 modes (the bf16 float mode's wgmma phases take `wgmma_tiles`):
-    its (C/64) x (M/64) grid is doubled until it holds about two blocks per SM,
-    while each split keeps a whole number, and at least 4, of the kernel's
-    `bk`-deep K tiles (32, or 64 bytes of s8 codes in W8A8). The wrapper
-    passes the M of one CFG pair (two images), whatever the batch, so an
-    image's sums do not depend on its batchmates. At the flagship's shapes on
-    132 SMs: 1 at M 2048 x C 640, 2 at 512 x 1280, 8 at 128 x 1280."""
+def fc2_splits(m: int, c: int, n_sm: int) -> int:
+    """How many K splits the kernel's fc2 phase runs for M rows on its FMA
+    tiles (f32 activations in the float and weight-only modes; the wgmma path
+    takes `wgmma_tiles`): its (C/64) x (M/64) grid is doubled until it holds
+    about two blocks per SM, while each split keeps a whole number, and at
+    least 4, of the tile's 32-deep K steps over K = round8(4C) (none where K
+    is not a whole number of them). The wrapper passes the M of one CFG pair
+    (two images), whatever the batch, so an image's sums do not depend on its
+    batchmates. At the flagship's shapes on 132 SMs: 1 at M 2048 x C 640, 2
+    at 512 x 1280, 8 at 128 x 1280."""
     blocks = -(-c // 64) * -(-m // 64)
-    k_tiles = 4 * c // bk
+    k = round8(4 * c)
+    k_tiles = k // 32 if k % 32 == 0 else 0
     s = 1
     while blocks * s < 2 * n_sm and k_tiles % (2 * s) == 0 and k_tiles // (2 * s) >= 4:
         s *= 2
@@ -218,13 +242,14 @@ def fc2_splits(m: int, c: int, n_sm: int, bk: int = 32) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def gemm_tiles(m: int, n: int, k: int, n_sm: int) -> tuple[int, int]:
+def gemm_tiles(m: int, n: int, k: int, n_sm: int, bk: int = 64) -> tuple[int, int]:
     """(tile width, K splits) of one (M, N) product over depth K on the
-    wgmma tile (csrc/gemm_sm90.cuh: 128-row tiles, 64-deep K steps), for
-    K1's and K6's bf16 products alike. 128 wide where N is a multiple of 128
+    wgmma tile (csrc/gemm_sm90.cuh: 128-row tiles, K steps of one 128-byte
+    row: bk 64 bf16 values, or 128 s8 codes in W8A8), for K1's, K1b's and
+    K6's products alike. 128 wide where N is a multiple of 128
     and that gives at least n_sm / 2 tiles, else 64; then, while the grid
     still holds fewer than n_sm / 2 tiles, K is halved, each split keeping
-    at least 4 whole K steps (none where K is not a multiple of 64: the
+    at least 4 whole K steps (none where K is not a multiple of bk: the
     narrow widths). A tile's ring fills its SM's shared memory, so one tile
     runs per SM: a 64-wide step costs ~0.7 of a 128-wide one, so 64 wins
     where its twice as many tiles still fit one wave, and 128 where they
@@ -235,7 +260,7 @@ def gemm_tiles(m: int, n: int, k: int, n_sm: int) -> tuple[int, int]:
     m_tiles = -(-m // 128)
     bn = 128 if n % 128 == 0 and m_tiles * (n // 128) >= n_sm // 2 else 64
     tiles = m_tiles * -(-n // bn)
-    k_steps = k // 64 if k % 64 == 0 else 0
+    k_steps = k // bk if k % bk == 0 else 0
     s = 1
     while tiles * s < n_sm // 2 and k_steps % (2 * s) == 0 and k_steps // (2 * s) >= 4:
         s *= 2
@@ -243,21 +268,21 @@ def gemm_tiles(m: int, n: int, k: int, n_sm: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def wgmma_tiles(m: int, c: int, n_sm: int) -> tuple[int, int, int]:
-    """(fc1 tile width, fc2 tile width, fc2 K splits) of the bf16 float
-    mode's wgmma phases for M rows, from `gemm_tiles`: fc1 (N = 4C) takes
-    its width only, fc2 (N = C, K = 4C) its width and splits. The wrapper
-    passes the M of one CFG pair, whatever the batch, as for `fc2_splits`,
-    so an image's sums do not depend on its batchmates. At the flagship's
-    shapes on 132 SMs: (128, 128, 1) at M 2048 x C 640, (128, 64, 1) at
-    512 x 1280, (64, 64, 4) at 128 x 1280."""
-    return gemm_tiles(m, 4 * c, c, n_sm)[0], *gemm_tiles(m, c, 4 * c, n_sm)
+def wgmma_tiles(m: int, c: int, n_sm: int, bk: int = 64) -> tuple[int, int, int]:
+    """(fc1 tile width, fc2 tile width, fc2 K splits) of the wgmma path's
+    two products for M rows, from `gemm_tiles` (bk 64, or 128 in W8A8): fc1
+    (N = 4C) takes its width only, fc2 (N = C, K = round8(4C)) its width and
+    splits. The wrapper passes the M of one CFG pair, whatever the batch, as
+    for `fc2_splits`, so an image's sums do not depend on its batchmates. At
+    the flagship's shapes on 132 SMs, bf16 and W8A8 alike: (128, 128, 1) at
+    M 2048 x C 640, (128, 64, 1) at 512 x 1280, (64, 64, 4) at 128 x 1280."""
+    return gemm_tiles(m, 4 * c, round8(c), n_sm, bk)[0], *gemm_tiles(m, c, round8(4 * c), n_sm, bk)
 
 
 @functools.lru_cache(maxsize=None)
 def grn_slots(b: int, hw: int, bm: int = 64) -> int:
     """The most batch items one bm-row M-tile of the kernel's fc1 phase
-    touches (bm 128 in the bf16 float mode, 64 otherwise): its GRN partials
+    touches (bm 128 on the wgmma path, 64 on the FMA tiles): its GRN partials
     buffer holds that many slots per tile, so the per-(batch item, column)
     sums are written without atomics and added in tile order. At the
     flagship's shapes (hw 1024, 256, 64): 1, 1, 1 with 64-row tiles and 1,
@@ -278,9 +303,9 @@ def tiles_per_image(hw: int, bm: int) -> int:
 class LaunchPlan(NamedTuple):
     """How the kernel tiles one call (see `launch_plan`)."""
 
-    bm: int  # fc1 M-tile rows: 128 in the bf16 float mode's wgmma phases, else 64
-    bn1: int  # bf16 float mode: fc1 tile width (0 in the other modes)
-    bn2: int  # bf16 float mode: fc2 tile width (0 in the other modes)
+    bm: int  # fc1 M-tile rows: 128 on the wgmma path, 64 on the FMA tiles
+    bn1: int  # wgmma path: fc1 tile width (0 on the FMA tiles)
+    bn2: int  # wgmma path: fc2 tile width (0 on the FMA tiles)
     splits: int  # fc2 K splits
     slots: int  # GRN partial slots per fc1 M-tile
     tiles_per_image: int  # fc1 M-tiles per image, or 0: absolute tiles
@@ -288,14 +313,17 @@ class LaunchPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(b: int, hw: int, c: int, mode: str, dtype: torch.dtype, n_sm: int) -> LaunchPlan:
-    """The tiling of one call at batch b, hw pixels an image, width c. The
-    tile widths and the split count come from one CFG pair's M = 2 hw and
-    the fc1 row tiles from hw, never from b, so an image's bits do not
-    depend on its batchmates; only the partials buffer's slot count follows b."""
-    if mode == "float" and dtype == torch.bfloat16:
-        bm, (bn1, bn2, splits) = 128, wgmma_tiles(2 * hw, c, n_sm)
+    """The tiling of one call at batch b, hw pixels an image, width c. Every
+    bf16 mode and W8A8 run the wgmma path (128-row tiles; W8A8's K steps are
+    128 s8 codes), f32 activations in the float and weight-only modes the
+    FMA tiles (64 rows). The tile widths and the split count come from one
+    CFG pair's M = 2 hw and the fc1 row tiles from hw, never from b, so an
+    image's bits do not depend on its batchmates; only the partials buffer's
+    slot count follows b."""
+    if dtype == torch.bfloat16 or mode == "w8a8":
+        bm, (bn1, bn2, splits) = 128, wgmma_tiles(2 * hw, c, n_sm, 128 if mode == "w8a8" else 64)
     else:
-        bm, bn1, bn2, splits = 64, 0, 0, fc2_splits(2 * hw, c, n_sm, 64 if mode == "w8a8" else 32)
+        bm, bn1, bn2, splits = 64, 0, 0, fc2_splits(2 * hw, c, n_sm)
     tpi = tiles_per_image(hw, bm)
     return LaunchPlan(bm, bn1, bn2, splits, 1 if tpi else grn_slots(b, hw, bm), tpi)
 
@@ -313,10 +341,10 @@ def _check_args(what: str, x, w: ResBlockWeights, film, skip) -> None:
         raise ValueError(f"{what}: dtype {dt} (kernel takes float32 or bfloat16)")
     b, hh, ww, c = x.shape
     cpg = 1 if skip is None else 2
-    align = 8 if w.s1 is None else 64  # 16-byte rows; the int8 modes keep JAX's alignment
-    if c % align:
-        raise ValueError(f"{what}: C={c} must be a multiple of {align}")
-    if w.dw.shape != (3, 3, cpg, c) or w.w1.shape != (4 * c, c) or w.w2.shape != (c, 4 * c):
+    if w.s1 is not None and c % 64:  # the int8 modes keep JAX's alignment
+        raise ValueError(f"{what}: int8 weights need C % 64 == 0, got C={c}")
+    k1, k2 = (c, 4 * c) if w.s1 is not None else (round8(c), round8(4 * c))
+    if w.dw.shape != (3, 3, cpg, c) or w.w1.shape != (4 * c, k1) or w.w2.shape != (c, k2):
         raise ValueError(
             f"{what}: weight shapes dw {tuple(w.dw.shape)}, w1 "
             f"{tuple(w.w1.shape)}, w2 {tuple(w.w2.shape)} do not fit x {tuple(x.shape)}"
@@ -345,12 +373,13 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
     m = b * hh * ww
     dev = x.device
     bm, bn1, bn2, splits, slots, tpi = launch_plan(b, hh * ww, c, w.mode, dt, _sm_count(dev))
+    k1, k2 = round8(c), round8(4 * c)  # the padded pitches (C and 4C in the int8 modes)
     out = torch.empty_like(x)
-    xn = torch.empty((m, c), dtype=torch.int8 if q8 else dt, device=dev)
-    h = torch.empty((m, 4 * c), dtype=torch.float32 if q8 else dt, device=dev)
+    xn = torch.empty((m, k1), dtype=torch.int8 if q8 else dt, device=dev)
+    h = torch.empty((m, k2), dtype=torch.float32 if q8 else dt, device=dev)
     tiles = b * tpi if tpi else -(-m // bm)
     gx_part = torch.empty((tiles * slots, 4 * c), dtype=torch.float32, device=dev)
-    scale = torch.empty((b, 4 * c), dtype=torch.float32, device=dev)
+    scale = torch.empty((b, k2), dtype=torch.float32, device=dev)
     part = torch.empty((splits, m, c), dtype=torch.float32, device=dev) if splits > 1 else None
     sx = torch.empty(m, dtype=torch.float32, device=dev) if q8 else None
     hq = torch.empty((m, 4 * c), dtype=torch.int8, device=dev) if q8 else None

@@ -237,7 +237,7 @@ class AttnBlock(DerivedWeights):
         return self.derived(
             "kernel",
             lambda: prepare_attn_block_weights(
-                a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias, self.dtype
+                a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias, self.dtype, self.nhead
             ),
         )
 

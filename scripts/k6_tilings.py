@@ -52,7 +52,7 @@ def main() -> int:
         c, n = h * d, hh * ww
         r = lambda *shape, std: torch.randn(*shape, generator=gen, device="cuda") * std  # noqa: E731
         w = kblk.prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5),
-                                            r(c, std=0.05), torch.bfloat16)
+                                            r(c, std=0.05), torch.bfloat16, h)
         x, kv = r(b, hh, ww, c, std=1.0).to(torch.bfloat16), r(b, s_c, c, std=1.0).to(torch.bfloat16)
         cmask = torch.rand(b, s_c, generator=gen, device="cuda") < 0.7
         cmask[:, 0] = True

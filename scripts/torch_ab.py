@@ -13,12 +13,20 @@ seeded inputs (the same in every turn):
     (chip_smoke.k6_split);
   - K1 in bf16 at the four flagship shapes: device µs per call
     (chip_smoke.k1_split);
-  - K5 at levels 1 and 2 (bf16, masked): device µs per call.
+  - K1b in both int8 modes (bf16) at the same shapes: device µs per
+    sub-kernel (chip_smoke.k1_split on weights quantized as
+    quant.quantize_paella_int8 does);
+  - K5 at levels 1 and 2 (bf16, masked): device µs per call;
+  - a generation's K1b: torch.profiler over one 8-step CFG generation of the
+    flagship with every ResBlock quantized, per mode: the ResBlock kernels'
+    device ms and launches.
 It prints each turn's JSON line, then each measurement's range per tree,
 with the card's name and power limit. Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
+import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -26,6 +34,35 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARK = "TORCH_AB "
+
+
+def int8_generation(cs, tag: str) -> dict:
+    """The ResBlock kernels' device ms and launches in one profiled 8-step
+    CFG generation of the flagship, every ResBlock quantized, per mode."""
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.quant import fuse_eligible_levels, quantize_paella_int8
+    from paella_tpu_torch.sampling import sample
+
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    model, _, p_cfg = cs.build_flagship(gen)
+    cond, uncond = cs.flagship_conditioning(p_cfg, gen)
+    seeds = torch.tensor([[7, 0x1B8]], dtype=torch.int64)
+    out = {}
+    for mode in ("int8", "w8a8"):
+        q = quantize_paella_int8(model, levels=fuse_eligible_levels(p_cfg), include_first=True)
+        q.config = dataclasses.replace(p_cfg, act_quant=mode == "w8a8")
+        kernels, wall = cs.profile_kernels(lambda: sample(q, seeds, cond, cs.LATENT, uncond, SampleConfig(steps=cs.STEPS)))
+        groups = cs.group_kernels(kernels, cs.GENERATION_GROUPS)
+        ms, launches = groups["K1"][0] / 1e3, groups["K1"][1]
+        print(f"[ab] {mode} generation ({cs.STEPS} steps): ResBlock kernels {ms:.2f} ms ({launches:g} launches) of "
+              f"{sum(us for us, _ in kernels.values()) / 1e3:.2f} ms of kernels, {wall:.2f} ms wall ({tag})", flush=True)
+        out[f"k1b_generation_{mode}_ms"] = ms if kernels else None
+        del q
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def child(tree: str) -> None:
@@ -45,27 +82,32 @@ def child(tree: str) -> None:
     from paella_tpu_torch.kernels.attn_block import prepare_attn_block_weights
 
     cs.check(os.path.abspath(paella_tpu_torch.__file__).startswith(os.path.abspath(tree)), "the tree's package")
+    # trees from before the any-width repair take no head count
+    takes_nhead = "nhead" in inspect.signature(prepare_attn_block_weights).parameters
     out = {"tree": tree, "card": tag}
     gen = torch.Generator(device="cuda").manual_seed(61)
     for b, hh, ww, c, with_skip in cs.RESBLOCK_SHAPES:
-        w = cs.random_resblock(c, 2 if with_skip else 1, torch.bfloat16, gen)
         x = torch.randn(b, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
         skip = torch.randn(b, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16) if with_skip else None
         film = (torch.randn(b, 2 * c, generator=gen, device="cuda") * 0.2).to(torch.bfloat16)
-        split = cs.k1_split(x, w, film, skip, tag)
-        out[f"k1_{b}x{hh}x{ww}x{c}{'_skip' if with_skip else ''}"] = {"device_us": split["device_us"],
-                                                                       "roles": split["sub_kernels_us"]}
+        name = f"{b}x{hh}x{ww}x{c}{'_skip' if with_skip else ''}"
+        for mode in ("float", "int8", "w8a8"):
+            w = cs.random_resblock(c, 2 if with_skip else 1, torch.bfloat16, gen, mode)
+            split = cs.k1_split(x, w, film, skip, tag)
+            out[f"{'k1' if mode == 'float' else 'k1b_' + mode}_{name}"] = {
+                "device_us": split["device_us"], "roles": split["sub_kernels_us"]}
     for level, (b, n, s_c, h, d) in enumerate(cs.ATTN_LEVELS, start=1):
         c, side = h * d, int(n**0.5)
         r = lambda *shape, std: torch.randn(*shape, generator=gen, device="cuda") * std  # noqa: E731
         w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5),
-                                       r(c, std=0.05), torch.bfloat16)
+                                       r(c, std=0.05), torch.bfloat16, *([h] if takes_nhead else []))
         x, kv = r(b, side, side, c, std=1.0).to(torch.bfloat16), r(b, s_c, c, std=1.0).to(torch.bfloat16)
         cmask, mask = cs.attention_masks(b, n, s_c, gen)
         split = cs.k6_split(x, kv, w, h, cmask, tag, f"level {level}")
         out[f"k6_level{level}"] = {"device_us": split["device_us"], "roles": split["sub_kernels_us"]}
         q, k, v = (r(b, ln, h, d, std=1.0).to(torch.bfloat16) for ln in (n, n + s_c, n + s_c))
         out[f"k5_level{level}_us"] = cs.device_us(lambda: fused_attention(q, k, v, mask))
+    out.update(int8_generation(cs, tag))
     untraced = [k for k, v in out.items() if (v["device_us"] if isinstance(v, dict) else v) is None]
     cs.check(not untraced, f"torch.profiler traced no device time for {untraced}")
     print(MARK + json.dumps(out), flush=True)
@@ -93,7 +135,8 @@ def main() -> int:
             continue
         val = lambda r: r[key]["device_us"] if isinstance(r[key], dict) else r[key]  # noqa: E731
         p, ch = [val(runs[0]), val(runs[3])], [val(runs[1]), val(runs[2])]
-        print(f"{key}: parent {min(p):.2f}-{max(p):.2f} µs, change {min(ch):.2f}-{max(ch):.2f} µs, "
+        unit = "ms" if key.endswith("_ms") else "µs"
+        print(f"{key}: parent {min(p):.2f}-{max(p):.2f} {unit}, change {min(ch):.2f}-{max(ch):.2f} {unit}, "
               f"change / parent {max(ch) / min(p):.3f} at most ({runs[0]['card']})")
         if isinstance(runs[0][key], dict):  # per sub-kernel, the first turn of each tree
             for name, r in (("parent", runs[0]), ("change", runs[1])):

@@ -95,3 +95,24 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused_attention(q, q, q)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("d", [12, 160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_jax_kernel_at_any_head_dim(dtype, d, with_mask):
+    """Head dims the CUDA kernel takes since the any-width repair: 12 (not a
+    multiple of 8: the wrapper pads the heads) and 160, 256 (past 128: the
+    kernel splits the output columns among blocks). JAX's kernel pads every
+    head dim to a multiple of 128. Same tolerances as at 16 and 80."""
+    q, k, v, mask = inputs(d, with_mask, seed=d)
+    (jq, tq), (jk, tk), (jv, tv) = (to_dtype(a, dtype) for a in (q, k, v))
+    want = jax_fused_attention(jq, jk, jv, kv_mask=None if mask is None else jnp.asarray(mask), interpret=True)
+    got = attention_plain(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
+    assert got.shape == (B, N, H, d)
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.abs(got - want).max() <= 2**-7 * np.abs(want).max()

@@ -36,13 +36,11 @@ ATTN_CFG = dataclasses.replace(
 FLAGS = dict(attention_impl="pallas", attn_block_kernel=True)
 
 
-@pytest.mark.parametrize("with_mask", [False, True])
-@pytest.mark.parametrize("c,nhead,s_c", [(128, 4, 6), (640, 8, 9), (96, 4, 7)])
-def test_attn_block_plain_matches_jax_kernel(c, nhead, s_c, with_mask):
-    """C 96 with 4 heads is head dim 24, a narrow width the CUDA kernel takes
-    (D % 8 == 0, padded to 32 in shared memory); JAX's tile_o must divide C."""
+def block_case(c: int, s_c: int, seed: int, with_mask: bool):
+    """x (2, 4, 4, C), kv (2, S_cond, C), torch-layout weights and a cond
+    mask, from numpy."""
     b, hh = 2, 4
-    rng = np.random.default_rng(c + with_mask)
+    rng = np.random.default_rng(seed)
     x = (rng.standard_normal((b, hh, hh, c)) * 0.5).astype(np.float32)
     kv = (rng.standard_normal((b, s_c, c)) * 0.5).astype(np.float32)
     wqkv = (rng.standard_normal((3 * c, c)) * c**-0.5).astype(np.float32)  # torch (out, in)
@@ -53,17 +51,99 @@ def test_attn_block_plain_matches_jax_kernel(c, nhead, s_c, with_mask):
     if with_mask:
         mask = rng.uniform(size=(b, s_c)) < 0.7
         mask[:, 0] = True
+    return x, kv, wqkv, bqkv, wo, bo, mask
 
+
+def port_block(case, nhead: int) -> np.ndarray:
+    x, kv, wqkv, bqkv, wo, bo, mask = case
+    t = torch.from_numpy
+    w = prepare_attn_block_weights(t(wqkv), t(bqkv), t(wo), t(bo), torch.float32, nhead)
+    return attn_block_plain(t(x), t(kv), w, nhead, None if mask is None else t(mask)).numpy()
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("c,nhead,s_c", [(128, 4, 6), (640, 8, 9), (96, 4, 7)])
+def test_attn_block_plain_matches_jax_kernel(c, nhead, s_c, with_mask):
+    """C 96 with 4 heads is head dim 24, a narrow width the CUDA kernel takes
+    (D % 8 == 0, padded to 32 in shared memory); JAX's tile_o must divide C."""
+    x, kv, wqkv, bqkv, wo, bo, mask = case = block_case(c, s_c, c + with_mask, with_mask)
     wqkv_p, bqkv_p, wo_p = pad_attn_weights(jnp.asarray(wqkv.T)[None], jnp.asarray(bqkv)[None], jnp.asarray(wo.T)[None], nhead)
     want = fused_attn_block_stacked(
         jnp.asarray(x), jnp.asarray(kv)[None], wqkv_p, bqkv_p, wo_p, jnp.asarray(bo)[None], 0, nhead,
         cond_mask=None if mask is None else jnp.asarray(mask), head_chunk=2, tile_qkv=128, tile_o=min(c, 128),
         interpret=True,
     )
+    np.testing.assert_allclose(port_block(case, nhead), np.asarray(want), rtol=3e-5, atol=3e-5)
+
+
+def jax_xla_block(case, nhead: int) -> np.ndarray:
+    """The block in the JAX package's XLA ops: its layer_norm, the q|k|v and
+    o projections as f32 dots, and nn/attention.py::dot_product_attention."""
+    from paella_tpu.nn.attention import dot_product_attention
+    from paella_tpu.nn.functional import layer_norm
+
+    x, kv, wqkv, bqkv, wo, bo, mask = case
+    b, hh, ww, c = x.shape
+    n, d = hh * ww, c // nhead
+    t = layer_norm(jnp.asarray(x)).reshape(b, n, c)
+    rows = jnp.concatenate([t, jnp.asarray(kv)], axis=1)
+    q = (t @ wqkv[:c].T + bqkv[:c]).reshape(b, n, nhead, d)
+    kvp = rows @ wqkv[c:].T + bqkv[c:]
+    k, v = (a.reshape(b, n + kv.shape[1], nhead, d) for a in jnp.split(kvp, 2, axis=-1))
+    kv_mask = None if mask is None else jnp.concatenate([jnp.ones((b, n), bool), jnp.asarray(mask)], axis=1)
+    a = dot_product_attention(q, k, v, kv_mask=kv_mask).reshape(b, n, c)
+    return np.asarray((a @ wo.T + bo).reshape(x.shape) + x)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("c,nhead", [(48, 4), (320, 2), (512, 2)])
+def test_attn_block_plain_at_any_head_dim(c, nhead, with_mask):
+    """Head dims the CUDA kernel takes since the any-width repair: 12 (not a
+    multiple of 8), 160 and 256 (past 128). At 12 the reference is JAX's
+    kernel in interpret mode. JAX's kernel pads each head to 128 lanes in its
+    weights (pad_attn_weights, HD_PAD), so it refuses heads past 128: at 160
+    and 256 the reference is the block in the JAX package's XLA ops
+    (jax_xla_block), within the same 3e-5."""
+    x, kv, wqkv, bqkv, wo, bo, mask = case = block_case(c, 7, c + with_mask, with_mask)
+    if c // nhead <= 128:
+        wqkv_p, bqkv_p, wo_p = pad_attn_weights(jnp.asarray(wqkv.T)[None], jnp.asarray(bqkv)[None],
+                                                jnp.asarray(wo.T)[None], nhead)
+        want = fused_attn_block_stacked(
+            jnp.asarray(x), jnp.asarray(kv)[None], wqkv_p, bqkv_p, wo_p, jnp.asarray(bo)[None], 0, nhead,
+            cond_mask=None if mask is None else jnp.asarray(mask), head_chunk=2, tile_qkv=128, tile_o=c,
+            interpret=True,
+        )
+    else:
+        with pytest.raises(Exception):  # the head does not fit its 128 lanes
+            pad_attn_weights(jnp.asarray(wqkv.T)[None], jnp.asarray(bqkv)[None], jnp.asarray(wo.T)[None], nhead)
+        want = jax_xla_block(case, nhead)
+    np.testing.assert_allclose(port_block(case, nhead), np.asarray(want), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("c,nhead", [(60, 4), (36, 3), (320, 2)])
+def test_padded_attn_block_weights(c, nhead):
+    """Where C or the head dim is not a multiple of 8, the kernel's weights
+    are padded once: each row of Wqkv to round8(C) columns and each head to
+    round8(D) rows of q, k and v (Wo's columns to match), with zeros; the
+    plain version drops the padding again and gives, bit for bit, its output
+    on the unpadded weights. Widths that need no padding are left as they
+    are."""
+    x, kv, wqkv, bqkv, wo, bo, mask = block_case(c, 5, c, True)
     t = torch.from_numpy
-    w = prepare_attn_block_weights(t(wqkv), t(bqkv), t(wo), t(bo), torch.float32)
-    got = attn_block_plain(t(x), t(kv), w, nhead, None if mask is None else t(mask))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5, atol=3e-5)
+    w = prepare_attn_block_weights(t(wqkv), t(bqkv), t(wo), t(bo), torch.float32, nhead)
+    cp, d8 = kblk.padded_widths(c, nhead)
+    d = c // nhead
+    assert w.wqkv.shape == (3 * nhead * d8, cp) and w.wo.shape == (c, nhead * d8) and w.bqkv.shape == (3 * nhead * d8,)
+    heads = w.wqkv.reshape(3, nhead, d8, cp)
+    assert not heads[:, :, d:].any() and not heads[..., c:].any() and not w.wo.reshape(c, nhead, d8)[..., d:].any()
+    true = kblk.true_weights(w, c, nhead)
+    for got, want in zip(true, (wqkv, bqkv, wo, bo)):
+        assert torch.equal(got, t(want))
+    plain = kblk.AttnBlockWeights(*(t(a) for a in (wqkv, bqkv, wo, bo)))
+    args = (t(x), t(kv))
+    assert torch.equal(attn_block_plain(*args, w, nhead, t(mask)), attn_block_plain(*args, plain, nhead, t(mask)))
+    if (cp, d8) == (c, d):
+        assert all(torch.equal(a, t(b)) for a, b in zip(w, (wqkv, bqkv, wo, bo)))
 
 
 @pytest.fixture(scope="module")
@@ -138,6 +218,38 @@ def test_attention_routes(flags, k5, k6):
     attention_plain.launches = attn_block_plain.launches = 0
     model(x, r, cond_cache=cache, cond_reweight=torch.ones(1, 5 + ATTN_CFG.clip_seq_len))
     assert (attention_plain.launches, attn_block_plain.launches) == (0, 0)
+
+
+# PaellaConfig.tiny() at widths the CUDA kernels take since the any-width
+# repair (chip_smoke.py phase 8 runs the same two on the card)
+TINY_VARIANTS = {
+    "odd widths": dict(c_hidden=(36, 60, 60), nhead=(-1, 4, 4)),  # C % 8 != 0, head dim 15
+    "wide heads": dict(c_hidden=(32, 320, 320), nhead=(-1, 2, 2)),  # head dim 160
+}
+
+
+@pytest.mark.parametrize("flags", [{}, FLAGS], ids=["default", "attention"])
+@pytest.mark.parametrize("variant", list(TINY_VARIANTS))
+def test_tiny_variants_match_jax(variant, flags):
+    """The two variants against the JAX model on the same weights, in the
+    default configuration and in the attention configuration (K5 and K6
+    routes; JAX with fused_blocks, whose ResBlock and attention-block kernels
+    stay on XLA at widths off its 128-lane tiling), at the tiny parity test's
+    tolerance (tests/test_torch_denoiser.py, 1e-4)."""
+    from paella_tpu.config import PaellaConfig as JaxPaellaConfig
+    from paella_tpu.models import Paella as JaxPaella
+
+    cfg = dataclasses.replace(PaellaConfig.tiny(), **TINY_VARIANTS[variant], **flags)
+    model, jmodel, jparams = make_paella(cfg, seed=50)
+    if flags:
+        jmodel = JaxPaella(JaxPaellaConfig(**{**dataclasses.asdict(cfg), "fused_blocks": True}))
+        jparams = jax.tree_util.tree_map(jnp.asarray, jparams)
+    x, r, byt5, clip = model_inputs(51)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jmodel.apply({"params": jparams}, x, r, byt5, clip))
+    got = model(*(torch.from_numpy(a) for a in (x, r, byt5, clip))).numpy()
+    assert np.abs(want).max() > 1e-3, "vacuous comparison"
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_attn_block_routes_fixed_at_build():

@@ -136,7 +136,8 @@ def test_kernels_are_batch_invariant(cuda):
     assert torch.equal(fused_resblock(x[:2], w1, film=film[:2]), fused_resblock(x, w1, film=film)[:2])
     q, k, v = (r(8, n, 16, 80, std=1.0).to(torch.bfloat16) for n in (64, 136, 136))
     assert torch.equal(fused_attention(q[:2], k[:2], v[:2]), fused_attention(q, k, v)[:2])
-    w6 = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), torch.bfloat16)
+    w6 = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), torch.bfloat16,
+                                    16)
     kv = r(8, 72, c, std=1.0).to(torch.bfloat16)
     assert torch.equal(fused_attn_block(x[:2], kv[:2], w6, 16), fused_attn_block(x, kv, w6, 16)[:2])
 
@@ -295,7 +296,8 @@ def test_attn_block_kernel_matches_plain(cuda, dtype, with_mask, shape):
     b, hw, c, nhead, s_c = shape
     g = torch.Generator(device=cuda).manual_seed(7)
     r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
-    w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), dtype)
+    w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05), dtype,
+                                   nhead)
     x = r(b, hw, hw, c, std=1.0).to(dtype)
     kv = r(b, s_c, c, std=1.0).to(dtype)
     mask = None
@@ -387,7 +389,7 @@ def test_attn_block_uncond_image_does_not_depend_on_batch(cuda):
     r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
     c = 1280
     w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05),
-                                   torch.bfloat16)
+                                   torch.bfloat16, 16)
     xs = [r(4, 8, 12, c, std=1.0).to(torch.bfloat16) for _ in range(2)]
     kvs = [r(4, 72, c, std=1.0).to(torch.bfloat16) for _ in range(2)]
     masks = [torch.ones(4, 72, dtype=torch.bool, device=cuda), torch.rand(4, 72, generator=g, device=cuda) < 0.3]
@@ -443,7 +445,7 @@ def test_attn_block_every_plan_matches_plain(cuda, hw, s_c):
     g = torch.Generator(device=cuda).manual_seed(25)
     r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
     w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05),
-                                   torch.bfloat16)
+                                   torch.bfloat16, 16)
     x, kv = r(2, *hw, c, std=1.0).to(torch.bfloat16), r(2, s_c, c, std=1.0).to(torch.bfloat16)
     mask = torch.rand(2, s_c, generator=g, device=cuda) < 0.7
     mask[:, 0] = True
@@ -496,3 +498,202 @@ def test_attention_outputs_keep_their_bits(cuda):
     """K5 (D 80, the flagship's, and D 64) gives the same bits as before its
     kernel moved into attention.cuh and took a key prefix and padded heads."""
     assert k5_digests() == K5_DIGESTS
+
+
+def seeded_resblock(rng, c: int, cpg: int, dtype, mode: str = "float"):
+    """ResBlock weights drawn with numpy (the same on any card and torch
+    version), quantized as quantize_paella_int8 does for an int8 mode."""
+    n = lambda *s, std: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32))  # noqa: E731
+    dw, dw_b, w1, b1 = n(c, cpg, 3, 3, std=0.2), n(c, std=0.1), n(4 * c, c, std=c**-0.5), n(4 * c, std=0.1)
+    gamma, beta, w2, b2 = n(4 * c, std=0.2), n(4 * c, std=0.2), n(c, 4 * c, std=(4 * c) ** -0.5), n(c, std=0.1)
+    scales = {}
+    if mode != "float":
+        (w1, s1), (w2, s2) = quantize_dense_int8(w1), quantize_dense_int8(w2)
+        scales = dict(fc1_scale=s1.cuda(), fc2_scale=s2.cuda(), act_quant=mode == "w8a8")
+    return prepare_resblock_weights(*(t.cuda() for t in (dw, dw_b, w1, b1, gamma, beta, w2, b2)), dtype, **scales)
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    t = t.cpu()
+    return hashlib.sha256(t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32).numpy().tobytes()).hexdigest()
+
+
+# K1 at the flagship's four ResBlock shapes (bf16 + FiLM) and f32 at level 1,
+# and K6 at attention levels 1 and 2 (bf16, the CFG cond mask), on seeded
+# numpy inputs, as SHA-256 digests of their bytes, recorded on an H100 80GB
+# HBM3 from the kernels as they stood before the widths C % 8 != 0 and head
+# dims past 128 were taken (K1b's redesign left K1's bits alone)
+K1_CASES = {  # name: (B, H, W, C, skip, dtype)
+    "level0": (2, 32, 32, 640, False, torch.bfloat16),
+    "level0_skip": (2, 32, 32, 640, True, torch.bfloat16),
+    "level1": (2, 16, 16, 1280, False, torch.bfloat16),
+    "level2": (2, 8, 8, 1280, False, torch.bfloat16),
+    "level1_f32": (2, 16, 16, 1280, False, torch.float32),
+}
+K1_DIGESTS = {
+    "level0": "bb07faedf00d03829545c5b49d76f54a1ea9cd6601300760bafe6cb49cc41101",
+    "level0_skip": "d0b10dd256c76f0ad63faffc1d13cbc9ff10cd16e3d8bdbb7f66a5edc3225592",
+    "level1": "f24fab50e8cc67b384544db9d36159f09d2ce231a6795d2497a69b29ff7ce785",
+    "level2": "0ebcab9ee10e33e2ce750a93e74876aaf9e1fa0ef9ab39687474fb864c4c3958",
+    "level1_f32": "00f23e99be4b322d0497a83a0b8f72ca7fa661e1125c7bf252e78f3f416f317d",
+}
+K6_CASES = {"level1": (2, 16, 16, 72, 16, 80), "level2": (2, 8, 8, 72, 16, 80)}  # name: (B, H, W, S_cond, heads, D)
+K6_DIGESTS = {
+    "level1": "f7280203b1d32dd73c31e3598070d1aef6fc31e367c5f83af85d7d4f4285b54c",
+    "level2": "7f7e61c5b27e722ad3264633c238db225966c3d278980bbd718d03987d56555f",
+}
+
+
+def k1_digests() -> dict:
+    out = {}
+    for i, (name, (b, hh, ww, c, with_skip, dtype)) in enumerate(K1_CASES.items()):
+        rng = np.random.default_rng(200 + i)
+        w = seeded_resblock(rng, c, 2 if with_skip else 1, dtype)
+        n = lambda *s, std: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32)).to(dtype).cuda()  # noqa: E731
+        x, skip, film = n(b, hh, ww, c, std=1.0), n(b, hh, ww, c, std=1.0), n(b, 2 * c, std=0.2)
+        out[name] = digest(fused_resblock(x, w, film=film, skip=skip if with_skip else None))
+    return out
+
+
+def k6_digests() -> dict:
+    out = {}
+    for i, (name, (b, hh, ww, s_c, h, d)) in enumerate(K6_CASES.items()):
+        rng = np.random.default_rng(300 + i)
+        c = h * d
+        n = lambda *s, std: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32)).cuda()  # noqa: E731
+        w = prepare_attn_block_weights(n(3 * c, c, std=c**-0.5), n(3 * c, std=0.05), n(c, c, std=c**-0.5),
+                                       n(c, std=0.05), torch.bfloat16, h)
+        x, kv = n(b, hh, ww, c, std=1.0).to(torch.bfloat16), n(b, s_c, c, std=1.0).to(torch.bfloat16)
+        cmask = torch.ones(b, s_c, dtype=torch.bool, device="cuda")
+        cmask[b // 2 :, 2:64] = False
+        cmask[b // 2 :, 68:] = False
+        out[name] = digest(fused_attn_block(x, kv, w, h, cmask))
+    return out
+
+
+def test_resblock_and_attn_block_outputs_keep_their_bits(cuda):
+    """K1 at the flagship's shapes and K6 at its attention levels give the
+    same bits as before the any-width repair (padded pitches, the scalar
+    epilogue, wide heads) and K1b's move onto wgmma."""
+    assert k1_digests() == K1_DIGESTS
+    assert k6_digests() == K6_DIGESTS
+
+
+def check_int8(got, want, mode: str):
+    """K1b against its plain version at bf16: within 2e-2 of the largest
+    output, and in W8A8 (an s8 code at a rounding tie may round the other way
+    when the f32 values before it differ in their last ulp, moving its row by
+    one quantization step) 99% of elements equal to the plain version's;
+    weight-only, whose products are exact, within K1's tolerance everywhere."""
+    err, scale = (got.float() - want.float()).abs(), want.float().abs().max()
+    assert err.max() <= 2e-2 * scale, (mode, err.max(), scale)
+    if mode == "w8a8":
+        assert (got == want).float().mean() >= 0.99, (got == want).float().mean()
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+@pytest.mark.parametrize("shape", [
+    (3, 6, 10, 128, False),  # M 180: a ragged 128-row tile, tiles across images
+    (4, 4, 8, 128, True),  # hw 32: four images in one 128-row tile
+    (2, 8, 8, 1280, False),  # fc2 in 4 K splits
+    (1, 5, 7, 64, False),  # M 35, C 64: W8A8's K a half step of 128 codes
+    (2, 32, 32, 640, False), (2, 32, 32, 640, True), (2, 16, 16, 1280, False),  # the flagship's shapes
+])
+def test_resblock_int8_wgmma_matches_plain(cuda, mode, shape):
+    """K1b on the wgmma tiles (W8A8 on s8 x s8 -> s32; weight-only on the
+    bf16 ring with the codes widened in the kernel) against its plain
+    version, and bitwise equal on a second run."""
+    b, hh, ww, c, with_skip = shape
+    rng = np.random.default_rng(31)
+    w = seeded_resblock(rng, c, 2 if with_skip else 1, torch.bfloat16, mode)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(torch.bfloat16)
+    skip = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(torch.bfloat16) if with_skip else None
+    film = (torch.randn(b, 2 * c, generator=g, device=cuda) * 0.2).to(torch.bfloat16)
+    tile_n1 = min(512, 4 * c // 2)  # W8A8's h-code groups: at C 64, two of 128
+    got = fused_resblock(x, w, film=film, skip=skip, tile_n1=tile_n1)
+    check_int8(got, resblock_plain(x, w, film=film, skip=skip, tile_n1=tile_n1), mode)
+    assert torch.equal(fused_resblock(x, w, film=film, skip=skip, tile_n1=tile_n1), got)
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+@pytest.mark.parametrize("hw", [(8, 8), (8, 12), (12, 12)])
+def test_resblock_int8_batch_invariance_at_every_batch(cuda, mode, hw):
+    """K1b gives request 0's cond and uncond images the same bits at batch
+    1, 2, 4 and 8 of the sampler's CFG batch, at hw 64 (the flagship's level
+    2) and hw 96 and 144 (256x384 and 384x384 canvases)."""
+    rng = np.random.default_rng(32)
+    c = 128 if hw != (8, 8) else 1280
+    w = seeded_resblock(rng, c, 1, torch.bfloat16, mode)
+    g = torch.Generator(device=cuda).manual_seed(32)
+    xs = [torch.randn(8, *hw, c, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2)]
+    fs = [(torch.randn(8, 2 * c, generator=g, device=cuda) * 0.2).to(torch.bfloat16) for _ in range(2)]
+    outs = [fused_resblock(sampler_batch(*xs, b), w, film=sampler_batch(*fs, b)) for b in (1, 2, 4, 8)]
+    for b, out in zip((2, 4, 8), outs[1:]):
+        assert torch.equal(out[0], outs[0][0]) and torch.equal(out[b], outs[0][1]), b
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 36), (2, 6, 10, 60), (1, 5, 7, 15), (3, 4, 4, 100)])
+def test_resblock_any_width_matches_plain(cuda, dtype, with_skip, shape):
+    """K1 at widths that are not multiples of 8 (C 36 and 60; C 15, whose 4C
+    is not either; C 100, whose fc2 K splits): xn, h and the weights at a
+    padded pitch, x and out at the true one. Against the plain version, and
+    bitwise equal on a second run."""
+    b, hh, ww, c = shape
+    rng = np.random.default_rng(33)
+    w = seeded_resblock(rng, c, 2 if with_skip else 1, dtype)
+    g = torch.Generator(device=cuda).manual_seed(33)
+    x = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(dtype)
+    skip = torch.randn(b, hh, ww, c, generator=g, device=cuda).to(dtype) if with_skip else None
+    film = (torch.randn(b, 2 * c, generator=g, device=cuda) * 0.2).to(dtype)
+    check_resblock(x, w, film, skip)
+    assert torch.equal(fused_resblock(x, w, film=film, skip=skip), fused_resblock(x, w, film=film, skip=skip))
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 15, 160, 256, 200])
+def test_attention_any_head_dim_matches_plain(cuda, dtype, with_mask, d):
+    """K5 at head dims that are not multiples of 8 (12, 15: padded by the
+    wrapper) and past 128 (160, 200, 256: output columns in 128-wide chunks,
+    16-key tiles), resident and streamed (S 300), against the plain version
+    and bitwise equal on a second run."""
+    g = torch.Generator(device=cuda).manual_seed(34)
+    for b, n, s, h in ((2, 70, 133, 3), (1, 130, 300, 2)):
+        q, k, v = (torch.randn(b, length, h, d, generator=g, device=cuda).to(dtype) for length in (n, s, s))
+        mask = None
+        if with_mask:
+            mask = torch.rand(b, s, generator=g, device=cuda) < 0.6
+            mask[:, 0] = True
+        got = fused_attention(q, k, v, mask)
+        close_in_dtype(got, attention_plain(q, k, v, mask))
+        assert torch.equal(fused_attention(q, k, v, mask), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 6, 48, 4, 7), (2, 5, 60, 4, 9), (2, 8, 320, 2, 9), (2, 4, 512, 2, 5),
+                                   (2, 6, 36, 3, 6)])
+def test_attn_block_any_width_matches_plain(cuda, dtype, shape):
+    """(B, HW, C, heads, S_cond): K6 at head dims 12, 15, 160, 256 and 12
+    again with C 36 (C and D not multiples of 8: padded weights, the scalar
+    o-projection epilogue; D past 128: K5's wide heads), masked, against its
+    plain version and bitwise equal on a second run."""
+    b, hw, c, nhead, s_c = shape
+    g = torch.Generator(device=cuda).manual_seed(35)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
+    w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5), r(c, std=0.05),
+                                   dtype, nhead)
+    x, kv = r(b, hw, hw, c, std=1.0).to(dtype), r(b, s_c, c, std=1.0).to(dtype)
+    mask = torch.rand(b, s_c, generator=g, device=cuda) < 0.7
+    mask[:, 0] = True
+    got = fused_attn_block(x, kv, w, nhead, mask)
+    want = attn_block_plain(x, kv, w, nhead, mask)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        assert (got.float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
+    assert torch.equal(fused_attn_block(x, kv, w, nhead, mask), got)

@@ -156,15 +156,22 @@ def test_k1b_modes_and_refusals():
 
 
 def test_fc2_splits_cover_whole_k_tiles():
-    """Each fc2 split of the kernel covers a whole number of its K tiles: 32
-    deep, and 64 bytes deep in W8A8, also at widths 128 x odd at small H*W
-    (C 640 at 8x8: 8 splits of 320, not 16 of 160)."""
+    """Each fc2 split of the kernel covers a whole number of its K steps: 32
+    deep on the FMA tiles (f32 activations), and on the wgmma path one
+    128-byte row, 64 bf16 values or 128 s8 codes in W8A8, also at widths 128
+    x odd at small H*W (C 640 at 8x8: 4 W8A8 splits of 640 codes, not 8 of
+    320)."""
     for c in (64, 128, 384, 640, 1280, 1920):
         for hw in (1, 16, 64, 256, 1024, 4096):
-            for bk in (32, 64):
-                s = kres.fc2_splits(2 * hw, c, 132, bk)
-                assert (4 * c) % s == 0 and (4 * c // s) % bk == 0, (c, hw, bk, s)
-    assert kres.fc2_splits(128, 640, 132, 64) == 8
+            s = kres.fc2_splits(2 * hw, c, 132)
+            assert (4 * c) % s == 0 and (4 * c // s) % 32 == 0, (c, hw, s)
+            for mode, dtype, bk in (("int8", torch.bfloat16, 64), ("w8a8", torch.bfloat16, 128),
+                                    ("w8a8", torch.float32, 128)):
+                plan = kres.launch_plan(2, hw, c, mode, dtype, 132)
+                assert (4 * c) % plan.splits == 0 and (4 * c // plan.splits) % bk == 0, (c, hw, mode, plan)
+                assert plan.splits == 1 or 4 * c // plan.splits // bk >= 4
+    assert kres.launch_plan(2, 64, 640, "w8a8", torch.bfloat16, 132).splits == 4
+    assert kres.launch_plan(2, 64, 640, "int8", torch.bfloat16, 132).splits == 8
 
 
 @pytest.fixture(scope="module")

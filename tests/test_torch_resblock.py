@@ -153,7 +153,7 @@ def test_launch_plan_does_not_depend_on_batch(mode, dtype):
     for hw, c in ((1024, 640), (256, 1280), (64, 1280)):
         two, eight = (kres.launch_plan(b, hw, c, mode, dtype, 132) for b in (2, 8))
         assert two[:4] == eight[:4] and two.slots == eight.slots
-        assert two.bm == (128 if (mode, dtype) == ("float", torch.bfloat16) else 64)
+        assert two.bm == (128 if dtype == torch.bfloat16 or mode == "w8a8" else 64)
 
 
 @pytest.mark.parametrize("mode,dtype", [("float", torch.bfloat16), ("float", torch.float32), ("int8", torch.bfloat16)])
@@ -177,7 +177,7 @@ def test_grn_partition_does_not_depend_on_batch_position(mode, dtype, hw):
     plans = [kres.launch_plan(2 * b, hw, 128, mode, dtype, 132) for b in (1, 2, 4)]
     assert len({p._replace(slots=0) for p in plans}) == 1
     plan = plans[0]
-    bm = 128 if (mode, dtype) == ("float", torch.bfloat16) else 64
+    bm = 128 if dtype == torch.bfloat16 or mode == "w8a8" else 64
     assert (plan.bm, plan.tiles_per_image) == (bm, {96: -(-96 // bm), 144: -(-144 // bm)}.get(hw, 0))
     for b, p in zip((1, 2, 4), plans):
         assert cuts(p, b) == cuts(plans[0], 1) and cuts(p, 0) == cuts(plans[0], 0)
@@ -239,3 +239,47 @@ def test_xla_route_differs_from_kernel_by_a_bounded_gap():
     got = fused_resblock(t(a["x"]).bfloat16(), port_weights(a, torch.bfloat16), film=film).float().numpy()
     gap = np.abs(got - want).max()
     assert 0 < gap <= 0.03 * np.abs(want).max(), (gap, np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode,dtype,bk", [("int8", torch.bfloat16, 64), ("w8a8", torch.bfloat16, 128),
+                                           ("w8a8", torch.float32, 128)])
+def test_int8_modes_take_the_wgmma_plan(mode, dtype, bk):
+    """K1b's plan on an H100 (132 SMs): 128-row fc1 tiles, the tile widths
+    and fc2 splits of `gemm_tiles` over K steps of one 128-byte row (64 bf16
+    values, or 128 s8 codes in W8A8), from one CFG pair's M whatever the
+    batch; the flagship's three level shapes take the bf16 float mode's
+    tilings, and hw 96 and 144 take one fc1 tile per image."""
+    for b in (2, 4, 8):
+        for hw, c in ((1024, 640), (256, 1280), (64, 1280), (96, 1280), (144, 640)):
+            plan = kres.launch_plan(b, hw, c, mode, dtype, 132)
+            bn1 = kres.gemm_tiles(2 * hw, 4 * c, c, 132, bk)[0]
+            assert plan[:4] == (128, bn1, *kres.gemm_tiles(2 * hw, c, 4 * c, 132, bk)), (b, hw, c, plan)
+            assert plan.tiles_per_image == {96: 1, 144: 2}.get(hw, 0)
+            assert plan.splits == 1 or (4 * c // plan.splits) % bk == 0
+    flagship = [kres.launch_plan(2, hw, c, mode, dtype, 132)[1:4] for hw, c in ((1024, 640), (256, 1280), (64, 1280))]
+    assert flagship == [(128, 128, 1), (128, 64, 1), (64, 64, 4)]
+
+
+def unpadded(w: kres.ResBlockWeights, c: int) -> kres.ResBlockWeights:
+    return w._replace(w1=w.w1[:, :c].contiguous(), w2=w.w2[:, : 4 * c].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [36, 60, 15])
+def test_padded_pitch_weights_give_the_plain_output(c, dtype):
+    """Float weights at C % 8 != 0 take the kernel's padded pitch: W1
+    (4C, round8(C)) and W2 (C, round8(4C)) with zero pad columns, the rest as
+    derived before. The plain version on them gives, bit for bit, its output
+    on the same weights at the true widths, with and without skip."""
+    for cpg in (1, 2):
+        a = make_inputs(40 + c, b=2, hw=5, c=c, cpg=cpg)
+        w = port_weights(a, dtype)
+        k1, k2 = kres.round8(c), kres.round8(4 * c)
+        assert w.w1.shape == (4 * c, k1) and w.w2.shape == (c, k2)
+        assert not w.w1[:, c:].any() and not w.w2[:, 4 * c:].any()
+        assert torch.equal(w.w1[:, :c], torch.from_numpy(a["w1"].T.copy()).to(dtype))
+        assert torch.equal(w.w2[:, : 4 * c], torch.from_numpy(a["w2"].T.copy()).to(dtype))
+        x, film = torch.from_numpy(a["x"]).to(dtype), torch.from_numpy(a["film"]).to(dtype)
+        skip = torch.from_numpy(a["skip"]).to(dtype) if cpg == 2 else None
+        got = fused_resblock(x, w, film=film, skip=skip)
+        assert torch.equal(got, kres.resblock_plain(x, unpadded(w, c), film=film, skip=skip))
