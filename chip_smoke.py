@@ -14,9 +14,16 @@ limit):
                (torch.profiler), the two products' TFLOP/s beside
                torch.matmul's, and the host's time to enqueue a call
   3. K2        fused sampling head against its plain torch version at the
-               flagship's shape, and with a zero head (tokens from the hash alone)
+               flagship's step (M 4096) and at batch 8 (M 32768), bf16 and
+               f32, two runs bitwise equal, an image's tokens at B = 1 and
+               inside B = 3 equal, and with a zero head (tokens from the hash
+               alone); event ms in turns with the plain version and with the
+               composed route (torch.matmul + K3), device µs of both,
+               torch.matmul of the head product alone, and beside the bound
+               an instruction-issue bound from the SASS's draw loop
   4. K3        Gumbel categorical against its plain version over flagship
-               logits (1,64,64,8192), bf16 and f32
+               logits (1,64,64,8192), bf16 and f32, with its device µs and
+               the instruction-issue bound beside the bytes bound
   5. K4        codebook lookup against its plain version at the codec's
                encode shape, two codebooks
   6. e2e       the flagship config (PaellaConfig.v1_byt5_xl_inference, seeded
@@ -32,7 +39,10 @@ limit):
                the default and in the attention config, two variants in the
                attention config at widths the kernels take since C3's repair
                (C 36/60/60 with head dim 15; C 32/320/320 with head dim 160),
-               and the tiny codec, encoder included
+               tiny() drawing through the fused head (categorical_impl
+               "pallas", K2 at C 16), K2, K3 and K4 at widths off their vector
+               and wgmma steps (fault C4) against their plain versions, and
+               the tiny codec, encoder included
   9. K5, K6    fused attention core and fused attention block against their
                plain versions at the flagship's level-1 and level-2 shapes,
                bf16 and f32, and two runs bitwise equal; K5 in turns with
@@ -70,8 +80,9 @@ limit):
                pipeline; the W8A8 quality proxies' rows
 Then a JSON line of the kernels (each with its time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time; K1, K1b, K5 and K6 also with their device time alone, `device_ms`, null
-where torch.profiler traced nothing), the card's name and power limit, and, last, {"ok": true, "device":
+time; K1, K1b, K2, K3, K5 and K6 also with their device time alone,
+`device_ms`, null where torch.profiler traced nothing; K2 and K3 with
+`issue_bound_ms`), the card's name and power limit, and, last, {"ok": true, "device":
 {...}}. Any failed check raises; without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -347,7 +358,7 @@ GENERATION_GROUPS = [
     ("K1", ("dw_ln_kernel", "fc1_", "grn_scale_kernel", "grn_apply_kernel", "fc2_", "requant_kernel")),
     ("K6", ("ln_rows_kernel", "linear_kernel", "linear_wgmma_kernel", "linear_reduce_kernel", "block_attention_kernel")),
     ("K5", ("attention_kernel", "attention_ring_kernel")),
-    ("K2, K3", ("head_kernel", "gumbel_kernel")),
+    ("K2, K3", ("head_wgmma_kernel", "head_simt_kernel", "gumbel_kernel")),
     ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "Kernel2")),
     ("cuDNN conv", ("conv", "cudnn", "implicit")),
 ]
@@ -453,55 +464,208 @@ def phase_k1(tag: str) -> dict:
     return result
 
 
-def phase_k2(tag: str) -> dict:
+# the first murmur3 multiplier as cuobjdump prints it (a signed 32-bit
+# immediate, or hex); a draw has two murmur3 rounds, so two of them
+HASH_MULTIPLIER = ("-0x7a143595", "0x85ebca6b")
+
+
+def sass_draw_loops(name: str, path=None) -> dict:
+    """Per kernel of the built library csrc/{name}.cu (mangled name): the loop
+    (a branch back to an earlier address, cuobjdump -sass) that holds the
+    most murmur3 rounds, as (SASS instructions in the loop, draws in it). The
+    loop's instructions over its draws is the issue cost of one (row, label)
+    element, the loop's own overhead shared among them."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from paella_tpu_torch.kernels import _build
+
+    exe = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(path or _build.library_path(name))], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        instrs = []  # (address, instruction)
+        for ln in chunk.splitlines():
+            hit = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;?\s*(?:/\*.*)?$", ln)
+            if hit and hit.group(2):
+                instrs.append((int(hit.group(1), 16), hit.group(2)))
+        best = None
+        for addr, ins in instrs:
+            hit = re.search(r"\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)", ins)
+            if hit and int(hit.group(1), 16) <= addr:
+                loop = [x for a, x in instrs if int(hit.group(1), 16) <= a <= addr]
+                draws = sum(x.count(c) for x in loop for c in HASH_MULTIPLIER) // 2
+                if draws and (best is None or draws > best[1]):
+                    best = (len(loop), draws)
+        if best:
+            out[chunk.split()[0]] = best
+    return out
+
+
+def draw_cost(loops: dict, kernel: str) -> float | None:
+    """SASS instructions per drawn element of the first kernel whose mangled
+    name holds `kernel` (None where no draw loop was found)."""
+    for fname, (n, draws) in sorted(loops.items()):
+        if kernel in fname:
+            return n / draws
+    return None
+
+
+def issue_rate() -> float:
+    """Thread-instructions the card can issue a second: SMs x 4 schedulers x
+    32 lanes x the SM's maximum clock (nvidia-smi clocks.max.sm)."""
     import torch
 
-    from paella_tpu_torch.kernels.sampling import (
-        fused_head_categorical,
-        hash_uniform,
-        head_categorical_plain,
-    )
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32 * mhz * 1e6
+
+
+def issue_bound_ms(elements: int, per_element: float | None) -> float | None:
+    return None if per_element is None else elements * per_element / issue_rate() * 1e3
+
+
+def in_turns(a, b, iters: int = 20) -> tuple[list, list]:
+    """CUDA-event ms per call of a and b, measured a, b, b, a: ([a, a], [b, b])."""
+    t = [cuda_time_ms(f, iters) for f in (a, b, b, a)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def span(v: list) -> str:
+    return f"{min(v):.4f}-{max(v):.4f}"
+
+
+HEAD_C, HEAD_K = 256, 8192  # the flagship's head: c_out 256 -> 8192 labels
+
+
+def head_case(b: int, dtype, gen, c: int = HEAD_C, k: int = HEAD_K, hw: int = 64):
+    """A flagship-shaped head call at batch b: seeds on the card (as the
+    sampler holds them), features (b, hw, hw, c) x2, W_out (k, c)."""
+    import torch
+
+    seeds = torch.tensor([[0x9E3779B9 + 7 * i, 12345 + i] for i in range(b)], dtype=torch.int64, device="cuda")
+    fc = torch.randn(b, hw, hw, c, generator=gen, device="cuda").to(dtype)
+    fu = torch.randn(b, hw, hw, c, generator=gen, device="cuda").to(dtype)
+    w_out = (torch.randn(k, c, generator=gen, device="cuda") * (1.0 / k) ** 0.5).to(dtype)
+    return (seeds, fc, fu, 8.0, w_out, 0.7)
+
+
+def head_flip_gap(args, got, want) -> float:
+    """The plain f32 scores' largest gap between the kernel's and the plain
+    version's choice where they differ (0.0 if they agree everywhere)."""
+    import torch
+
+    from paella_tpu_torch.kernels.sampling import _f32_scalars, hash_uniform
+
+    seeds, fc, fu, cfg_w, w_out, temp = args
+    flips = (got != want).reshape(-1)
+    if not flips.any():
+        return 0.0
+    c, (w, one_minus_w, inv_t) = fc.shape[-1], _f32_scalars(cfg_w, temp)
+    f = (fc.float() * w + fu.float() * one_minus_w).to(fc.dtype).float().reshape(-1, c)[flips]
+    rows = torch.nonzero(flips).reshape(-1)
+    hw = fc.numel() // c // seeds.shape[0]
+    u = hash_uniform(seeds, (hw, w_out.shape[0])).reshape(-1, w_out.shape[0])[rows]
+    score = (f @ w_out.float().t()) * inv_t - torch.log(-torch.log(u))
+    pick = lambda t: score.gather(1, t.reshape(-1, 1)[flips].long())  # noqa: E731
+    return (pick(want) - pick(got)).abs().max().item()
+
+
+def phase_k2(tag: str) -> dict:
+    """K2 at the flagship step (M 4096) and at batch 8 (M 32768), bf16 and
+    f32: tokens against the plain version, two runs bitwise equal; CUDA-event
+    ms in turns with the plain version and with the composed "xla" route
+    (the head product by torch.matmul, then K3), device µs (torch.profiler)
+    of each, torch.matmul of the head product alone, the bytes/ops bound and
+    the instruction-issue bound from the SASS; then batch invariance (an
+    image's tokens at B = 1 and inside B = 3, whose launch plans differ)."""
+    import torch
+
+    from paella_tpu_torch.kernels.sampling import _f32_scalars, fused_head_categorical, head_categorical_plain, head_plan
+    from paella_tpu_torch.sampling.sampler import draw_tokens
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    seeds = torch.tensor([[0x9E3779B9, 12345]], dtype=torch.int64)
-    result = {}
-    k, c = 8192, 256
-    for dtype in (torch.bfloat16, torch.float32):
-        fc = torch.randn(1, 64, 64, c, generator=gen, device="cuda").to(dtype)
-        fu = torch.randn(1, 64, 64, c, generator=gen, device="cuda").to(dtype)
-        w_out = (torch.randn(k, c, generator=gen, device="cuda") * (1.0 / k) ** 0.5).to(dtype)
-        args = (seeds, fc, fu, 8.0, w_out, 0.7)
-        got = fused_head_categorical(*args)
-        want = head_categorical_plain(*args)
-        torch.cuda.synchronize()
-        agree = (got == want).float().mean().item()
-        # size of the flips: the plain scores' gap between the two choices
-        f = (fc.float() * 8.0 + fu.float() * -7.0).to(dtype).float().reshape(-1, c)
-        score = (f @ w_out.float().t()) * (1 / 0.7) - torch.log(-torch.log(hash_uniform(seeds.cuda(), (64 * 64, k))[0]))
-        flips = (got != want).reshape(-1)
-        gap = 0.0
-        if flips.any():
-            rows = score[flips]
-            gap = (rows.gather(1, want.reshape(-1, 1)[flips].long()) - rows.gather(1, got.reshape(-1, 1)[flips].long())).abs().max().item()
-        dname = "f32" if dtype == torch.float32 else "bf16"
-        ms, plain_ms = alternate(lambda: fused_head_categorical(*args), lambda: head_categorical_plain(*args))
-        print(
-            f"[K2] fused_head_categorical (1,64,64,{c})x({k},{c}) cfg 8 T 0.7 {dname}: "
-            f"tokens agree {agree:.6f} (limit 0.999), max score gap at flips {gap:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({tag})"
-        )
-        check(agree >= 0.999, f"K2 {dname} token agreement {agree} < 0.999")
-        check(bool(((got >= 0) & (got < k)).all()), "K2 tokens out of range")
-        if dtype == torch.bfloat16:
-            # the head product 2 x 4096 x 256 x 8192 (the CFG mix and the draw are elementwise)
-            result.update(agree=agree, max_abs_err=gap, ms=ms, plain_ms=plain_ms,
-                          **bound(nbytes_of(fc, fu, w_out, got), 2 * 64 * 64 * c * k, "bf16"))
-        zero = torch.zeros_like(w_out)
-        z_args = (seeds, fc, fu, 8.0, zero, 0.7)
-        z_agree = (fused_head_categorical(*z_args) == head_categorical_plain(*z_args)).float().mean().item()
-        print(f"[K2] W_out = 0 (hash alone) {dname}: tokens agree {z_agree:.6f} (limit 0.9999) ({tag})")
-        check(z_agree >= 0.9999, f"K2 {dname} hash-only agreement {z_agree} < 0.9999")
+    loops = sass_draw_loops("sampling")
+    per_el = {"bf16": draw_cost(loops, "head_wgmma_kernelILb0ELi4E"), "f32": draw_cost(loops, "head_simt_kernelIfLb1ELb0E")}
+    print(f"[K2] SASS instructions per drawn element (draw loop / its draws): wgmma path "
+          f"{per_el['bf16'] or 'not counted'}, SIMT f32 path {per_el['f32'] or 'not counted'}; "
+          f"issue rate {issue_rate() / 1e12:.2f} T thread-instructions/s ({tag})")
+    result = {"batches": {}}
+    for b in (1, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            args = head_case(b, dtype, gen)
+            seeds, fc, fu, cfg_w, w_out, temp = args
+            m = fc.numel() // HEAD_C
+            got = fused_head_categorical(*args)
+            want = head_categorical_plain(*args)
+            again = fused_head_categorical(*args)
+            torch.cuda.synchronize()
+            agree = (got == want).float().mean().item()
+            gap = head_flip_gap(args, got, want)
+            same = torch.equal(got, again)
+            iters = 20 if b == 1 else 5
+            k_ms, p_ms = in_turns(lambda: fused_head_categorical(*args), lambda: head_categorical_plain(*args), iters)
+            k2_ms, x_ms = in_turns(lambda: fused_head_categorical(*args), lambda: draw_tokens("xla", *args), iters)
+            w, one_minus_w, _ = _f32_scalars(cfg_w, temp)
+            mixed = (fc.float() * w + fu.float() * one_minus_w).to(dtype).reshape(m, HEAD_C)
+            mm_ms = cuda_time_ms(lambda: torch.matmul(mixed, w_out.t()), iters)
+            dev = device_us(lambda: fused_head_categorical(*args))
+            x_dev = device_us(lambda: draw_tokens("xla", *args))
+            bd = bound(nbytes_of(fc, fu, w_out, got), 2 * m * HEAD_C * HEAD_K, dname)
+            ib = issue_bound_ms(m * HEAD_K, per_el[dname])
+            plan = head_plan(m, HEAD_C, HEAD_K, dtype)
+            print(
+                f"[K2] fused_head_categorical ({b},64,64,{HEAD_C})x2 x ({HEAD_K},{HEAD_C}) cfg 8 T 0.7 {dname}, "
+                f"M {m}, plan {plan} (blocks sharing a row tile's labels; 0: SIMT): tokens agree {agree:.6f} (limit 0.999), max score gap "
+                f"at flips {gap:.3e}, two runs bitwise equal {same}; kernel {span(k_ms + k2_ms)} ms "
+                f"(events), device {us_text(dev)} µs; plain {span(p_ms)} ms; composed route (torch.matmul + K3) "
+                f"{span(x_ms)} ms, device {us_text(x_dev)} µs; torch.matmul of the head product alone "
+                f"{mm_ms:.4f} ms; bound {bd['bound_ms'] * 1e3:.1f} µs ({bd['bound_by']}), issue bound "
+                f"{'not counted' if ib is None else f'{ib * 1e3:.1f} µs'} ({tag})"
+            )
+            check(agree >= 0.999, f"K2 {dname} M {m} token agreement {agree} < 0.999")
+            check(same, f"K2 {dname} M {m} gave different tokens on two runs")
+            check(bool(((got >= 0) & (got < HEAD_K)).all()), "K2 tokens out of range")
+            entry = {"agree": agree, "max_abs_err": gap, "ms": sum(k_ms + k2_ms) / 4, "plain_ms": sum(p_ms) / 2,
+                     "device_ms": ms_of(dev), "library_ms": sum(x_ms) / 2, "library_device_ms": ms_of(x_dev),
+                     "matmul_ms": mm_ms, "issue_bound_ms": ib, "plan": plan, **bd}
+            result["batches"][f"{b}_{dname}"] = entry
+            if (b, dtype) == (1, torch.bfloat16):
+                result.update(entry)
+            if b == 1:
+                check_head_batch_invariance(args, got, gen, tag)
+            if b == 1:
+                zero = torch.zeros_like(w_out)
+                z_args = (seeds, fc, fu, cfg_w, zero, temp)
+                z_agree = (fused_head_categorical(*z_args) == head_categorical_plain(*z_args)).float().mean().item()
+                print(f"[K2] W_out = 0 (hash alone) {dname}: tokens agree {z_agree:.6f} (limit 0.9999) ({tag})")
+                check(z_agree >= 0.9999, f"K2 {dname} hash-only agreement {z_agree} < 0.9999")
+            del args, fc, fu, mixed
+            torch.cuda.empty_cache()
     return result
+
+
+def check_head_batch_invariance(args, got, gen, tag: str) -> None:
+    """The B = 1 call's image, placed second in a batch of three (other
+    images and seeds around it), draws the same tokens: the launch plan
+    changes (the labels split among 8 blocks at M 4096, 2 at 12288)."""
+    import torch
+
+    from paella_tpu_torch.kernels.sampling import fused_head_categorical, head_plan
+
+    seeds, fc, fu, cfg_w, w_out, temp = args
+    other = head_case(2, fc.dtype, gen)
+    seeds3 = torch.cat([other[0][:1], seeds, other[0][1:]])
+    fc3, fu3 = (torch.cat([o[:1], f, o[1:]]) for o, f in ((other[1], fc), (other[2], fu)))
+    got3 = fused_head_categorical(seeds3, fc3, fu3, cfg_w, w_out, temp)
+    same = torch.equal(got3[1:2], got)
+    plans = [head_plan(t.numel() // t.shape[-1], t.shape[-1], w_out.shape[0], t.dtype) for t in (fc, fc3)]
+    print(f"[K2] {fc.dtype}: image at B = 1 (plan {plans[0]}) and inside B = 3 (plan {plans[1]}) "
+          f"draws equal tokens: {same} ({tag})")
+    check(same, f"K2 {fc.dtype} tokens depend on the batch")
 
 
 def score_gap(logits, seeds, got, want, temperature: float) -> float:
@@ -524,14 +688,27 @@ def score_gap(logits, seeds, got, want, temperature: float) -> float:
 
 
 def phase_k3(tag: str) -> dict:
+    """K3 over flagship logits (1,64,64,8192), bf16 and f32: tokens bit for
+    bit the plain version's; CUDA-event ms in turns with the plain version,
+    device µs (torch.profiler), the bytes bound and the instruction-issue
+    bound from the SASS."""
     import torch
 
-    from paella_tpu_torch.kernels.sampling import gumbel_categorical, gumbel_categorical_plain
+    from paella_tpu_torch.kernels.sampling import draw_noise, gumbel_categorical, gumbel_categorical_plain, uniform_from_bits
 
+    bits = (torch.arange(2**24, device="cuda", dtype=torch.int64) << 8) | 0x5A  # every u
+    same = torch.equal(draw_noise(bits).view(torch.int32), (-torch.log(-torch.log(uniform_from_bits(bits)))).view(torch.int32))
+    print(f"[K3] the kernels' shared draw (common.cuh::gumbel_noise) over all 2^24 values of u: noise bit for bit "
+          f"torch's {same} ({tag})")
+    check(same, "the shared draw's noise differs from torch's")
+    del bits
     gen = torch.Generator(device="cuda").manual_seed(13)
-    seeds = torch.tensor([[0x9E3779B9, 54321]], dtype=torch.int64)
+    seeds = torch.tensor([[0x9E3779B9, 54321]], dtype=torch.int64, device="cuda")
+    loops = sass_draw_loops("sampling")
     result = {}
     for dtype in (torch.bfloat16, torch.float32):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        per_el = draw_cost(loops, f"gumbel_kernelI{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}Lb1E")
         logits = (torch.randn(1, 64, 64, 8192, generator=gen, device="cuda") * 2.0).to(dtype)
         got = gumbel_categorical(seeds, logits, 0.7)
         want = gumbel_categorical_plain(seeds, logits, 0.7)
@@ -539,19 +716,24 @@ def phase_k3(tag: str) -> dict:
         agree = (got == want).float().mean().item()
         gap = score_gap(logits, seeds, got, want, 0.7)
         ms, plain_ms = alternate(lambda: gumbel_categorical(seeds, logits, 0.7), lambda: gumbel_categorical_plain(seeds, logits, 0.7))
+        dev = device_us(lambda: gumbel_categorical(seeds, logits, 0.7))
         nbytes = logits.numel() * logits.element_size() + got.numel() * 4
-        dname = "f32" if dtype == torch.float32 else "bf16"
+        ib = issue_bound_ms(logits.numel(), per_el)
         print(
             f"[K3] gumbel_categorical (1,64,64,8192) T 0.7 {dname}: tokens agree {agree:.6f} (limit 1.000000), "
-            f"max score gap at flips {gap:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-            f"{nbytes / 1e6:.1f} MB moved, {nbytes / ms / 1e6:.1f} GB/s = {nbytes / ms / 3.35e9:.3f} of 3.35 TB/s HBM ({tag})"
+            f"max score gap at flips {gap:.3e}; kernel {ms:.4f} ms (events), device {us_text(dev)} µs, plain "
+            f"{plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB moved, {nbytes / ms / 1e6:.1f} GB/s = "
+            f"{nbytes / ms / 3.35e9:.3f} of 3.35 TB/s HBM; SASS instructions per element "
+            f"{'not counted' if per_el is None else f'{per_el:.2f}'}, issue bound "
+            f"{'not counted' if ib is None else f'{ib * 1e3:.1f} µs'} ({tag})"
         )
         check(agree == 1.0, f"K3 {dname} token agreement {agree} < 1")
         check(bool(((got >= 0) & (got < 8192)).all()), "K3 tokens out of range")
         if dtype == torch.bfloat16:
             # 3 f32 operations a logit (scale by 1/T, add the noise, compare); the
             # hash is integer work and the two logs go to the special-function units
-            result.update(max_abs_err=gap, ms=ms, plain_ms=plain_ms, **bound(nbytes, 3 * logits.numel(), "f32"))
+            result.update(max_abs_err=gap, ms=ms, plain_ms=plain_ms, device_ms=ms_of(dev), issue_bound_ms=ib,
+                          per_element=per_el, **bound(nbytes, 3 * logits.numel(), "f32"))
     return result
 
 
@@ -839,6 +1021,8 @@ def phase_small_reference(tag: str) -> None:
     for name, flags in (("default", {}), ("attention", ATTN_FLAGS)):
         cfg = dataclasses.replace(PaellaConfig.tiny(), **flags)
         t_cpu = small_model_against_cpu(cfg, name, tag)
+    small_model_against_cpu(PaellaConfig.tiny(), "default", tag, categorical_impl="pallas")
+    phase_c4_widths(tag)
     for name, widths in TINY_VARIANTS.items():
         small_model_against_cpu(dataclasses.replace(PaellaConfig.tiny(), **ATTN_FLAGS, **widths), f"attention, {name}", tag)
     gen = torch.Generator().manual_seed(3)
@@ -870,10 +1054,67 @@ def phase_small_reference(tag: str) -> None:
     check(idx_agree >= 0.999, f"small codec encode indices agree {idx_agree} < 0.999")
 
 
-def small_model_against_cpu(cfg, name: str, tag: str):
+C4_HEAD_WIDTHS = [(16, 128), (20, 200), (300, 8190), (520, 300)]  # (C, K); 520: bf16 past the wgmma path
+C4_GUMBEL_WIDTHS = [8190, 201]
+
+
+def phase_c4_widths(tag: str) -> None:
+    """K2, K3 and K4 at widths off the flagship's vector and wgmma steps
+    (fault C4), against their plain versions on the card: K2 at C4_HEAD_WIDTHS
+    with and without CFG and a ragged row count, bf16 and f32; K3 at
+    C4_GUMBEL_WIDTHS and on a view one element off 16-byte alignment; K4 at
+    latent width 12."""
+    import torch
+
+    from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
+    from paella_tpu_torch.kernels.sampling import (
+        fused_head_categorical,
+        gumbel_categorical,
+        gumbel_categorical_plain,
+        head_categorical_plain,
+        head_plan,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    seeds = torch.tensor([[5, 0xDEADBEEF], [0xFFFFFFFF, 7], [1, 2]], dtype=torch.int64, device="cuda")
+    worst, plans = 1.0, {}
+    for c, k in C4_HEAD_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_cfg in (False, True):
+                fc = torch.randn(3, 5, 7, c, generator=gen, device="cuda").to(dtype)  # 105 rows: a ragged tile
+                fu = torch.randn(3, 5, 7, c, generator=gen, device="cuda").to(dtype) if with_cfg else None
+                w_out = (torch.randn(k, c, generator=gen, device="cuda") * c**-0.5).to(dtype)
+                args = (seeds, fc, fu, 3.0, w_out, 0.8)
+                agree = (fused_head_categorical(*args) == head_categorical_plain(*args)).float().mean().item()
+                worst = min(worst, agree)
+                plans[f"{c}x{k}"] = head_plan(105, c, k, torch.bfloat16)
+                check(agree >= 0.99, f"K2 at C {c} K {k} {dtype} cfg {with_cfg}: tokens agree {agree} < 0.99")
+    print(f"[small] K2 at (C, K) {C4_HEAD_WIDTHS}, M 105 (3 images of 5x7), bf16 and f32, with and without CFG: "
+          f"tokens agree >= {worst:.4f} with the plain version (limit 0.99: 105 rows, one flip is 0.0095); "
+          f"bf16 plans {json.dumps(plans)} ({tag})")
+    for k in C4_GUMBEL_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            logits = (torch.randn(3, 5, 7, k, generator=gen, device="cuda") * 3.0).to(dtype)
+            buf = torch.empty(logits.numel() + 1, dtype=dtype, device="cuda")
+            unaligned = buf[1:].view(logits.shape)  # one element off 16-byte alignment
+            unaligned.copy_(logits)
+            for name, t in (("aligned", logits), ("unaligned", unaligned)):
+                same = torch.equal(gumbel_categorical(seeds, t, 0.7), gumbel_categorical_plain(seeds, t, 0.7))
+                check(same, f"K3 at K {k} {dtype} {name}: tokens differ from the plain version")
+    print(f"[small] K3 at K {C4_GUMBEL_WIDTHS}, bf16 and f32, aligned and one element off: tokens equal the "
+          f"plain version's ({tag})")
+    z = torch.randn(3, 16, 16, 12, generator=gen, device="cuda")
+    cb = torch.randn(1000, 12, generator=gen, device="cuda")
+    same = torch.equal(fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb))
+    print(f"[small] K4 at latent width 12 (768 tokens, 1000 codes): indices equal the plain version's {same} ({tag})")
+    check(same, "K4 at width 12 differs from the plain version")
+
+
+def small_model_against_cpu(cfg, name: str, tag: str, categorical_impl: str = "xla"):
     """One config's f32 model on the card against the same weights on the
     CPU: a CFG forward's features, with its kernel launch counts, and 4-step
-    CFG tokens. Returns the CPU's tokens."""
+    CFG tokens drawn by `categorical_impl` ("pallas": the fused head, K2 at
+    the config's c_out and num_labels). Returns the CPU's tokens."""
     import torch
 
     from paella_tpu_torch.config import SampleConfig
@@ -897,13 +1138,17 @@ def small_model_against_cpu(cfg, name: str, tag: str):
                                           return_features=True))
     ferr = (f_cpu - f_dev.cpu()).abs().max().item()
     seeds = torch.tensor([[1, 2], [3, 4]])
-    s_cfg = SampleConfig(steps=4, temperature=(1.0, 0.5), cfg=(3.0, 3.0))
+    s_cfg = SampleConfig(steps=4, temperature=(1.0, 0.5), cfg=(3.0, 3.0), categorical_impl=categorical_impl)
     t_cpu = sample(cpu, seeds, cond, (2, 16, 16), uncond, s_cfg)
-    t_dev = sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg).cpu()
+    t_dev, s_launches = counted(lambda: sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg))
+    t_dev = t_dev.cpu()
+    drawer = "fused_head_categorical" if categorical_impl == "pallas" else "gumbel_categorical"
+    check(s_launches[drawer] == 4, f"tiny {name} sampling launched {drawer} {s_launches[drawer]} times, want 4")
     agree = (t_cpu == t_dev).float().mean().item()
     kernels = {k: n for k, n in launches.items() if n and "[" not in k}
     print(
-        f"[small] PaellaConfig.tiny() f32 ({name} config, C {cfg.c_hidden}, heads {cfg.nhead}), card vs CPU: "
+        f"[small] PaellaConfig.tiny() f32 ({name} config, C {cfg.c_hidden}, heads {cfg.nhead}, "
+        f"categorical_impl {categorical_impl!r}: {drawer} at c_out {cfg.c_out}, {cfg.num_labels} labels), card vs CPU: "
         f"features max_abs_err {ferr:.3e} (limit 1e-3), 4-step CFG tokens agree {agree:.4f} (limit 0.95); "
         f"kernel launches in one forward {json.dumps(kernels)} ({tag})"
     )
@@ -1689,8 +1934,11 @@ def main() -> int:
               "x (2,16,16,1280) bf16 + FiLM, W8A8 (both modes under 'modes')",
               counts=["fused_resblock[int8]", "fused_resblock[w8a8]"], device_ms=k1b["device_ms"], modes=k1b["modes"]),
         entry("fused_head_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:151", k2,
-              "feat (1,64,64,256) x2, W_out (8192,256) bf16"),
-        entry("gumbel_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:224", k3, "logits (1,64,64,8192) bf16"),
+              "feat (1,64,64,256) x2, W_out (8192,256) bf16; library_ms: the composed route (torch.matmul + K3)",
+              device_ms=k2["device_ms"], library_device_ms=k2["library_device_ms"], matmul_ms=k2["matmul_ms"],
+              issue_bound_ms=k2["issue_bound_ms"]),
+        entry("gumbel_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:224", k3, "logits (1,64,64,8192) bf16",
+              device_ms=k3["device_ms"], issue_bound_ms=k3["issue_bound_ms"]),
         entry("fused_codebook_lookup", "quantize.cu", "paella_tpu/kernels/quantize.py:53", k4,
               "z (1,64,64,4) f32, codebook (8192,4) f32"),
         entry("fused_attention", "attention.cu", "paella_tpu/kernels/attention.py:56", k5,
@@ -1705,7 +1953,7 @@ def main() -> int:
         "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
         "serve_batch_pixel_share_256x384": served["batch_pixel_share_256x384"],
-        "k1_shapes": k1["shapes"], "k1b_shapes": k1b["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
+        "k2_batches": k2["batches"], "k1_shapes": k1["shapes"], "k1b_shapes": k1b["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
         "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"],
     }))
     print(tag)

@@ -125,11 +125,12 @@ struct Wgmma;
 
 template <>
 struct Wgmma<64, __nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  // scale_d 0: d = A B^T, the accumulators' old values ignored (K2's tiles)
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PAELLA_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
                  : PAELLA_ACC32(PAELLA_F)
-                 : "l"(da), "l"(db), "r"(1));
+                 : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

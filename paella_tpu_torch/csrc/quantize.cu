@@ -27,7 +27,9 @@
 // What bounds it on an H100: 4096 x 8192 x ~10 f32 operations, 0.34 GFLOP, a
 // few microseconds of SIMT work; the bytes (64 KB of tokens, 128 KB of
 // codebook) are nothing. Launch latency and the three launches (clear,
-// search, pack) dominate at the flagship size.
+// search, pack) dominate at the flagship size. Latents wider than 8 (the
+// codec's is 4) run a variant compiled apart that reads the token and the
+// codes from device memory instead of registers and shared memory.
 #include "common.cuh"
 
 namespace paella {
@@ -35,7 +37,7 @@ namespace {
 
 constexpr int kTokens = 128;  // tokens (threads) per block
 constexpr int kCodes = 512;   // codes per block: one split of K
-constexpr int kMaxC = 8;      // largest latent width taken
+constexpr int kMaxC = 8;      // widest latent held in registers and shared memory
 
 // The order of unsigned keys is the order of (distance, index).
 __device__ __forceinline__ unsigned long long dist_key(float d, int idx) {
@@ -44,41 +46,66 @@ __device__ __forceinline__ unsigned long long dist_key(float d, int idx) {
   return ((unsigned long long)u << 32) | (uint32_t)idx;
 }
 
+// kWide: a latent wider than kMaxC; the token and the codes are read from
+// device memory (cached) and each code's norm is formed by every thread, in
+// the same order, so the results are the narrow path's.
+template <bool kWide>
 __global__ void __launch_bounds__(kTokens) lookup_kernel(const float* __restrict__ z,
                                                          const float* __restrict__ cb,
                                                          unsigned long long* __restrict__ best,
                                                          int M, int K, int C) {
-  __shared__ float cs[kCodes * kMaxC];
-  __shared__ float cn[kCodes];
+  __shared__ float cs[kWide ? 1 : kCodes * kMaxC];
+  __shared__ float cn[kWide ? 1 : kCodes];
   const int k0 = blockIdx.y * kCodes;
   const int nk = min(kCodes, K - k0);
-  for (int e = threadIdx.x; e < nk * C; e += kTokens) cs[e] = cb[(size_t)k0 * C + e];
-  __syncthreads();
-  for (int j = threadIdx.x; j < nk; j += kTokens) {
-    const float* e = cs + j * C;
-    float n = __fmul_rn(e[0], e[0]);
-    for (int c = 1; c < C; ++c) n = __fadd_rn(n, __fmul_rn(e[c], e[c]));
-    cn[j] = n;
+  if constexpr (!kWide) {
+    for (int e = threadIdx.x; e < nk * C; e += kTokens) cs[e] = cb[(size_t)k0 * C + e];
+    __syncthreads();
+    for (int j = threadIdx.x; j < nk; j += kTokens) {
+      const float* e = cs + j * C;
+      float n = __fmul_rn(e[0], e[0]);
+      for (int c = 1; c < C; ++c) n = __fadd_rn(n, __fmul_rn(e[c], e[c]));
+      cn[j] = n;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int m = blockIdx.x * kTokens + threadIdx.x;
   if (m >= M) return;
-  float zr[kMaxC];
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) zr[c] = c < C ? z[(size_t)m * C + c] : 0.f;
   float bd = __int_as_float(0x7f800000);  // +inf
   int bi = 0;
-  for (int j = 0; j < nk; ++j) {
-    const float* e = cs + j * C;
-    float d = __fmul_rn(zr[0], e[0]);
+  if constexpr (!kWide) {
+    float zr[kMaxC];
 #pragma unroll
-    for (int c = 1; c < kMaxC; ++c)
-      if (c < C) d = __fadd_rn(d, __fmul_rn(zr[c], e[c]));
-    const float dist = __fsub_rn(cn[j], __fmul_rn(2.f, d));
-    if (dist < bd) {
-      bd = dist;
-      bi = j;
+    for (int c = 0; c < kMaxC; ++c) zr[c] = c < C ? z[(size_t)m * C + c] : 0.f;
+    for (int j = 0; j < nk; ++j) {
+      const float* e = cs + j * C;
+      float d = __fmul_rn(zr[0], e[0]);
+#pragma unroll
+      for (int c = 1; c < kMaxC; ++c)
+        if (c < C) d = __fadd_rn(d, __fmul_rn(zr[c], e[c]));
+      const float dist = __fsub_rn(cn[j], __fmul_rn(2.f, d));
+      if (dist < bd) {
+        bd = dist;
+        bi = j;
+      }
+    }
+  } else {
+    const float* zm = z + (size_t)m * C;
+    for (int j = 0; j < nk; ++j) {
+      const float* e = cb + (size_t)(k0 + j) * C;
+      float n = __fmul_rn(__ldg(e), __ldg(e));
+      float d = __fmul_rn(__ldg(zm), __ldg(e));
+      for (int c = 1; c < C; ++c) {
+        const float ec = __ldg(e + c);
+        n = __fadd_rn(n, __fmul_rn(ec, ec));
+        d = __fadd_rn(d, __fmul_rn(__ldg(zm + c), ec));
+      }
+      const float dist = __fsub_rn(n, __fmul_rn(2.f, d));
+      if (dist < bd) {
+        bd = dist;
+        bi = j;
+      }
     }
   }
   atomicMin(best + m, dist_key(bd, k0 + bi));
@@ -93,18 +120,21 @@ __global__ void pack_kernel(const unsigned long long* __restrict__ best, int32_t
 }  // namespace paella
 
 // C interface for ctypes. z (M, C) f32, codebook (K, C) f32, both contiguous;
-// scratch (M,) 64-bit words; out (M,) int32. 1 <= C <= 8. Returns a
-// cudaError_t.
+// scratch (M,) 64-bit words; out (M,) int32. Any C >= 1 (past kMaxC the
+// wide variant, compiled apart). Returns a cudaError_t.
 extern "C" int paella_codebook_lookup(const void* z, const void* codebook, void* scratch, void* out,
                                       int M, int K, int C, void* stream) {
   using namespace paella;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C < 1 || C > kMaxC || M < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || M < 1 || K < 1) return (int)cudaErrorInvalidValue;
   unsigned long long* best = static_cast<unsigned long long*>(scratch);
   cudaError_t err = cudaMemsetAsync(best, 0xff, sizeof(unsigned long long) * (size_t)M, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + kTokens - 1) / kTokens, (K + kCodes - 1) / kCodes);
-  lookup_kernel<<<grid, kTokens, 0, st>>>((const float*)z, (const float*)codebook, best, M, K, C);
+  if (C <= kMaxC)
+    lookup_kernel<false><<<grid, kTokens, 0, st>>>((const float*)z, (const float*)codebook, best, M, K, C);
+  else
+    lookup_kernel<true><<<grid, kTokens, 0, st>>>((const float*)z, (const float*)codebook, best, M, K, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pack_kernel<<<(M + 255) / 256, 256, 0, st>>>(best, (int32_t*)out, M);

@@ -9,8 +9,12 @@ the murmur3 counter hash of (image-local row * K + k) and the image's seed
 pair, so each image's draw depends on its own seeds only.
 
 `fused_head_categorical` and `gumbel_categorical` launch their CUDA kernels
-(csrc/sampling.cu) on CUDA tensors and run `head_categorical_plain` /
-`gumbel_categorical_plain` on CPU tensors only. The fused head keeps the
+(csrc/sampling.cu) on CUDA tensors, at any width (C and K >= 1) and, for the
+Gumbel kernel, any alignment and row stride, and run `head_categorical_plain`
+/ `gumbel_categorical_plain` on CPU tensors only. Both kernels draw with one
+shared per-element routine (csrc/common.cuh::gumbel_score); `draw_noise` runs
+its noise alone so that the card tests can hold it bit for bit against the
+plain versions' over all 2^24 values of u. The fused head keeps the
 logits in f32 (like the JAX kernel); the sampler's "xla" route rounds them to
 the compute dtype first, as the JAX XLA head does, and then draws with
 `gumbel_categorical`. At f32 the two routes are the same.
@@ -59,11 +63,16 @@ def hash_bits(seeds: torch.Tensor, shape: tuple) -> torch.Tensor:
     return mix32((mix32(idx ^ s[:, 0][ex]) + s[:, 1][ex]) & _M32)
 
 
-def hash_uniform(seeds: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """(0, 1) float32 from the high 24 bits (exact in f32), offset by 2^-25
-    so log(log) never sees 0."""
-    bits = hash_bits(seeds, shape)
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(0, 1) float32 from hash bits (int64 holding uint32 values): the high
+    24 bits, scaled by 2^-24 (exact in f32) and offset by 2^-25 so log(log)
+    never sees 0; the kernels' csrc/common.cuh::uniform_from_bits."""
     return (bits >> 8).to(torch.float32) * (2.0**-24) + (2.0**-25)
+
+
+def hash_uniform(seeds: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """(0, 1) float32 counter-hash uniforms: (B, *shape) for seeds (B, 2)."""
+    return uniform_from_bits(hash_bits(seeds, shape))
 
 
 def _f32_inv(temperature: float) -> float:
@@ -133,31 +142,28 @@ def fused_head_categorical(
     orig = feat_c.shape[:-1]
     c = feat_c.shape[-1]
     k = w_out.shape[0]
-    m = feat_c.numel() // c
+    m = feat_c.numel() // c if c else 0
     n_img = seeds.shape[0]
-    if w_out.shape != (k, c) or w_out.dtype != dt:
-        raise ValueError(f"fused_head_categorical: w_out must be (K, {c}) {dt}")
-    if c % 32 or c > 256 or k % 64:
-        raise ValueError(f"fused_head_categorical: C={c} (multiple of 32, <= 256), K={k} (multiple of 64)")
-    if seeds.shape != (n_img, 2) or n_img == 0 or m % n_img:
+    if c == 0 or k == 0 or w_out.shape != (k, c) or w_out.dtype != dt:
+        raise ValueError(f"fused_head_categorical: w_out {tuple(w_out.shape)} {w_out.dtype} must be (K >= 1, {c} >= 1) {dt}")
+    if seeds.shape != (n_img, 2) or n_img == 0 or m == 0 or m % n_img:
         raise ValueError(f"fused_head_categorical: seeds {tuple(seeds.shape)} do not split {m} rows")
     if feat_u is not None and (feat_u.shape != feat_c.shape or feat_u.dtype != dt):
         raise ValueError("fused_head_categorical: feat_u must match feat_c")
-    seeds32 = (seeds.to(torch.int64) & _M32).to(torch.int32).to(feat_c.device).contiguous()
-    operands = {"feat_c": feat_c, "feat_u": feat_u, "w_out": w_out}
-    for name, t in operands.items():
-        if t is None:
-            continue
-        if t.device != feat_c.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"fused_head_categorical: {name} must be a contiguous, 16-byte aligned tensor on {feat_c.device}")
+    for name, t in {"feat_c": feat_c, "feat_u": feat_u, "w_out": w_out}.items():
+        if t is not None and (t.device != feat_c.device or not t.is_contiguous()):
+            raise ValueError(f"fused_head_categorical: {name} must be a contiguous tensor on {feat_c.device}")
     w, one_minus_w, inv_temp = _f32_scalars(cfg_weight, temperature)
     out = torch.empty(m, dtype=torch.int32, device=feat_c.device)
+    seeds64 = _device_seeds(seeds, feat_c.device)
+    stream = stream_handle(feat_c)
+    partials, counters = _head_scratch(m, feat_c.device, stream)
 
     lib = _library()
     rc = lib.paella_head_categorical(
         feat_c.data_ptr(), None if feat_u is None else feat_u.data_ptr(), w, one_minus_w,
-        w_out.data_ptr(), seeds32.data_ptr(), inv_temp, out.data_ptr(), m, c, k, m // n_img,
-        int(dt == torch.bfloat16), stream_handle(feat_c),
+        w_out.data_ptr(), seeds64.data_ptr(), inv_temp, out.data_ptr(), m, c, k, m // n_img,
+        int(dt == torch.bfloat16), partials.data_ptr(), counters.data_ptr(), stream,
     )
     check_rc(rc, "fused_head_categorical")
     fused_head_categorical.launches += 1
@@ -165,6 +171,27 @@ def fused_head_categorical(
 
 
 fused_head_categorical.launches = 0
+
+
+def head_plan(m: int, c: int, k: int, dtype: torch.dtype) -> int:
+    """The CUDA head's launch plan for M rows, width C and K labels (needs the
+    card): how many blocks share one row tile's labels on the wgmma path (1
+    to 16: more where the row tiles are too few to fill the card), or 0 where
+    the SIMT kernel runs (f32, or bf16 past C 448). The tokens do not depend
+    on it."""
+    return int(_library().paella_head_plan(m, c, k, int(dtype == torch.bfloat16)))
+
+
+def draw_noise(bits: torch.Tensor) -> torch.Tensor:
+    """-log(-log u) for 32-bit hash values `bits` (int32 or int64 holding
+    uint32 values, on the card) by the kernels' shared draw routine
+    (csrc/common.cuh::gumbel_noise), for tests that hold it bit for bit
+    against the plain versions' noise, -log(-log(uniform_from_bits(bits)))."""
+    flat = bits.reshape(-1).to(torch.int32).contiguous()
+    out = torch.empty(flat.shape, dtype=torch.float32, device=bits.device)
+    check_rc(_library().paella_gumbel_noise(flat.data_ptr(), out.data_ptr(), flat.numel(), stream_handle(bits)),
+             "draw_noise")
+    return out.reshape(bits.shape)
 
 
 def gumbel_categorical_plain(seeds: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:
@@ -203,19 +230,16 @@ def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: f
     k = logits.shape[-1]
     m = logits.numel() // k if k else 0
     n_img = seeds.shape[0]
-    if k == 0 or k % (16 // logits.element_size()) or not logits.is_contiguous() or logits.data_ptr() % 16:
-        raise ValueError(
-            f"gumbel_categorical: logits must be contiguous and 16-byte aligned with K={k} "
-            "a multiple of 8 (bf16) or 4 (f32)"
-        )
     if seeds.shape != (n_img, 2) or n_img == 0 or m == 0 or m % n_img:
-        raise ValueError(f"gumbel_categorical: seeds {tuple(seeds.shape)} do not split {m} rows")
-    seeds32 = (seeds.to(torch.int64) & _M32).to(torch.int32).to(logits.device).contiguous()
+        raise ValueError(f"gumbel_categorical: seeds {tuple(seeds.shape)} do not split {m} rows of K={k}")
+    flat = logits.reshape(m, k)  # a view where the rows share one stride
+    if flat.stride(1) != 1 or (m > 1 and flat.stride(0) < k):
+        flat = flat.contiguous()
     inv_temp = _f32_inv(temperature)
     out = torch.empty(m, dtype=torch.int32, device=logits.device)
     rc = _library().paella_gumbel_categorical(
-        logits.data_ptr(), seeds32.data_ptr(), inv_temp, out.data_ptr(), m, k, m // n_img,
-        int(dt == torch.bfloat16), stream_handle(logits),
+        flat.data_ptr(), flat.stride(0), _device_seeds(seeds, logits.device).data_ptr(), inv_temp, out.data_ptr(),
+        m, k, m // n_img, int(dt == torch.bfloat16), stream_handle(logits),
     )
     check_rc(rc, "gumbel_categorical")
     gumbel_categorical.launches += 1
@@ -223,6 +247,33 @@ def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: f
 
 
 gumbel_categorical.launches = 0
+
+
+# (device, stream) -> (partials, counters): the head kernel's scratch where
+# several blocks share a row tile's labels (csrc/sampling.cu): 16 M 8-byte
+# partials, and per-row-tile arrival counts that start at zero and that the
+# kernel leaves at zero. Kept per stream, since calls that share them must not
+# overlap; grown, never shrunk.
+_HEAD_SCRATCH: dict = {}
+
+
+def _head_scratch(m: int, device: torch.device, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    partials, counters = _HEAD_SCRATCH.get((device, stream), (None, None))
+    if partials is None or partials.numel() < 16 * m:
+        partials = torch.empty(16 * m, dtype=torch.int64, device=device)
+    if counters is None or counters.numel() < m // 128 + 1:
+        counters = torch.zeros(m // 128 + 1, dtype=torch.int32, device=device)
+    _HEAD_SCRATCH[(device, stream)] = (partials, counters)
+    return partials, counters
+
+
+def _device_seeds(seeds: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The (n_img, 2) seeds as the kernels read them: int64 on the device,
+    contiguous (the kernels take each value's low 32 bits). The sampler's
+    seeds already are, and pass without a copy or a launch."""
+    if seeds.dtype != torch.int64 or seeds.device != device or not seeds.is_contiguous():
+        seeds = seeds.to(device=device, dtype=torch.int64).contiguous()
+    return seeds
 
 
 def _library() -> ctypes.CDLL:
@@ -233,12 +284,16 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         head.restype = ctypes.c_int
         gumbel.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         gumbel.restype = ctypes.c_int
+        lib.paella_head_plan.argtypes = [ctypes.c_int] * 4
+        lib.paella_head_plan.restype = ctypes.c_int
+        lib.paella_gumbel_noise.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.paella_gumbel_noise.restype = ctypes.c_int
     return lib

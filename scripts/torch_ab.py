@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the PyTorch port's kernels on two checkouts, in turns on one card.
 
-    python scripts/torch_ab.py PARENT_DIR
+    python scripts/torch_ab.py PARENT_DIR [--only GROUP]
 
 PARENT_DIR is another checkout of the repository, for example the parent
 commit unpacked from `git archive` under build/ (gitignored). Each turn runs
@@ -19,7 +19,12 @@ seeded inputs (the same in every turn):
   - K5 at levels 1 and 2 (bf16, masked): device µs per call;
   - a generation's K1b: torch.profiler over one 8-step CFG generation of the
     flagship with every ResBlock quantized, per mode: the ResBlock kernels'
-    device ms and launches.
+    device ms and launches;
+  - K2 at the flagship step (features (1,64,64,256) x2, W_out (8192,256))
+    and K3 over (1,64,64,8192) logits, bf16: device µs per call; the 8-step
+    CFG generation on the fused-head route: K2's device ms in one profiled
+    generation and the p50 of 5 generations.
+`--only sampling` (or resblock, attention, int8) measures one group alone.
 It prints each turn's JSON line, then each measurement's range per tree,
 with the card's name and power limit. Needs one NVIDIA GPU.
 """
@@ -65,7 +70,49 @@ def int8_generation(cs, tag: str) -> dict:
     return out
 
 
-def child(tree: str) -> None:
+def sampling_kernels(cs, tag: str) -> dict:
+    """K2 and K3 at the flagship step, bf16: device µs per call; then the
+    8-step CFG generation of the flagship on the fused-head route
+    (categorical_impl "pallas"): K2's device ms in one profiled generation
+    and the p50 of 5 generations (host wall clock, tokens only)."""
+    import time
+
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.kernels.sampling import fused_head_categorical, gumbel_categorical
+    from paella_tpu_torch.sampling import sample
+
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    args = cs.head_case(1, torch.bfloat16, gen)
+    logits = (torch.randn(1, 64, 64, 8192, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+    seeds = args[0]
+    out = {"k2_us": cs.device_us(lambda: fused_head_categorical(*args)),
+           "k3_us": cs.device_us(lambda: gumbel_categorical(seeds, logits, 0.7))}
+    model, _, p_cfg = cs.build_flagship(gen)
+    cond, uncond = cs.flagship_conditioning(p_cfg, gen)
+    s_cfg = SampleConfig(steps=cs.STEPS, categorical_impl="pallas")
+    generate = lambda: sample(model, seeds, cond, cs.LATENT, uncond, s_cfg)  # noqa: E731
+    kernels, _ = cs.profile_kernels(generate)
+    # the parent tree's head kernel is head_kernel, this tree's head_wgmma_kernel
+    k2 = [v for k, v in kernels.items() if "head_kernel" in k or "head_wgmma_kernel" in k]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["k2_generation_ms"] = sum(us for us, _ in k2) / 1e3 if k2 else None
+    out["fused_head_8step_p50_ms"] = sorted(walls)[2]
+    print(f"[ab] fused-head generation ({cs.STEPS} steps): K2 {out['k2_generation_ms']} ms "
+          f"({sum(n for _, n in k2):g} launches), p50 {out['fused_head_8step_p50_ms']:.2f} ms ({tag})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def child(tree: str, only: str | None) -> None:
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(tree))  # the tree's paella_tpu_torch
@@ -86,7 +133,7 @@ def child(tree: str) -> None:
     takes_nhead = "nhead" in inspect.signature(prepare_attn_block_weights).parameters
     out = {"tree": tree, "card": tag}
     gen = torch.Generator(device="cuda").manual_seed(61)
-    for b, hh, ww, c, with_skip in cs.RESBLOCK_SHAPES:
+    for b, hh, ww, c, with_skip in cs.RESBLOCK_SHAPES if only in (None, "resblock") else ():
         x = torch.randn(b, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
         skip = torch.randn(b, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16) if with_skip else None
         film = (torch.randn(b, 2 * c, generator=gen, device="cuda") * 0.2).to(torch.bfloat16)
@@ -96,7 +143,7 @@ def child(tree: str) -> None:
             split = cs.k1_split(x, w, film, skip, tag)
             out[f"{'k1' if mode == 'float' else 'k1b_' + mode}_{name}"] = {
                 "device_us": split["device_us"], "roles": split["sub_kernels_us"]}
-    for level, (b, n, s_c, h, d) in enumerate(cs.ATTN_LEVELS, start=1):
+    for level, (b, n, s_c, h, d) in enumerate(cs.ATTN_LEVELS if only in (None, "attention") else (), start=1):
         c, side = h * d, int(n**0.5)
         r = lambda *shape, std: torch.randn(*shape, generator=gen, device="cuda") * std  # noqa: E731
         w = prepare_attn_block_weights(r(3 * c, c, std=c**-0.5), r(3 * c, std=0.05), r(c, c, std=c**-0.5),
@@ -107,23 +154,31 @@ def child(tree: str) -> None:
         out[f"k6_level{level}"] = {"device_us": split["device_us"], "roles": split["sub_kernels_us"]}
         q, k, v = (r(b, ln, h, d, std=1.0).to(torch.bfloat16) for ln in (n, n + s_c, n + s_c))
         out[f"k5_level{level}_us"] = cs.device_us(lambda: fused_attention(q, k, v, mask))
-    out.update(int8_generation(cs, tag))
+    if only in (None, "int8"):
+        out.update(int8_generation(cs, tag))
+    if only in (None, "sampling"):
+        out.update(sampling_kernels(cs, tag))
     untraced = [k for k, v in out.items() if (v["device_us"] if isinstance(v, dict) else v) is None]
     cs.check(not untraced, f"torch.profiler traced no device time for {untraced}")
     print(MARK + json.dumps(out), flush=True)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    args = sys.argv[1:]
+    only = None
+    if len(args) >= 2 and args[-2] == "--only":
+        only, args = args[-1], args[:-2]
+    if len(args) == 2 and args[0] == "--child":
+        child(args[1], only)
         return 0
-    if len(sys.argv) != 2:
+    if len(args) != 1 or only not in (None, "resblock", "attention", "int8", "sampling"):
         print(__doc__, file=sys.stderr)
         return 2
-    parent = os.path.abspath(sys.argv[1])
+    parent = os.path.abspath(args[0])
     runs = []
     for tree in (parent, REPO, REPO, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree], capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree, *(["--only", only] if only else [])],
+                              capture_output=True, text=True)
         lines = [ln[len(MARK):] for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)

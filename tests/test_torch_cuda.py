@@ -18,10 +18,13 @@ from paella_tpu_torch.kernels.resblock import (
     resblock_plain,
 )
 from paella_tpu_torch.kernels.sampling import (
+    draw_noise,
     fused_head_categorical,
     gumbel_categorical,
     gumbel_categorical_plain,
     head_categorical_plain,
+    head_plan,
+    uniform_from_bits,
 )
 from paella_tpu_torch.quant import quantize_dense_int8, w8a8_dot
 
@@ -697,3 +700,136 @@ def test_attn_block_any_width_matches_plain(cuda, dtype, shape):
     else:
         assert (got.float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
     assert torch.equal(fused_attn_block(x, kv, w, nhead, mask), got)
+
+
+def head_call(g, b: int, hh: int, ww: int, c: int, k: int, dtype, with_cfg: bool = True):
+    """Seeds (on the card, as the sampler holds them), features and a head
+    weight for one fused-head call of b images of hh x ww rows."""
+    seeds = torch.tensor(np.array([[5 + i, 0xDEADBEEF - 3 * i] for i in range(b)], np.int64), device="cuda")
+    fc = torch.randn(b, hh, ww, c, generator=g, device="cuda").to(dtype)
+    fu = torch.randn(b, hh, ww, c, generator=g, device="cuda").to(dtype) if with_cfg else None
+    w_out = (torch.randn(k, c, generator=g, device="cuda") * c**-0.5).to(dtype)
+    return seeds, fc, fu, 3.0, w_out, 0.8
+
+
+@pytest.mark.parametrize("with_cfg", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,k", [(16, 128), (20, 200), (300, 8190), (520, 300), (256, 8192)])
+def test_head_kernel_any_width_matches_plain(cuda, dtype, with_cfg, c, k):
+    """K2 at widths off the wgmma path's 64-wide steps (C 16, 20, 300: zero
+    columns to the 16-wide slice, element-staged weights; K 128, 200, 8190:
+    a ragged last label tile), bf16 past the resident-A limit (C 520: the
+    SIMT kernel), and the flagship's widths, at a ragged row count (3 images
+    of 12x11 = 396 rows: a partial 128-row tile, images meeting inside a
+    tile), with and without CFG: tokens agree with the plain version on at
+    least 99.5% of rows (f32 sums in another order flip only near-ties), and
+    two runs are bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    args = head_call(g, 3, 12, 11, c, k, dtype, with_cfg)
+    got = fused_head_categorical(*args)
+    assert got.dtype == torch.int32 and got.shape == (3, 12, 11)
+    assert bool(((got >= 0) & (got < k)).all())
+    assert (got == head_categorical_plain(*args)).float().mean() >= 0.995
+    assert torch.equal(fused_head_categorical(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,k", [(256, 8192), (20, 200)])
+def test_head_kernel_is_batch_invariant(cuda, dtype, c, k):
+    """An image's tokens at B = 1 (M 4096: on the wgmma path the labels split
+    among more blocks) equal its tokens as the middle image of B = 3 (M 12288:
+    fewer), and two runs are bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    seeds, fc, fu, cw, w_out, temp = head_call(g, 3, 64, 64, c, k, dtype)
+    solo = fused_head_categorical(seeds[1:2], fc[1:2], fu[1:2], cw, w_out, temp)
+    trio = fused_head_categorical(seeds, fc, fu, cw, w_out, temp)
+    assert torch.equal(trio[1:2], solo)
+    assert torch.equal(fused_head_categorical(seeds[1:2], fc[1:2], fu[1:2], cw, w_out, temp), solo)
+    plans = head_plan(4096, c, k, dtype), head_plan(3 * 4096, c, k, dtype)
+    if dtype == torch.bfloat16:
+        assert plans[0] > plans[1] >= 1, plans
+    else:
+        assert plans == (0, 0)
+
+
+def test_tiny_config_samples_through_the_fused_head(cuda):
+    """PaellaConfig.tiny() (c_out 16, 128 labels) with categorical_impl
+    "pallas": K2 on the card, once a step, tokens against the same weights'
+    sampling on the CPU (the plain versions; features differ in f32
+    rounding, so near-ties may flip)."""
+    from paella_tpu_torch.config import PaellaConfig, SampleConfig
+    from paella_tpu_torch.kernels import sampling as ksamp
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import Conditioning, sample
+
+    cfg = PaellaConfig.tiny()
+    gen = torch.Generator().manual_seed(42)
+    cpu = Paella(cfg)
+    cpu.reset_parameters(gen)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+    dev = Paella(cfg).cuda()
+    dev.load_state_dict(cpu.state_dict())
+    cond = Conditioning(torch.randn(2, 6, cfg.byt5_embd, generator=gen), torch.randn(2, cfg.clip_embd, generator=gen),
+                        torch.randn(2, cfg.clip_embd, generator=gen))
+    uncond = Conditioning(torch.randn(2, 3, cfg.byt5_embd, generator=gen), torch.randn(2, cfg.clip_embd, generator=gen))
+    seeds = torch.tensor([[1, 2], [3, 4]])
+    s_cfg = SampleConfig(steps=4, temperature=(1.0, 0.5), cfg=(3.0, 3.0), categorical_impl="pallas")
+    want = sample(cpu, seeds, cond, (2, 16, 16), uncond, s_cfg)
+    before = ksamp.fused_head_categorical.launches
+    got = sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg).cpu()
+    assert ksamp.fused_head_categorical.launches - before == 4
+    assert (got == want).float().mean() >= 0.95
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8190, 201, 8192])
+def test_gumbel_kernel_any_width_and_alignment(cuda, dtype, k, aligned):
+    """K3 at K off the 16-byte vector (8190, 201: a scalar tail) and on a
+    view one element off 16-byte alignment (a scalar head, then vectors),
+    3 images of 5x7 rows: tokens equal the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    logits = (torch.randn(3, 5, 7, k, generator=g, device=cuda) * 3.0).to(dtype)
+    if not aligned:
+        buf = torch.empty(logits.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(logits.shape)
+        view.copy_(logits)
+        logits = view
+        assert logits.data_ptr() % 16
+    seeds = torch.tensor(np.array([[5, 0xDEADBEEF], [0xFFFFFFFF, 7], [1, 2]], np.int64))
+    torch.testing.assert_close(gumbel_categorical(seeds, logits, 0.7), gumbel_categorical_plain(seeds, logits, 0.7),
+                               rtol=0, atol=0)
+
+
+def test_gumbel_kernel_takes_a_row_strided_view(cuda):
+    """Logits whose rows are a strided slice of a wider tensor (K 300 of
+    320): tokens equal the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(44)
+    wide = (torch.randn(2, 6, 320, generator=g, device=cuda) * 3.0).to(torch.bfloat16)
+    logits = wide[..., 10:310]
+    seeds = torch.tensor(np.array([[9, 8], [7, 6]], np.int64))
+    torch.testing.assert_close(gumbel_categorical(seeds, logits, 0.9), gumbel_categorical_plain(seeds, logits, 0.9),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [12, 33])
+def test_codebook_lookup_kernel_any_latent_width(cuda, c):
+    """K4 at latent widths past the 8 held in registers (the wide variant):
+    indices equal the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(45)
+    z = torch.randn(3, 16, 16, c, generator=g, device=cuda)
+    cb = torch.randn(1000, c, generator=g, device=cuda)
+    torch.testing.assert_close(fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb), rtol=0, atol=0)
+
+
+def test_shared_draw_noise_is_torch_bit_for_bit_for_every_u(cuda):
+    """The kernels' shared draw (common.cuh::gumbel_noise: u, then logf's
+    operations without its branches for arguments the draw never sees)
+    against the plain versions' -log(-log u) on the card, over all 2^24
+    values of u, bit for bit: +inf at u = 1.0 and -0 at -log u = 1.0
+    included."""
+    bits = (torch.arange(2**24, device=cuda, dtype=torch.int64) << 8) | 0x5A
+    want = -torch.log(-torch.log(uniform_from_bits(bits)))
+    assert torch.equal(draw_noise(bits).view(torch.int32), want.view(torch.int32))

@@ -117,3 +117,16 @@ def test_cpu_wrapper_counts_the_plain_version_only():
     assert (kquant.fused_codebook_lookup.launches, kquant.codebook_lookup_plain.launches) == (k0, p0 + 1)
     with pytest.raises(ValueError, match="no kernel"):
         fused_codebook_lookup(torch.from_numpy(z).to("meta"), torch.from_numpy(cb).to("meta"))
+
+
+def test_lookup_at_latent_width_12_matches_jax():
+    """A latent wider than the 8 the CUDA kernel holds in registers (fault
+    C4: the wide variant on the card): the plain version against the XLA
+    lookup and the Pallas kernel in interpret mode, equal but at near-ties."""
+    z, cb = lookup_inputs((3, 8, 8), 300, 12, seed=12)
+    got = codebook_lookup_plain(torch.from_numpy(z), torch.from_numpy(cb)).numpy()
+    assert got.shape == (3, 8, 8)
+    assert_near_ties_only(got, np.asarray(codebook_lookup(jnp.asarray(z), jnp.asarray(cb))), z, cb)
+    fused = jax_fused_lookup(jnp.asarray(z), jnp.asarray(cb), tile_m=64, tile_k=128, interpret=True)
+    assert_near_ties_only(got, np.asarray(fused), z, cb)
+    assert len(np.unique(got)) > 50
