@@ -24,8 +24,12 @@ limit):
   4. K3        Gumbel categorical against its plain version over flagship
                logits (1,64,64,8192), bf16 and f32, with its device µs and
                the instruction-issue bound beside the bytes bound
-  5. K4        codebook lookup against its plain version at the codec's
-               encode shape, two codebooks
+  5. K4        codebook lookup against its plain version, bit for bit, at
+               the codec's encode shape (M 4096, two codebooks), at M 8 x 4096
+               and at C 12, and a NaN token and an all-+inf one (index 0):
+               device µs and the kernels a call launches (one) from torch.profiler,
+               event ms in turns with the plain version, and an
+               instruction-issue bound from the search loop's SASS
   6. e2e       the flagship config (PaellaConfig.v1_byt5_xl_inference, seeded
                random weights): 8-step CFG sampling through the fused head at
                batch 1 and the codec decode to a uint8 256x256 image, with
@@ -78,10 +82,21 @@ limit):
                both modes) encode p50s; text_to_image at 8 steps with each
                mode's encoder as byt5_encode_fn, in turns with the bf16
                pipeline; the W8A8 quality proxies' rows
+ 14. graph     the sampler's CUDA graph in the plain, attention and int8
+               (weight-only, W8A8) configurations at the flagship's width:
+               replayed tokens bit for bit the eager body's (sample_eager) on
+               both routes at batch 1 and 3 with CFG, a cutoff and the
+               editing inputs; new schedule values capture nothing; graph
+               and eager 8-step p50 in turns, a profile of each (busy share),
+               the kernels of one replay by name, each graph's pool bytes
+Generations run as captured CUDA graphs (sampling/graph.py): a counted
+generation captures its graph, so its wrappers count the warm-up's and the
+capture's launches (GRAPH_PASSES x one generation's), and the kernels of one
+replay are counted from a torch.profiler trace.
 Then a JSON line of the kernels (each with its time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time; K1, K1b, K2, K3, K5 and K6 also with their device time alone,
-`device_ms`, null where torch.profiler traced nothing; K2 and K3 with
+time; every kernel also with its device time alone,
+`device_ms`, null where torch.profiler traced nothing; K2, K3 and K4 with
 `issue_bound_ms`), the card's name and power limit, and, last, {"ok": true, "device":
 {...}}. Any failed check raises; without a CUDA device the script exits
 non-zero and prints no result.
@@ -179,11 +194,17 @@ def counted(fn):
     """Run fn() with every launch count set to 0 just before; return its
     result and the counts read just after (synchronized). fused_resblock's
     launches are also read per mode, as `fused_resblock[float]` (K1),
-    `fused_resblock[int8]` and `fused_resblock[w8a8]` (K1b)."""
+    `fused_resblock[int8]` and `fused_resblock[w8a8]` (K1b). The sampler's
+    kept CUDA graphs are dropped first, so a generation inside fn captures
+    its graph: its warm-up and its capture each go through every wrapper
+    once (GRAPH_PASSES), and a replay through none (replay_launches counts
+    a replay's kernels from a trace instead)."""
     import torch
 
     from paella_tpu_torch.kernels.resblock import fused_resblock
+    from paella_tpu_torch.sampling import graph
 
+    graph.clear()
     kernels, plains = launch_counters()
     for f in kernels + plains:
         f.launches = 0
@@ -201,6 +222,36 @@ def counted(fn):
 def check_launches(what: str, launches: dict, expect: dict) -> None:
     for k, n in expect.items():
         check(launches[k] == n, f"{what}: {k} launched {launches[k]} times, want {n}")
+
+
+GRAPH_PASSES = 2  # wrapper calls a generation makes when its graph is captured: the warm-up and the capture
+# the kernels of a trace by the name of one kernel each call launches once
+REPLAY_KERNELS = {"K1": ("dw_ln_kernel",), "K2": ("head_wgmma_kernel", "head_simt_kernel"), "K3": ("gumbel_kernel",),
+                  "K4": ("lookup_kernel",), "K5": ("attention_ring_kernel",), "K6": ("block_attention_kernel",)}
+
+
+def replay_launches(fn) -> dict | None:
+    """The kernel calls in one fn() call (a generation whose graph is
+    captured: a replay), counted from a torch.profiler trace (five tries);
+    None where the tracer caught nothing, which check_replay fails."""
+    return replay_counts(profile_kernels(fn)[0])
+
+
+def replay_counts(kernels: dict) -> dict | None:
+    """The calls of each kernel in profile_kernels' entries, by REPLAY_KERNELS."""
+    if not kernels:
+        return None
+    return {k: round(sum(n for name, (_, n) in kernels.items() if any(m in name for m in marks)))
+            for k, marks in REPLAY_KERNELS.items()}
+
+
+def check_replay(what: str, got: dict | None, expect: dict, tag: str) -> None:
+    """The launches of one replay against `expect`: the only count of the
+    kernels a replayed generation runs, so an untraced replay fails."""
+    print(f"[{what}] kernels of one replay (torch.profiler): {json.dumps(got) if got else 'not traced'} ({tag})")
+    check(got is not None, f"{what}: torch.profiler traced no kernel of a replay in 5 tries")
+    for k, n in expect.items():
+        check(got[k] == n, f"{what}: one replay launched {k} {got[k]} times, want {n}")
 
 
 def phase_build(tag: str) -> dict:
@@ -277,6 +328,7 @@ def profile_kernels(fn, runs: int = 1) -> tuple[dict, float]:
     """torch.profiler over `runs` calls of fn() after one warm-up: ({kernel
     name: (device µs per run, launches per run)}, host wall ms per run)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -292,10 +344,14 @@ def profile_kernels(fn, runs: int = 1) -> tuple[dict, float]:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / runs
         for e in prof.key_averages():
+            # device events only (kernels, memcpys, memsets): a host op's self
+            # device time repeats its kernels' (torch.profiler's own total skips it too)
+            if e.device_type == DeviceType.CPU:
+                continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            if us > 0:  # kernels, memcpys and memsets; host ops have no self device time
+            if us > 0:
                 kernels[e.key] = (us / runs, e.count / runs)
         if kernels:
             break
@@ -475,6 +531,16 @@ def sass_draw_loops(name: str, path=None) -> dict:
     most murmur3 rounds, as (SASS instructions in the loop, draws in it). The
     loop's instructions over its draws is the issue cost of one (row, label)
     element, the loop's own overhead shared among them."""
+    return sass_loops(name, lambda ins: sum(ins.count(c) for c in HASH_MULTIPLIER) / 2, path)
+
+
+def sass_loops(name: str, elements, path=None, innermost: bool = False) -> dict:
+    """Per kernel of the built library csrc/{name}.cu (mangled name): the loop
+    (a branch back to an earlier address, cuobjdump -sass) that holds the
+    most elements, summed over its instructions by elements(instruction), or
+    with `innermost` the loop with the fewest instructions an element (an
+    inner loop rather than the loop around it), as (SASS instructions in the
+    loop, elements in it)."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -496,8 +562,8 @@ def sass_draw_loops(name: str, path=None) -> dict:
             hit = re.search(r"\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)", ins)
             if hit and int(hit.group(1), 16) <= addr:
                 loop = [x for a, x in instrs if int(hit.group(1), 16) <= a <= addr]
-                draws = sum(x.count(c) for x in loop for c in HASH_MULTIPLIER) // 2
-                if draws and (best is None or draws > best[1]):
+                draws = int(sum(elements(x) for x in loop))
+                if draws and (best is None or (len(loop) / draws < best[0] / best[1] if innermost else draws > best[1])):
                     best = (len(loop), draws)
         if best:
             out[chunk.split()[0]] = best
@@ -557,14 +623,14 @@ def head_flip_gap(args, got, want) -> float:
     version's choice where they differ (0.0 if they agree everywhere)."""
     import torch
 
-    from paella_tpu_torch.kernels.sampling import _f32_scalars, hash_uniform
+    from paella_tpu_torch.kernels.sampling import hash_uniform, step_scalar
 
     seeds, fc, fu, cfg_w, w_out, temp = args
     flips = (got != want).reshape(-1)
     if not flips.any():
         return 0.0
-    c, (w, one_minus_w, inv_t) = fc.shape[-1], _f32_scalars(cfg_w, temp)
-    f = (fc.float() * w + fu.float() * one_minus_w).to(fc.dtype).float().reshape(-1, c)[flips]
+    c, w, inv_t = fc.shape[-1], step_scalar(cfg_w, fc.device), step_scalar(temp, fc.device).reciprocal()
+    f = (fc.float() * w + fu.float() * (1.0 - w)).to(fc.dtype).float().reshape(-1, c)[flips]
     rows = torch.nonzero(flips).reshape(-1)
     hw = fc.numel() // c // seeds.shape[0]
     u = hash_uniform(seeds, (hw, w_out.shape[0])).reshape(-1, w_out.shape[0])[rows]
@@ -583,7 +649,7 @@ def phase_k2(tag: str) -> dict:
     image's tokens at B = 1 and inside B = 3, whose launch plans differ)."""
     import torch
 
-    from paella_tpu_torch.kernels.sampling import _f32_scalars, fused_head_categorical, head_categorical_plain, head_plan
+    from paella_tpu_torch.kernels.sampling import fused_head_categorical, head_categorical_plain, head_plan, step_scalar
     from paella_tpu_torch.sampling.sampler import draw_tokens
 
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -609,8 +675,8 @@ def phase_k2(tag: str) -> dict:
             iters = 20 if b == 1 else 5
             k_ms, p_ms = in_turns(lambda: fused_head_categorical(*args), lambda: head_categorical_plain(*args), iters)
             k2_ms, x_ms = in_turns(lambda: fused_head_categorical(*args), lambda: draw_tokens("xla", *args), iters)
-            w, one_minus_w, _ = _f32_scalars(cfg_w, temp)
-            mixed = (fc.float() * w + fu.float() * one_minus_w).to(dtype).reshape(m, HEAD_C)
+            w = step_scalar(cfg_w, fc.device)
+            mixed = (fc.float() * w + fu.float() * (1.0 - w)).to(dtype).reshape(m, HEAD_C)
             mm_ms = cuda_time_ms(lambda: torch.matmul(mixed, w_out.t()), iters)
             dev = device_us(lambda: fused_head_categorical(*args))
             x_dev = device_us(lambda: draw_tokens("xla", *args))
@@ -674,13 +740,13 @@ def score_gap(logits, seeds, got, want, temperature: float) -> float:
     image, seeds (1, 2)."""
     import torch
 
-    from paella_tpu_torch.kernels.sampling import _f32_inv, hash_uniform
+    from paella_tpu_torch.kernels.sampling import hash_uniform, step_scalar
 
     flips = (got != want).reshape(-1)
     if not flips.any():
         return 0.0
     k = logits.shape[-1]
-    rows = logits.reshape(-1, k)[flips].float() * _f32_inv(temperature)
+    rows = logits.reshape(-1, k)[flips].float() * step_scalar(temperature, logits.device).reciprocal()
     u = hash_uniform(seeds.to(logits.device), (logits.numel() // k, k))[0][flips]
     score = rows - torch.log(-torch.log(u))
     pick = lambda t: score.gather(1, t.reshape(-1, 1)[flips].long())  # noqa: E731
@@ -737,49 +803,83 @@ def phase_k3(tag: str) -> dict:
     return result
 
 
+# K4's cases: (M, C, codebook); M 4096 is the codec's encode of a 256x256
+# image, M 8 x 4096 an 8-frame interpolation; 8192 codes
+K4_CASES = [(4096, 4, "N(0,1)"), (4096, 4, "U(+-1/8192)"), (8 * 4096, 4, "N(0,1)"), (4096, 12, "N(0,1)")]
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name without namespace and template arguments."""
+    import re
+
+    hit = re.search(r"(\w+_kernel)\b", key)
+    return hit.group(1) if hit else key
+
+
+def k4_search_cost(elements) -> int:
+    """Elements in a SASS instruction of K4's search loop: its n - 2 d, one
+    FFMA by -2 an element."""
+    return int(elements.startswith("FFMA") and ", -2," in elements)
+
+
 def phase_k4(tag: str) -> dict:
+    """K4 against its plain version, bit for bit (no allowance for near-ties),
+    at K4_CASES, and at each a NaN token and a token whose every distance
+    overflows to +inf (index 0, as the plain version gives): device µs
+    (torch.profiler) and the kernels a call launches (one), from the trace;
+    CUDA-event ms in turns with the plain version; the bytes/ops bound and an
+    instruction-issue bound from the search loop's SASS (instructions an
+    element)."""
     import torch
 
     from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
 
+    loops = sass_loops("quantize", k4_search_cost, innermost=True)
+    per_el = {4: draw_cost(loops, "lookup_kernelILi4ELb0E"), 12: draw_cost(loops, "lookup_kernelILi0ELb1E")}
+    print(f"[K4] SASS instructions per (token, code) element of the search loop: C 4 {per_el[4] or 'not counted'}, "
+          f"C 12 (wide) {per_el[12] or 'not counted'}; issue rate {issue_rate() / 1e12:.2f} T thread-instructions/s ({tag})")
     gen = torch.Generator(device="cuda").manual_seed(14)
-    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
-    codebooks = {
-        "U(+-1/8192)": (torch.rand(8192, 4, generator=gen, device="cuda") * 2 - 1) / 8192,
-        "N(0,1)": torch.randn(8192, 4, generator=gen, device="cuda"),
-    }
-    result = {"max_abs_err": 0.0}
-    for name, cb in codebooks.items():
-        got, want = fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb)
+    result = {"cases": {}}
+    for m, c, cb_name in K4_CASES:
+        z = torch.randn(m, c, generator=gen, device="cuda")
+        if cb_name == "N(0,1)":
+            cb = torch.randn(8192, c, generator=gen, device="cuda")
+        else:
+            cb = (torch.rand(8192, c, generator=gen, device="cuda") * 2 - 1) / 8192
+        want = codebook_lookup_plain(z, cb)
+        got = fused_codebook_lookup(z, cb)
         torch.cuda.synchronize()
-        bad = (got != want).reshape(-1)
-        gap = 0.0
-        if bad.any():  # each mismatch must be a near-tie: distances (f64) within 1e-6 * max(1, |d|)
-            zz, cbd = z.reshape(-1, 4)[bad].double(), cb.double()
-
-            def dist(idx):
-                e = cbd[idx.reshape(-1)[bad].long()]
-                return (e * e).sum(-1) - 2 * (zz * e).sum(-1)
-
-            d_got, d_want = dist(got), dist(want)
-            gap = ((d_got - d_want).abs() / d_want.abs().clamp(min=1.0)).max().item()
+        bad = int((got != want).sum())
+        check(bad == 0, f"K4 M {m} C {c} {cb_name}: {bad} indices differ from the plain version")
+        odd = z.clone()
+        odd[0], odd[-1] = float("nan"), -3e38
+        odd_cb = cb.abs() + 0.5  # codes >= 0.5: every dot of the -3e38 token is -inf
+        odd_got, odd_want = fused_codebook_lookup(odd, odd_cb), codebook_lookup_plain(odd, odd_cb)
+        check(int(odd_want[0]) == 0 and int(odd_want[-1]) == 0 and torch.equal(odd_got, odd_want),
+              f"K4 M {m} C {c}: a NaN token or one with every distance +inf gave {int(odd_got[0])} / "
+              f"{int(odd_got[-1])} (plain {int(odd_want[0])} / {int(odd_want[-1])}), or another index differs")
+        kernels = profile_kernels(lambda: fused_codebook_lookup(z, cb), runs=20)[0]
+        check(bool(kernels), f"K4 M {m} C {c}: torch.profiler traced no launch")
+        dev = sum(us for us, _ in kernels.values())
+        # launches a call, rounded: the tracer now and then misses one of the 20
+        calls = {kernel_name(k): round(n) for k, (_, n) in kernels.items()}
+        check(calls == {"lookup_kernel": 1}, f"K4 M {m} C {c}: a call launched {calls}, want one lookup_kernel")
         ms, plain_ms = alternate(lambda: fused_codebook_lookup(z, cb), lambda: codebook_lookup_plain(z, cb))
-        nbytes = (z.numel() + cb.numel()) * 4 + got.numel() * (4 + 2 * 8)  # + the 64-bit merge words
-        flops = z.numel() // 4 * 8192 * 10
+        ib = issue_bound_ms(m * 8192, per_el[c])
+        bd = bound(nbytes_of(z, cb, want), m * 8192 * 2 * c, "f32")  # C products, C - 1 sums and n - 2 d
         print(
-            f"[K4] fused_codebook_lookup z (1,64,64,4) vs {name} codebook (8192,4) f32: "
-            f"{int(bad.sum())} mismatches of 4096, max relative distance gap {gap:.3e} (limit 1e-6); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {nbytes / 1e6:.3f} MB moved "
-            f"({nbytes / ms / 3.35e9:.5f} of 3.35 TB/s), {flops / 1e9:.2f} GFLOP "
-            f"({flops / ms / 67e9:.3f} of 67 TFLOP/s f32) ({tag})"
+            f"[K4] fused_codebook_lookup z ({m},{c}) vs {cb_name} codebook (8192,{c}) f32: 0 of {m} indices differ "
+            f"from the plain version, a NaN token and an all-+inf one give index 0 as it does; device µs a call "
+            f"{us_text(dev)}; kernels a call {json.dumps(calls)}; events {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{bd['bound_ms'] * 1e3:.2f} µs ({bd['bound_by']}), issue bound "
+            f"{'not counted' if ib is None else f'{ib * 1e3:.2f} µs'} ({tag})"
         )
-        check(gap <= 1e-6, f"K4 {name}: a mismatch is not a near-tie (gap {gap})")
-        check(bool(((got >= 0) & (got < 8192)).all()), "K4 indices out of range")
-        result["max_abs_err"] = max(result["max_abs_err"], gap)
-        if name == "N(0,1)":
-            # the distance of a (token, code) pair: 4 multiply-adds against the precomputed norms
-            result.update(ms=ms, plain_ms=plain_ms, mismatches=int(bad.sum()),
-                          **bound(nbytes_of(z, cb, got), z.numel() // 4 * 8192 * 8, "f32"))
+        entry = {"device_us": dev, "ms": ms, "plain_ms": plain_ms, "issue_bound_ms": ib, **bd}
+        result["cases"][f"{m}x{c} {cb_name}"] = entry
+        if (m, c, cb_name) == K4_CASES[0]:
+            result.update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, device_ms=ms_of(dev), issue_bound_ms=ib,
+                          per_element=per_el[c], **bd)
+        del z, cb, want, odd, odd_cb
     return result
 
 
@@ -858,11 +958,13 @@ def phase_e2e(tag: str) -> dict:
     tokens, launches = counted(lambda: sample(model, seeds_for(42), cond, LATENT, uncond, s_cfg))
     img = vq.decode_indices(tokens)
     image = to_uint8(img)
-    print(f"[e2e] launches in one generation: {json.dumps(launches)}")
+    print(f"[e2e] launches in one generation (its graph's warm-up and capture): {json.dumps(launches)}")
     check_launches("8-step generation", launches, {
-        "fused_resblock[float]": K1_PER_FORWARD * STEPS, "fused_head_categorical": STEPS, "gumbel_categorical": 0,
-        "fused_attention": 0, "fused_attn_block": 0,
+        "fused_resblock[float]": GRAPH_PASSES * K1_PER_FORWARD * STEPS, "fused_head_categorical": GRAPH_PASSES * STEPS,
+        "gumbel_categorical": 0, "fused_attention": 0, "fused_attn_block": 0,
     })
+    check_replay("e2e", replay_launches(lambda: sample(model, seeds_for(43), cond, LATENT, uncond, s_cfg)),
+                 {"K1": K1_PER_FORWARD * STEPS, "K2": STEPS, "K3": 0, "K5": 0, "K6": 0}, tag)
     check(tuple(tokens.shape) == LATENT and tokens.dtype == torch.int32, f"tokens {tuple(tokens.shape)} {tokens.dtype}")
     check(bool(((tokens >= 0) & (tokens < p_cfg.num_labels)).all()), "tokens out of [0, num_labels)")
     check(bool(torch.isfinite(img.float()).all()), "decoded image not finite")
@@ -969,8 +1071,8 @@ def phase_pipeline(tag: str) -> dict:
         result["calls"][name] = {"p50_ms": p50, "launches": launches}
         return out, tokens
 
-    gen_counts = {"fused_resblock[float]": forward, "fused_head_categorical": 0, "gumbel_categorical": steps,
-                  "fused_attention": 0, "fused_attn_block": 0}
+    gen_counts = {"fused_resblock[float]": GRAPH_PASSES * forward, "fused_head_categorical": 0,
+                  "gumbel_categorical": GRAPH_PASSES * steps, "fused_attention": 0, "fused_attn_block": 0}
     image, _ = run("text_to_image", lambda i: pipe.text_to_image([prompt], seeds(i)),
                    {**gen_counts, "fused_codebook_lookup": 0}, (1, 256, 256, 3))
     edited, _ = run("img2img strength 0.8", lambda i: pipe.img2img([prompt], image, seeds(i), strength=0.8),
@@ -1143,7 +1245,8 @@ def small_model_against_cpu(cfg, name: str, tag: str, categorical_impl: str = "x
     t_dev, s_launches = counted(lambda: sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg))
     t_dev = t_dev.cpu()
     drawer = "fused_head_categorical" if categorical_impl == "pallas" else "gumbel_categorical"
-    check(s_launches[drawer] == 4, f"tiny {name} sampling launched {drawer} {s_launches[drawer]} times, want 4")
+    check(s_launches[drawer] == GRAPH_PASSES * 4,
+          f"tiny {name} sampling launched {drawer} {s_launches[drawer]} times, want {GRAPH_PASSES} x 4")
     agree = (t_cpu == t_dev).float().mean().item()
     kernels = {k: n for k, n in launches.items() if n and "[" not in k}
     print(
@@ -1473,11 +1576,16 @@ def phase_attention_e2e(tag: str) -> dict:
 
     tokens, launches = counted(lambda: sample(model, seeds_for(42), cond, LATENT, uncond, s_cfg))
     image = to_uint8(vq.decode_indices(tokens))
-    print(f"[attn e2e] launches in one {STEPS}-step CFG generation: {json.dumps(launches)}")
+    print(f"[attn e2e] launches in one {STEPS}-step CFG generation (its graph's warm-up and capture): "
+          f"{json.dumps(launches)}")
     check_launches("attention-config generation", launches, {
-        "fused_resblock": K1_PER_FORWARD * STEPS, "gumbel_categorical": STEPS, "fused_head_categorical": 0,
-        "fused_attention": K5_PER_FORWARD * STEPS, "fused_attn_block": K6_PER_FORWARD * STEPS,
+        "fused_resblock": GRAPH_PASSES * K1_PER_FORWARD * STEPS, "gumbel_categorical": GRAPH_PASSES * STEPS,
+        "fused_head_categorical": 0, "fused_attention": GRAPH_PASSES * K5_PER_FORWARD * STEPS,
+        "fused_attn_block": GRAPH_PASSES * K6_PER_FORWARD * STEPS,
     })
+    check_replay("attn e2e", replay_launches(lambda: sample(model, seeds_for(43), cond, LATENT, uncond, s_cfg)),
+                 {"K1": K1_PER_FORWARD * STEPS, "K3": STEPS, "K5": K5_PER_FORWARD * STEPS,
+                  "K6": K6_PER_FORWARD * STEPS}, tag)
     check(tuple(tokens.shape) == LATENT and bool(((tokens >= 0) & (tokens < p_cfg.num_labels)).all()), "tokens out of range")
     check(int(torch.unique(tokens).numel()) > 1, "all tokens equal")
     check(tuple(image.shape) == (1, 256, 256, 3) and image.dtype == torch.uint8, f"image {tuple(image.shape)}")
@@ -1557,10 +1665,11 @@ def phase_serve(tag: str) -> dict:
         check(http_get(f"http://127.0.0.1:{srv.port}/healthz") == b"ok", "/healthz")
         http_generate(srv.port, req(0))  # warm-up
         png0, launches = counted(lambda: http_generate(srv.port, req(0)))
-        print(f"[serve] launches in one {STEPS}-step request: {json.dumps(launches)}")
+        print(f"[serve] launches in one {STEPS}-step request (its graph's warm-up and capture): {json.dumps(launches)}")
         check_launches("served request", launches, {
-            "fused_resblock": K1_PER_FORWARD * STEPS, "gumbel_categorical": STEPS,
-            "fused_attention": K5_PER_FORWARD * STEPS, "fused_attn_block": K6_PER_FORWARD * STEPS,
+            "fused_resblock": GRAPH_PASSES * K1_PER_FORWARD * STEPS, "gumbel_categorical": GRAPH_PASSES * STEPS,
+            "fused_attention": GRAPH_PASSES * K5_PER_FORWARD * STEPS,
+            "fused_attn_block": GRAPH_PASSES * K6_PER_FORWARD * STEPS,
         })
         singles, times = [], []
         for i in range(3):
@@ -1837,11 +1946,11 @@ def phase_int8_e2e(tag: str) -> dict:
     for m in pipes:
         images[m], launches = counted(lambda: generate(m, 42))
         add_launches(launches)
-        per_gen = K1_PER_FORWARD * STEPS
+        per_gen = GRAPH_PASSES * K1_PER_FORWARD * STEPS
         check_launches(f"{m} text_to_image", launches, {
             "fused_resblock[float]": per_gen if m == "bf16" else 0, "fused_resblock[int8]": per_gen if m == "int8" else 0,
             "fused_resblock[w8a8]": per_gen if m == "w8a8" else 0,
-            "gumbel_categorical": STEPS, "fused_head_categorical": 0,
+            "gumbel_categorical": GRAPH_PASSES * STEPS, "fused_head_categorical": 0,
         })
         img = images[m]
         ok = tuple(img.shape) == (1, 256, 256, 3) and bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
@@ -1875,6 +1984,130 @@ def phase_int8_e2e(tag: str) -> dict:
         print(f"[int8 e2e] {name} W8A8 quality proxy rows {json.dumps(rs)}; {w8a8_proxy_verdict(rs)[1]} ({tag})")
     result["proxy_rows"] = {"denoiser": rows, "byt5": t5_rows}
     del model, vq, denoisers, t5
+    torch.cuda.empty_cache()
+    return result
+
+
+def graph_conditioning(p_cfg, b: int, gen):
+    """CFG conditioning of b images at the flagship's widths (ByT5 64, CLIP
+    text and image; the unconditional side without CLIP image), and the
+    editing inputs: init_x, a fixed left quarter and a (1, 72) reweight."""
+    import torch
+
+    from paella_tpu_torch.sampling import Conditioning
+
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    cond = Conditioning(byt5=r(b, BYT5_LEN, p_cfg.byt5_embd), clip=r(b, p_cfg.clip_embd), clip_image=r(b, p_cfg.clip_embd))
+    uncond = Conditioning(byt5=r(b, 2, p_cfg.byt5_embd), clip=r(b, p_cfg.clip_embd))
+    init_x = torch.randint(0, p_cfg.num_labels, (b,) + LATENT[1:], generator=gen, device="cuda")
+    keep = torch.zeros((b,) + LATENT[1:], dtype=torch.bool, device="cuda")
+    keep[:, :, :16] = True
+    rew = torch.ones(1, BYT5_LEN + 8, device="cuda")
+    rew[0, 1:6] = 3.0
+    return cond, uncond, dict(init_x=init_x, fixed_mask=keep, fixed_tokens=init_x.flip(0), cond_reweight=rew)
+
+
+def phase_graph(tag: str) -> dict:
+    """The sampler's CUDA graph (sampling/graph.py) at the flagship's full
+    width, in the plain, attention and int8 (weight-only, W8A8)
+    configurations on the same weights: on both routes at batch 1 and 3,
+    with CFG, a conditional cutoff, init_x, a fixed mask and cond_reweight,
+    a replay's tokens are the eager body's bit for bit; a second call with
+    another cfg, temperature, t_start and renoise_steps captures nothing and
+    equals the eager body at those values. Then per configuration, 8-step CFG
+    generations at batch 1: graph and eager p50 in turns, a profile of each
+    (kernel time by owner, the device's busy share), the kernels of one
+    replay by name with their launches, and the graphs' pool bytes."""
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.quant import fuse_eligible_levels, quantize_paella_int8
+    from paella_tpu_torch.sampling import graph, sample, sample_eager
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    base, vq, p_cfg = build_flagship(gen)
+    del vq
+    with torch.device("cuda"):
+        attn = Paella(dataclasses.replace(p_cfg, **ATTN_FLAGS))
+    attn.load_state_dict(base.state_dict())
+    configs = {"plain": base, "attention": attn.to(torch.bfloat16).eval()}
+    for mode in ("int8", "w8a8"):
+        q = quantize_paella_int8(base, levels=fuse_eligible_levels(p_cfg), include_first=True)
+        q.config = dataclasses.replace(p_cfg, act_quant=mode == "w8a8")
+        configs[mode] = q
+    inputs = {b: graph_conditioning(p_cfg, b, gen) for b in (1, 3)}
+    edit_cfg = dict(steps=4, sampling_conditional_steps=3, t_start=0.8, temperature=(1.0, 0.5), cfg=(8.0, 6.0))
+    expect_replay = {"plain": {"K1": 448, "K3": 8, "K5": 0, "K6": 0}, "attention": {"K1": 448, "K3": 8, "K5": 32, "K6": 320},
+                     "int8": {"K1": 448, "K3": 8}, "w8a8": {"K1": 448, "K3": 8}}
+    result = {}
+    for name, model in configs.items():
+        t0 = time.perf_counter()
+        graph.clear()
+        for impl in ("xla", "pallas"):
+            for b in (1, 3):
+                cond, uncond, extra = inputs[b]
+                s_cfg = SampleConfig(**edit_cfg, categorical_impl=impl)
+                seeds = torch.tensor([[b, 0x6A]] * b) + torch.arange(b)[:, None]
+                want = sample_eager(model, seeds, cond, (b,) + LATENT[1:], uncond, s_cfg, **extra)
+                for call in ("first (warm-up, capture)", "second (replay)"):
+                    got = sample(model, seeds, cond, (b,) + LATENT[1:], uncond, s_cfg, **extra)
+                    check(torch.equal(got, want), f"graph {name} {impl} B {b}: the {call} call's tokens differ from "
+                          "the eager body's")
+        captured = graph.captures
+        cond, uncond, extra = inputs[1]
+        other = SampleConfig(steps=4, sampling_conditional_steps=3, t_start=0.6, temperature=(0.8, 0.3), cfg=(5.0, 3.0),
+                             renoise_steps=2)
+        seeds = torch.tensor([[5, 6]])
+        again = sample(model, seeds, cond, LATENT, uncond, other, **extra)
+        check(graph.captures == captured, f"graph {name}: new schedule values captured a graph")
+        check(torch.equal(again, sample_eager(model, seeds, cond, LATENT, uncond, other, **extra)),
+              f"graph {name}: new schedule values give other tokens than the eager body")
+        print(f"[graph] {name} config: replays bit for bit the eager body on both routes at B 1 and 3 (CFG, cutoff 3 "
+              f"of 4, init_x, fixed mask, cond_reweight); other cfg, temperature, t_start and renoise_steps captured "
+              f"nothing ({graph.captures - captured} captures) and equal the eager body ({time.perf_counter() - t0:.1f} s) "
+              f"({tag})")
+
+        s_cfg = SampleConfig(steps=STEPS)
+        cond, uncond, _ = inputs[1]
+        run = {"graph": lambda i: sample(model, torch.tensor([[i, 0x6B]]), cond, LATENT, uncond, s_cfg),
+               "eager": lambda i: sample_eager(model, torch.tensor([[i, 0x6B]]), cond, LATENT, uncond, s_cfg)}
+        run["graph"](999), run["eager"](999)
+        times = {"graph": [], "eager": []}
+        for i in range(TIMED_RUNS):  # in turns, the order reversed every other round
+            for way in ("graph", "eager") if i % 2 == 0 else ("eager", "graph"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run[way](i).cpu()
+                times[way].append(time.perf_counter() - t1)
+        p50 = {k: sorted(v)[TIMED_RUNS // 2] * 1e3 for k, v in times.items()}
+        entry = {"p50_ms": p50, "pool_bytes": graph.pool_bytes()}
+        for way in ("graph", "eager"):
+            kernels, wall = profile_kernels(lambda: run[way](77))
+            groups = group_kernels(kernels, GENERATION_GROUPS)
+            busy = sum(us for us, _ in groups.values()) / 1e3
+            entry[way] = {"groups_ms": {k: v[0] / 1e3 for k, v in groups.items()},
+                          "launches": {k: v[1] for k, v in groups.items()}, "kernels_ms": busy, "wall_ms": wall}
+            parts = ", ".join(f"{k} {us / 1e3:.2f} ms ({n:g})" for k, (us, n) in groups.items() if n)
+            print(f"[graph] {name} config, profile of one {STEPS}-step CFG generation, {way}: {parts or 'not traced'}; "
+                  f"all kernels {busy:.2f} ms of {wall:.2f} ms wall = {busy / wall:.0%} busy ({tag})")
+            if way == "graph":
+                check(bool(kernels), f"graph {name}: torch.profiler traced no kernel of a replay in 5 tries")
+                by_name = {}
+                for key, (_, n) in kernels.items():
+                    by_name[kernel_name(key)[:48]] = by_name.get(kernel_name(key)[:48], 0) + n
+                entry["replay_kernels"] = by_name
+                print(f"[graph] {name} config, kernels of one replay by name (launches): {json.dumps(by_name)} ({tag})")
+                check_replay("graph", replay_counts(kernels), expect_replay[name], tag)
+        print(
+            f"[graph] {name} config, 256x256 {STEPS}-step CFG generation, batch 1, tokens only, in turns: p50 graph "
+            f"{p50['graph']:.2f} ms (min {min(times['graph']) * 1e3:.2f}), eager {p50['eager']:.2f} ms (min "
+            f"{min(times['eager']) * 1e3:.2f}) over {TIMED_RUNS} runs each; graph pools (bytes) "
+            f"{json.dumps(entry['pool_bytes'])} ({tag})"
+        )
+        result[name] = entry
+        graph.clear()
+    del base, attn, configs
     torch.cuda.empty_cache()
     return result
 
@@ -1914,6 +2147,7 @@ def main() -> int:
     served = phase_serve(tag)
     k1b = phase_k1b(tag)
     int8 = phase_int8_e2e(tag)
+    graphs = phase_graph(tag)
     launches = {}
     for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], int8["launches"]):
         for k, n in counts.items():
@@ -1940,7 +2174,7 @@ def main() -> int:
         entry("gumbel_categorical", "sampling.cu", "paella_tpu/kernels/sampling.py:224", k3, "logits (1,64,64,8192) bf16",
               device_ms=k3["device_ms"], issue_bound_ms=k3["issue_bound_ms"]),
         entry("fused_codebook_lookup", "quantize.cu", "paella_tpu/kernels/quantize.py:53", k4,
-              "z (1,64,64,4) f32, codebook (8192,4) f32"),
+              "z (1,64,64,4) f32, codebook (8192,4) f32", device_ms=k4["device_ms"], issue_bound_ms=k4["issue_bound_ms"]),
         entry("fused_attention", "attention.cu", "paella_tpu/kernels/attention.py:56", k5,
               "q (2,256,16,80), k/v (2,328,16,80) bf16, masked", device_ms=ms_of(k5["device_us"]["kernel"]),
               library_device_ms=ms_of(k5["device_us"]["sdpa"])),
@@ -1954,7 +2188,10 @@ def main() -> int:
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
         "serve_batch_pixel_share_256x384": served["batch_pixel_share_256x384"],
         "k2_batches": k2["batches"], "k1_shapes": k1["shapes"], "k1b_shapes": k1b["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
-        "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"],
+        "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"], "k4_cases": k4["cases"],
+        "graph": {name: {"p50_ms": g["p50_ms"], "pool_bytes": g["pool_bytes"],
+                         "kernels_ms": {w: g[w]["kernels_ms"] for w in ("graph", "eager")},
+                         "wall_ms": {w: g[w]["wall_ms"] for w in ("graph", "eager")}} for name, g in graphs.items()},
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -84,7 +84,11 @@ using bf16 = __nv_bfloat16;
 struct HeadArgs {
   const void* fc;  // (M, C) conditional features
   const void* fu;  // (M, C) unconditional features, or null: no CFG mix
-  float cfg_w, cfg_1mw, inv_temp;
+  // the step's CFG weight w (unread without fu) and temperature T, one f32
+  // each in device memory, so a captured graph replays with new values
+  const float* cfg_w_in;
+  const float* temp_in;
+  float cfg_w, cfg_1mw, inv_temp;  // w, 1 - w and 1 / T in f32, formed once a block (load_scalars)
   const void* w;          // (K, C) head weight, torch layout
   const int64_t* seeds;   // (M / hw, 2)
   int32_t* out;           // (M,)
@@ -94,6 +98,14 @@ struct HeadArgs {
   int split;
   uint2* partials;
   unsigned* counters;
+
+  // The JAX kernel's f32 arithmetic on its scalar operands: 1 - w and 1 / T
+  // correctly rounded, as the wrappers' plain versions form them.
+  __device__ __forceinline__ void load_scalars() {
+    cfg_w = fu != nullptr ? __ldg(cfg_w_in) : 0.f;
+    cfg_1mw = __fsub_rn(1.f, cfg_w);
+    inv_temp = __fdiv_rn(1.f, __ldg(temp_in));
+  }
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -136,8 +148,10 @@ __host__ __device__ constexpr size_t head_wgmma_smem(int ks) {
 // stale shared memory into registers nobody reads): a product issued on a
 // branch made ptxas wait for every product before the draw (C7520).
 template <bool kRagged, int kKS, int kWG>
-__global__ void __launch_bounds__(128 * kWG, 1) head_wgmma_kernel(const HeadArgs a) {
+__global__ void __launch_bounds__(128 * kWG, 1) head_wgmma_kernel(const HeadArgs args) {
   using namespace sm90;
+  HeadArgs a = args;
+  a.load_scalars();
   constexpr int kBN = kHeadBN, kRows = 64 * kWG, kThr = 128 * kWG, kAcc = kBN / 2;
   constexpr int kATile = kRows * 128, kBTile = kBN * 128;  // one K step of A, of a label tile
   extern __shared__ uint8_t smem_raw[];
@@ -410,7 +424,9 @@ __device__ __forceinline__ void stage_mixed(const HeadArgs& a, T* As, int lda, i
 // kVecB: C a multiple of the 16-byte vector and W 16-byte aligned (vector
 // weight loads); else element loads. kStreamA: A staged per K step.
 template <typename T, bool kVecB, bool kStreamA>
-__global__ void __launch_bounds__(kThreads) head_simt_kernel(const HeadArgs a) {
+__global__ void __launch_bounds__(kThreads) head_simt_kernel(const HeadArgs args) {
+  HeadArgs a = args;
+  a.load_scalars();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = a.C, K = a.K, cp = simt_cp(C);
   const int lda = simt_lda<T, kStreamA>(C);
@@ -488,12 +504,13 @@ constexpr int kGumbelWarps = 8;  // rows per block
 // scalar head up to the row's first aligned address and a scalar tail.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kGumbelWarps * 32) gumbel_kernel(
-    const T* __restrict__ logits, long long ld, const int64_t* __restrict__ seeds, float inv_temp,
+    const T* __restrict__ logits, long long ld, const int64_t* __restrict__ seeds, const float* __restrict__ temp,
     int32_t* __restrict__ out, int M, int K, int hw) {
   constexpr int V = 16 / sizeof(T);  // logits per 16-byte load
   const int m = blockIdx.x * kGumbelWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (m >= M) return;  // the whole warp leaves together
+  const float inv_temp = __fdiv_rn(1.f, __ldg(temp));  // f32(1) / f32(T), as the plain version forms it
   const int img = m / hw;
   const uint32_t base = (uint32_t)(m - img * hw) * (uint32_t)K;
   const uint32_t s0 = (uint32_t)seeds[2 * img], s1 = (uint32_t)seeds[2 * img + 1];
@@ -538,15 +555,15 @@ __global__ void __launch_bounds__(kGumbelWarps * 32) gumbel_kernel(
 }
 
 template <typename T>
-int launch_gumbel(const void* logits, long long ld, const int64_t* seeds, float inv_temp, int32_t* out, int M,
+int launch_gumbel(const void* logits, long long ld, const int64_t* seeds, const float* temp, int32_t* out, int M,
                   int K, int hw, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
   const int blocks = (M + kGumbelWarps - 1) / kGumbelWarps;
   const bool vec = reinterpret_cast<uintptr_t>(logits) % 16 == 0 && ld % V == 0 && K % V == 0;
   if (vec)
-    gumbel_kernel<T, true><<<blocks, kGumbelWarps * 32, 0, st>>>((const T*)logits, ld, seeds, inv_temp, out, M, K, hw);
+    gumbel_kernel<T, true><<<blocks, kGumbelWarps * 32, 0, st>>>((const T*)logits, ld, seeds, temp, out, M, K, hw);
   else
-    gumbel_kernel<T, false><<<blocks, kGumbelWarps * 32, 0, st>>>((const T*)logits, ld, seeds, inv_temp, out, M, K, hw);
+    gumbel_kernel<T, false><<<blocks, kGumbelWarps * 32, 0, st>>>((const T*)logits, ld, seeds, temp, out, M, K, hw);
   return (int)cudaGetLastError();
 }
 
@@ -564,21 +581,23 @@ __global__ void noise_kernel(const uint32_t* __restrict__ bits, float* __restric
 // C interface for ctypes. fc, fu (M, C) contiguous (fu may be null: no CFG
 // mix); w (K, C) contiguous, the head weight as torch stores it; seeds
 // (M / hw, 2) int64, contiguous (the low 32 bits of each are the seed);
-// out (M,) int32. Any C, K >= 1 and any element alignment. cfg_1mw is 1 -
-// cfg_w and inv_temp 1 / T, computed in f32 by the caller. Scratch for the
+// out (M,) int32. Any C, K >= 1 and any element alignment. cfg_w (unread
+// when fu is null) and temp point to one f32 each in device memory, the
+// CFG weight w and the temperature T; each block reads them once and forms
+// 1 - w and 1 / T in f32. Scratch for the
 // blocks that share a row tile's labels: partials, 16 M 8-byte words, and
 // counters, M / 128 + 1 words that are zero and are left zero; calls that
 // share them must not overlap (one stream). One kernel launch. Returns a
 // cudaError_t.
-extern "C" int paella_head_categorical(const void* fc, const void* fu, float cfg_w, float cfg_1mw,
-                                       const void* w, const void* seeds, float inv_temp,
-                                       void* out, int M, int C, int K, int hw, int is_bf16,
-                                       void* partials, void* counters, void* stream) {
+extern "C" int paella_head_categorical(const void* fc, const void* fu, const void* cfg_w, const void* w,
+                                       const void* seeds, const void* temp, void* out, int M, int C, int K,
+                                       int hw, int is_bf16, void* partials, void* counters, void* stream) {
   using namespace paella;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || C < 1 || K < 1 || hw < 1) return (int)cudaErrorInvalidValue;
-  const HeadArgs a{fc, fu, cfg_w, cfg_1mw, inv_temp, w, (const int64_t*)seeds, (int32_t*)out, M, C, K, hw, 1,
-                   (uint2*)partials, (unsigned*)counters};
+  if (M < 1 || C < 1 || K < 1 || hw < 1 || temp == nullptr || (fu != nullptr && cfg_w == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const HeadArgs a{fc, fu, (const float*)cfg_w, (const float*)temp, 0.f, 0.f, 0.f, w, (const int64_t*)seeds,
+                   (int32_t*)out, M, C, K, hw, 1, (uint2*)partials, (unsigned*)counters};
   if (is_bf16 && C <= 64 * kHeadMaxKS) {
     const bool whole = C % 64 == 0 && K % kHeadBN == 0 && aligned16(fc) && aligned16(w) &&
                        (fu == nullptr || aligned16(fu));
@@ -600,16 +619,17 @@ extern "C" int paella_head_plan(int M, int C, int K, int is_bf16) {
 }
 
 // logits (M, K) with row stride ld elements (K contiguous), any alignment;
-// seeds (M / hw, 2) int64, contiguous; out (M,) int32; inv_temp is f32(1) /
-// f32(T), computed by the caller. Returns a cudaError_t.
-extern "C" int paella_gumbel_categorical(const void* logits, long long ld, const void* seeds, float inv_temp,
+// seeds (M / hw, 2) int64, contiguous; out (M,) int32; temp points to the
+// temperature T, one f32 in device memory, whose f32(1) / T each warp forms.
+// Returns a cudaError_t.
+extern "C" int paella_gumbel_categorical(const void* logits, long long ld, const void* seeds, const void* temp,
                                          void* out, int M, int K, int hw, int is_bf16, void* stream) {
   using namespace paella;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || K < 1 || hw < 1) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return launch_gumbel<__nv_bfloat16>(logits, ld, (const int64_t*)seeds, inv_temp, (int32_t*)out, M, K, hw, st);
-  return launch_gumbel<float>(logits, ld, (const int64_t*)seeds, inv_temp, (int32_t*)out, M, K, hw, st);
+  if (M < 1 || K < 1 || hw < 1 || temp == nullptr) return (int)cudaErrorInvalidValue;
+  const float* t = static_cast<const float*>(temp);
+  if (is_bf16) return launch_gumbel<__nv_bfloat16>(logits, ld, (const int64_t*)seeds, t, (int32_t*)out, M, K, hw, st);
+  return launch_gumbel<float>(logits, ld, (const int64_t*)seeds, t, (int32_t*)out, M, K, hw, st);
 }
 
 // out[i] = -log(-log u(bits[i])), the noise of the kernels' shared draw

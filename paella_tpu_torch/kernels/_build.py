@@ -72,6 +72,42 @@ def stream_handle(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def capturing() -> bool:
+    """Whether a CUDA graph capture is under way on the current stream (False
+    without a CUDA device, and on a torch built without CUDA)."""
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+# (name, device, stream) -> the scratch tensors a kernel keeps between calls
+# on that stream (stream_scratch); outgrown ones stay referenced, never freed
+_SCRATCH: dict = {}
+_RETIRED: list = []
+
+
+def stream_scratch(name: str, device, stream: int, sizes: tuple, dtypes: tuple) -> tuple:
+    """Zeroed scratch that a kernel keeps between calls on one stream (calls
+    on one stream never overlap): a tensor of at least sizes[i] elements of
+    dtypes[i] each. It grows (to twice the need) but is never freed, so a
+    CUDA graph that captured its address stays valid; and it is never made
+    inside a capture, where it would live in the graph's private pool and be
+    filled only by replays: capture a call only after running it once."""
+    import torch
+
+    key = (name, device, stream)
+    have = _SCRATCH.get(key)
+    if have is not None and all(t.numel() >= n for t, n in zip(have, sizes)):
+        return have
+    if capturing():
+        raise RuntimeError(f"{name}: its scratch would be made inside a CUDA graph capture; run the call once first")
+    if have is not None:
+        _RETIRED.append(have)
+    have = tuple(torch.zeros(2 * n, dtype=dt, device=device) for n, dt in zip(sizes, dtypes))
+    _SCRATCH[key] = have
+    return have
+
+
 def check_operands(what: str, device, tensors: dict) -> None:
     """Raise unless every tensor given (None skips) lies on `device`, is
     contiguous and starts 16-byte aligned, as the kernels' vector loads need."""

@@ -5,11 +5,16 @@ quantizer (codec/quantize.py) and latent interpolation
 
 idx = argmin_k |e_k|^2 - 2 z.e_k (|z|^2 is the same for every code and
 dropped), the first index on ties. `fused_codebook_lookup` launches the CUDA
-kernel (csrc/quantize.cu) on CUDA tensors and runs `codebook_lookup_plain` on
-CPU tensors only. Both form the norms and dots as sequential f32 sums over
-the latent width, in the same order, so they agree bit for bit; the JAX
-package's XLA dot may sum in another order, so against it only near-ties can
-differ.
+kernel (csrc/quantize.cu, one launch a call) on CUDA tensors and runs
+`codebook_lookup_plain` on CPU tensors only. Both form the norms and dots as
+sequential f32 sums over the latent width, in the same order, so they agree
+bit for bit (where some but not all of a token's distances are NaN, the
+kernel skips the NaNs and torch's argmin takes the first); the JAX package's XLA dot may sum in another order, so against
+it only near-ties can differ.
+
+The kernel splits the codes among the blocks of a row tile and the row
+tile's last block to arrive merges them inside the launch, from partials in
+per-stream scratch.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import ctypes
 
 import torch
 
-from ._build import check_rc, load_library, stream_handle
+from ._build import check_rc, load_library, stream_handle, stream_scratch
 
 _ROWS = 1024  # the plain version's row chunk: bounds its (rows, K) temporaries
 
@@ -65,10 +70,14 @@ def fused_codebook_lookup(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
     for name, t in (("z", z), ("codebook", codebook)):
         if t.device != z.device or not t.is_contiguous():
             raise ValueError(f"fused_codebook_lookup: {name} must be a contiguous tensor on {z.device}")
-    scratch = torch.empty(m, dtype=torch.int64, device=z.device)
+    lib = _library()
     out = torch.empty(m, dtype=torch.int32, device=z.device)
-    rc = _library().paella_codebook_lookup(
-        z.data_ptr(), codebook.data_ptr(), scratch.data_ptr(), out.data_ptr(), m, k, c, stream_handle(z)
+    stream = stream_handle(z)
+    split = lib.paella_codebook_lookup_split(m, k)
+    partials, counters = stream_scratch("codebook_lookup", z.device, stream, (split * m, -(-m // 512)),
+                                        (torch.int64, torch.int32))
+    rc = lib.paella_codebook_lookup(
+        z.data_ptr(), codebook.data_ptr(), out.data_ptr(), partials.data_ptr(), counters.data_ptr(), m, k, c, stream,
     )
     check_rc(rc, "fused_codebook_lookup")
     fused_codebook_lookup.launches += 1
@@ -83,8 +92,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.paella_codebook_lookup
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.paella_codebook_lookup_split.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.paella_codebook_lookup_split.restype = ctypes.c_int
     return lib

@@ -8,6 +8,14 @@ Gumbel reparameterization of categorical(softmax(logits / T)). U comes from
 the murmur3 counter hash of (image-local row * K + k) and the image's seed
 pair, so each image's draw depends on its own seeds only.
 
+The step scalars (the CFG weight w and the temperature T) are each a Python
+float or a one-element f32 tensor: the kernels read them from device memory
+(a float is rounded to f32 and staged there once), so a CUDA graph of the
+sampler replays with new values, as the JAX kernels take them as on-device
+scalar operands. Kernels and plain versions alike form 1 - w and 1 / T as
+correctly rounded f32 operations, the arithmetic the JAX kernels do on their
+f32 scalars.
+
 `fused_head_categorical` and `gumbel_categorical` launch their CUDA kernels
 (csrc/sampling.cu) on CUDA tensors, at any width (C and K >= 1) and, for the
 Gumbel kernel, any alignment and row stride, and run `head_categorical_plain`
@@ -26,14 +34,15 @@ add; the multiplies are split so that no int64 product overflows.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from ._build import check_rc, load_library, stream_handle
+from ._build import capturing, check_rc, load_library, stream_handle, stream_scratch
 
 _M32 = 0xFFFFFFFF
+Scalar = Union[float, torch.Tensor]  # a step scalar: a Python float or a one-element f32 tensor
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -75,40 +84,56 @@ def hash_uniform(seeds: torch.Tensor, shape: tuple) -> torch.Tensor:
     return uniform_from_bits(hash_bits(seeds, shape))
 
 
-def _f32_inv(temperature: float) -> float:
-    """1 / T rounded as f32 arithmetic (as the JAX kernels form it from an f32
-    scalar), so a kernel and its plain version share it."""
-    return float(np.float32(1.0) / np.float32(temperature))
+def step_scalar(v: Scalar, device: torch.device) -> torch.Tensor:
+    """A step scalar as one 0-d f32 value on `device`: a one-element f32
+    tensor there as it is (a view: the kernels read its address); a float
+    rounded to f32 as np.float32 rounds it, staged once per value on a CUDA
+    device (never inside a graph capture, so no captured graph reads one)."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1 or v.dtype != torch.float32 or v.device != device:
+            raise ValueError(f"a step scalar tensor holds one float32 on {device}, got {tuple(v.shape)} {v.dtype} "
+                             f"on {v.device}")
+        return v.reshape(())
+    if device.type != "cuda":
+        return torch.tensor(v, dtype=torch.float32, device=device)
+    if capturing():
+        raise RuntimeError("a Python float step scalar inside a CUDA graph capture: pass a device tensor")
+    key = (device, float(np.float32(v)))
+    staged = _STAGED.get(key)
+    if staged is None:
+        if len(_STAGED) >= 1024:
+            _STAGED.clear()
+        staged = _STAGED[key] = torch.tensor(key[1], dtype=torch.float32, device=device)
+    return staged
 
 
-def _f32_scalars(cfg_weight: float, temperature: float) -> tuple[float, float, float]:
-    """w, 1 - w and 1 / T rounded as f32 arithmetic (as the JAX kernel forms
-    them from f32 scalars), so the kernel and the plain version share them."""
-    w = np.float32(cfg_weight)
-    return float(w), float(np.float32(1.0) - w), _f32_inv(temperature)
+# (device, f32 value) -> a float step scalar staged in device memory
+_STAGED: dict = {}
 
 
 def head_categorical_plain(
     seeds: torch.Tensor,
     feat_c: torch.Tensor,
     feat_u: Optional[torch.Tensor],
-    cfg_weight: float,
+    cfg_weight: Scalar,
     w_out: torch.Tensor,
-    temperature: float,
+    temperature: Scalar,
 ) -> torch.Tensor:
     """The kernel's computation in torch ops. seeds (n_img, 2) uint32 values
     (any integer dtype); feat_c / feat_u (B, H, W, C) (feat_u None: no CFG
-    mix); w_out (K, C), the head weight in torch layout. Returns (B, H, W)
-    int32. The logits are f32 (f32 operands: on a card, only with TF32 off)."""
+    mix); w_out (K, C), the head weight in torch layout; cfg_weight and
+    temperature step scalars. Returns (B, H, W) int32. The logits are f32
+    (f32 operands: on a card, only with TF32 off)."""
     head_categorical_plain.launches += 1
     dt = feat_c.dtype
-    w, one_minus_w, inv_temp = _f32_scalars(cfg_weight, temperature)
+    inv_temp = step_scalar(temperature, feat_c.device).reciprocal()
     orig = feat_c.shape[:-1]
     c = feat_c.shape[-1]
     k = w_out.shape[0]
     f = feat_c.reshape(-1, c).float()
     if feat_u is not None:
-        f = f * w + feat_u.reshape(-1, c).float() * one_minus_w
+        w = step_scalar(cfg_weight, feat_c.device)
+        f = f * w + feat_u.reshape(-1, c).float() * (1.0 - w)
     logits = f.to(dt).float() @ w_out.to(dt).float().t()  # (M, K) f32
     m = logits.shape[0]
     n_img = seeds.shape[0]
@@ -124,9 +149,9 @@ def fused_head_categorical(
     seeds: torch.Tensor,
     feat_c: torch.Tensor,
     feat_u: Optional[torch.Tensor],
-    cfg_weight: float,
+    cfg_weight: Scalar,
     w_out: torch.Tensor,
-    temperature: float,
+    temperature: Scalar,
 ) -> torch.Tensor:
     """tokens = categorical(softmax((mix(feat) @ w_out^T) / T)) in one call:
     the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
@@ -153,16 +178,21 @@ def fused_head_categorical(
     for name, t in {"feat_c": feat_c, "feat_u": feat_u, "w_out": w_out}.items():
         if t is not None and (t.device != feat_c.device or not t.is_contiguous()):
             raise ValueError(f"fused_head_categorical: {name} must be a contiguous tensor on {feat_c.device}")
-    w, one_minus_w, inv_temp = _f32_scalars(cfg_weight, temperature)
-    out = torch.empty(m, dtype=torch.int32, device=feat_c.device)
-    seeds64 = _device_seeds(seeds, feat_c.device)
+    dev = feat_c.device
+    cfg_w = None if feat_u is None else step_scalar(cfg_weight, dev)
+    temp = step_scalar(temperature, dev)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    seeds64 = _device_seeds(seeds, dev)
     stream = stream_handle(feat_c)
-    partials, counters = _head_scratch(m, feat_c.device, stream)
+    # up to 16 blocks' partials a row and an arrival count a 128-row tile,
+    # which the kernel leaves at zero
+    partials, counters = stream_scratch("head_categorical", dev, stream, (16 * m, m // 128 + 1),
+                                        (torch.int64, torch.int32))
 
     lib = _library()
     rc = lib.paella_head_categorical(
-        feat_c.data_ptr(), None if feat_u is None else feat_u.data_ptr(), w, one_minus_w,
-        w_out.data_ptr(), seeds64.data_ptr(), inv_temp, out.data_ptr(), m, c, k, m // n_img,
+        feat_c.data_ptr(), None if feat_u is None else feat_u.data_ptr(), None if cfg_w is None else cfg_w.data_ptr(),
+        w_out.data_ptr(), seeds64.data_ptr(), temp.data_ptr(), out.data_ptr(), m, c, k, m // n_img,
         int(dt == torch.bfloat16), partials.data_ptr(), counters.data_ptr(), stream,
     )
     check_rc(rc, "fused_head_categorical")
@@ -194,19 +224,20 @@ def draw_noise(bits: torch.Tensor) -> torch.Tensor:
     return out.reshape(bits.shape)
 
 
-def gumbel_categorical_plain(seeds: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+def gumbel_categorical_plain(seeds: torch.Tensor, logits: torch.Tensor, temperature: Scalar) -> torch.Tensor:
     """The Gumbel kernel's computation in torch ops. seeds (n_img, 2) uint32
     values (any integer dtype); logits (..., K) float32 or bfloat16, whose
     rows split evenly into n_img images, each drawing with image-local
-    counter indices. score = f32(logit) * f32(1/T) + (-log(-log u)); returns
-    the (...) int32 argmax, the first index on ties."""
+    counter indices; temperature a step scalar. score = f32(logit) *
+    f32(1/T) + (-log(-log u)); returns the (...) int32 argmax, the first
+    index on ties."""
     gumbel_categorical_plain.launches += 1
     orig = logits.shape[:-1]
     k = logits.shape[-1]
     flat = logits.reshape(-1, k).float()
     m = flat.shape[0]
     n_img = seeds.shape[0]
-    inv_temp = _f32_inv(temperature)
+    inv_temp = step_scalar(temperature, logits.device).reciprocal()
     u = hash_uniform(seeds.to(logits.device), (m // n_img, k)).reshape(m, k)
     score = flat * inv_temp + (-torch.log(-torch.log(u)))
     return torch.argmax(score, dim=-1).to(torch.int32).reshape(orig)
@@ -215,7 +246,7 @@ def gumbel_categorical_plain(seeds: torch.Tensor, logits: torch.Tensor, temperat
 gumbel_categorical_plain.launches = 0
 
 
-def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: Scalar) -> torch.Tensor:
     """tokens ~ categorical(softmax(logits / T)) by the Gumbel argmax with the
     per-image counter hash: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. Arguments as for :func:`gumbel_categorical_plain`."""
@@ -235,11 +266,11 @@ def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: f
     flat = logits.reshape(m, k)  # a view where the rows share one stride
     if flat.stride(1) != 1 or (m > 1 and flat.stride(0) < k):
         flat = flat.contiguous()
-    inv_temp = _f32_inv(temperature)
+    temp = step_scalar(temperature, logits.device)
     out = torch.empty(m, dtype=torch.int32, device=logits.device)
     rc = _library().paella_gumbel_categorical(
-        flat.data_ptr(), flat.stride(0), _device_seeds(seeds, logits.device).data_ptr(), inv_temp, out.data_ptr(),
-        m, k, m // n_img, int(dt == torch.bfloat16), stream_handle(logits),
+        flat.data_ptr(), flat.stride(0), _device_seeds(seeds, logits.device).data_ptr(), temp.data_ptr(),
+        out.data_ptr(), m, k, m // n_img, int(dt == torch.bfloat16), stream_handle(logits),
     )
     check_rc(rc, "gumbel_categorical")
     gumbel_categorical.launches += 1
@@ -247,24 +278,6 @@ def gumbel_categorical(seeds: torch.Tensor, logits: torch.Tensor, temperature: f
 
 
 gumbel_categorical.launches = 0
-
-
-# (device, stream) -> (partials, counters): the head kernel's scratch where
-# several blocks share a row tile's labels (csrc/sampling.cu): 16 M 8-byte
-# partials, and per-row-tile arrival counts that start at zero and that the
-# kernel leaves at zero. Kept per stream, since calls that share them must not
-# overlap; grown, never shrunk.
-_HEAD_SCRATCH: dict = {}
-
-
-def _head_scratch(m: int, device: torch.device, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
-    partials, counters = _HEAD_SCRATCH.get((device, stream), (None, None))
-    if partials is None or partials.numel() < 16 * m:
-        partials = torch.empty(16 * m, dtype=torch.int64, device=device)
-    if counters is None or counters.numel() < m // 128 + 1:
-        counters = torch.zeros(m // 128 + 1, dtype=torch.int32, device=device)
-    _HEAD_SCRATCH[(device, stream)] = (partials, counters)
-    return partials, counters
 
 
 def _device_seeds(seeds: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -281,14 +294,13 @@ def _library() -> ctypes.CDLL:
     head, gumbel = lib.paella_head_categorical, lib.paella_gumbel_categorical
     if head.restype is not ctypes.c_int or not head.argtypes:
         head.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         head.restype = ctypes.c_int
         gumbel.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         gumbel.restype = ctypes.c_int

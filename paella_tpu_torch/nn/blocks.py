@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels._build import capturing
 from ..kernels.attention import fused_attention
 from ..kernels.attn_block import AttnBlockWeights, fused_attn_block, prepare_attn_block_weights
 from ..kernels.resblock import ResBlockWeights, fused_resblock, prepare_resblock_weights
@@ -28,30 +29,46 @@ class DerivedWeights(nn.Module):
     kernel's layout, the compute dtype). They are computed on first use and
     dropped whenever parameters are loaded (`load_state_dict`) or moved
     (`.to()`, `.cuda()`); after editing parameters in place, call
-    :meth:`drop_derived`."""
+    :meth:`drop_derived`.
+
+    `DerivedWeights.generation` counts the drops of any module in the
+    process: a CUDA graph that captured a forward holds the addresses of the
+    derived weights (and parameters) it read, and is replayed only while the
+    generation it was captured at holds (sampling/graph.py). A derived
+    weight is never made inside a graph capture, where it would be filled
+    only by replays: the capture's warm-up run makes them all first."""
+
+    generation = 0
 
     def __init__(self):
         super().__init__()
         self._derived: dict = {}
 
+    def _drop(self) -> None:
+        self._derived.clear()
+        DerivedWeights.generation += 1
+
     def drop_derived(self) -> None:
         """Forget the derived weights of this module and all below it."""
         for m in self.modules():
             if isinstance(m, DerivedWeights):
-                m._derived.clear()
+                m._drop()
 
     def derived(self, key, make: Callable):
         if key not in self._derived:
+            if capturing():
+                raise RuntimeError(f"{type(self).__name__}: derived weight {key!r} would be made inside a CUDA "
+                                   "graph capture; run the forward once before capturing it")
             with torch.no_grad():
                 self._derived[key] = make()
         return self._derived[key]
 
     def _apply(self, fn, recurse=True):
-        self._derived.clear()
+        self._drop()
         return super()._apply(fn, recurse)
 
     def _load_from_state_dict(self, *args, **kwargs):
-        self._derived.clear()
+        self._drop()
         super()._load_from_state_dict(*args, **kwargs)
 
 

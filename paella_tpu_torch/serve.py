@@ -272,7 +272,8 @@ class PaellaServer:
         return png_bytes(job.result)
 
     def warmup(self, image_hw=(256, 256), steps: int = 8):
-        """Build the kernels and fill the caches before accepting traffic."""
+        """Build the kernels, fill the caches and, on a CUDA device, capture
+        the sampler's graph of this shape before accepting traffic."""
         self.generate({"prompt": "warmup", "steps": steps, "seed": 0, "height": image_hw[0], "width": image_hw[1]})
 
     def _handler(self):

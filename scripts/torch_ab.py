@@ -23,8 +23,17 @@ seeded inputs (the same in every turn):
   - K2 at the flagship step (features (1,64,64,256) x2, W_out (8192,256))
     and K3 over (1,64,64,8192) logits, bf16: device µs per call; the 8-step
     CFG generation on the fused-head route: K2's device ms in one profiled
-    generation and the p50 of 5 generations.
-`--only sampling` (or resblock, attention, int8) measures one group alone.
+    generation and the p50 of 5 generations;
+  - K4 at the codec's encode shape (z (4096, 4) against (8192, 4)) and at
+    M 8 x 4096: device µs per call, every kernel of a call summed;
+  - 8-step CFG generations of the flagship at batch 1 (tokens only), plain
+    and attention config: p50 of 5 through `sample` (a tree that has the
+    sampler's CUDA graph replays it; an older one runs its eager loop);
+    then, plain config, a rotation through six structures a pipeline and a
+    server cycle through, three rounds: each round's wall ms and each call's
+    (a tree with the graph meets every structure first in round 1: a miss).
+`--only sampling` (or resblock, attention, int8, quantize, graph) measures
+one group alone.
 It prints each turn's JSON line, then each measurement's range per tree,
 with the card's name and power limit. Needs one NVIDIA GPU.
 """
@@ -112,6 +121,125 @@ def sampling_kernels(cs, tag: str) -> dict:
     return out
 
 
+def quantize_kernel(cs, tag: str) -> dict:
+    """K4's device µs per call (torch.profiler, all the kernels of a call)
+    at M 4096 and 8 x 4096, C 4, an N(0,1) codebook of 8192."""
+    import torch
+
+    from paella_tpu_torch.kernels.quantize import fused_codebook_lookup
+
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    cb = torch.randn(8192, 4, generator=gen, device="cuda")
+    out = {}
+    for m in (4096, 8 * 4096):
+        z = torch.randn(m, 4, generator=gen, device="cuda")
+        out[f"k4_m{m}_us"] = cs.device_us(lambda: fused_codebook_lookup(z, cb))
+        print(f"[ab] K4 z ({m},4) vs (8192,4): {cs.us_text(out[f'k4_m{m}_us'])} µs on the device a call ({tag})", flush=True)
+    return out
+
+
+def graph_generation(cs, tag: str) -> dict:
+    """The 8-step CFG generation of the flagship at batch 1 (tokens only,
+    the default "xla" route), plain and attention config on the same
+    weights: p50 of 5 `sample` calls after a warm-up, host wall clock."""
+    import time
+
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import sample
+
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    model, _, p_cfg = cs.build_flagship(gen)
+    cond, uncond = cs.flagship_conditioning(p_cfg, gen)
+    with torch.device("cuda"):
+        attn = Paella(dataclasses.replace(p_cfg, **cs.ATTN_FLAGS))
+    attn.load_state_dict(model.state_dict())
+    out = {}
+    for name, m in (("plain", model), ("attention", attn.to(torch.bfloat16).eval())):
+        generate = lambda i: sample(m, torch.tensor([[i, 0xAB]]), cond, cs.LATENT, uncond, SampleConfig(steps=cs.STEPS))  # noqa: E731
+        generate(999)
+        walls = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(i).cpu()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_8step_p50_ms"] = sorted(walls)[2]
+        print(f"[ab] {name} config, {cs.STEPS}-step CFG generation: p50 {sorted(walls)[2]:.2f} ms (runs "
+              f"{', '.join(f'{w:.2f}' for w in walls)}) ({tag})", flush=True)
+    out.update(rotation(cs, model, p_cfg, gen, tag))
+    del model, attn
+    torch.cuda.empty_cache()
+    return out
+
+
+def rotation(cs, model, p_cfg, gen, tag: str, rounds: int = 3) -> dict:
+    """8-step CFG calls of `sample` through six structures in turn, `rounds`
+    times: text_to_image at batch 1, at batch 2 (a server's padded
+    micro-batch) and at batch 1 with a prompt of ByT5 bucket 32; img2img
+    (init_x, t_start 0.7), inpaint (init_x and a fixed left quarter) and
+    outpaint (a 64x96 latent, the 256x256 image kept). Host wall ms of each
+    round and of each call, every call synchronized. A tree with the
+    sampler's graph starts with none kept, so round 1 misses on every call."""
+    import time
+
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.sampling import Conditioning, sample
+
+    try:
+        from paella_tpu_torch.sampling import graph
+    except ImportError:  # a tree from before the graph: its loop runs eagerly
+        graph = None
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+
+    def conditioning(b: int, length: int = cs.BYT5_LEN):
+        return (Conditioning(byt5=r(b, length, p_cfg.byt5_embd), clip=r(b, p_cfg.clip_embd), clip_image=r(b, p_cfg.clip_embd)),
+                Conditioning(byt5=r(b, 2, p_cfg.byt5_embd), clip=r(b, p_cfg.clip_embd)))
+
+    def tokens(*shape):
+        return torch.randint(0, p_cfg.num_labels, shape, generator=gen, device="cuda")
+
+    one, two, short = conditioning(1), conditioning(2), conditioning(1, 32)
+    base = SampleConfig(steps=cs.STEPS)
+    edit = SampleConfig(steps=cs.STEPS, t_start=0.7)
+    x, wide = tokens(1, 64, 64), tokens(1, 64, 96)
+    left = torch.zeros(1, 64, 64, dtype=torch.bool, device="cuda")
+    left[..., :16] = True
+    kept = torch.zeros(1, 64, 96, dtype=torch.bool, device="cuda")
+    kept[..., 16:80] = True
+    calls = {
+        "text_to_image": (one, (1, 64, 64), base, {}),
+        "text_to_image_b2": (two, (2, 64, 64), base, {}),
+        "text_to_image_bucket32": (short, (1, 64, 64), base, {}),
+        "img2img": (one, (1, 64, 64), edit, dict(init_x=x)),
+        "inpaint": (one, (1, 64, 64), edit, dict(init_x=x, fixed_mask=left, fixed_tokens=x)),
+        "outpaint": (one, (1, 64, 96), base, dict(init_x=wide, fixed_mask=kept, fixed_tokens=wide)),
+    }
+    if graph is not None:
+        graph.clear()
+    out = {}
+    for k in range(rounds):
+        walls = {}
+        for i, (name, ((cond, uncond), shape, s_cfg, extra)) in enumerate(calls.items()):
+            seeds = torch.tensor([[k * 16 + i + j, 0xAC] for j in range(shape[0])])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sample(model, seeds, cond, shape, uncond, s_cfg, **extra).cpu()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+        out[f"rotation_round{k + 1}_ms"] = sum(walls.values())
+        print(f"[ab] rotation of {len(calls)} structures, round {k + 1}: {sum(walls.values()):.2f} ms ("
+              + ", ".join(f"{n} {w:.2f}" for n, w in walls.items()) + f")"
+              + (f"; {graph.captures} captures so far" if graph is not None else "") + f" ({tag})", flush=True)
+    if graph is not None:
+        print(f"[ab] rotation: graph pools (bytes) {json.dumps(graph.pool_bytes())} ({tag})", flush=True)
+        graph.clear()
+    return out
+
+
 def child(tree: str, only: str | None) -> None:
     import importlib.util
 
@@ -158,6 +286,10 @@ def child(tree: str, only: str | None) -> None:
         out.update(int8_generation(cs, tag))
     if only in (None, "sampling"):
         out.update(sampling_kernels(cs, tag))
+    if only in (None, "quantize"):
+        out.update(quantize_kernel(cs, tag))
+    if only in (None, "graph"):
+        out.update(graph_generation(cs, tag))
     untraced = [k for k, v in out.items() if (v["device_us"] if isinstance(v, dict) else v) is None]
     cs.check(not untraced, f"torch.profiler traced no device time for {untraced}")
     print(MARK + json.dumps(out), flush=True)
@@ -171,7 +303,7 @@ def main() -> int:
     if len(args) == 2 and args[0] == "--child":
         child(args[1], only)
         return 0
-    if len(args) != 1 or only not in (None, "resblock", "attention", "int8", "sampling"):
+    if len(args) != 1 or only not in (None, "resblock", "attention", "int8", "sampling", "quantize", "graph"):
         print(__doc__, file=sys.stderr)
         return 2
     parent = os.path.abspath(args[0])

@@ -779,7 +779,8 @@ def test_tiny_config_samples_through_the_fused_head(cuda):
     want = sample(cpu, seeds, cond, (2, 16, 16), uncond, s_cfg)
     before = ksamp.fused_head_categorical.launches
     got = sample(dev, seeds, cond.to("cuda"), (2, 16, 16), uncond.to("cuda"), s_cfg).cpu()
-    assert ksamp.fused_head_categorical.launches - before == 4
+    # a new model: the graph's warm-up launches once a step, its capture once more
+    assert ksamp.fused_head_categorical.launches - before == 2 * 4
     assert (got == want).float().mean() >= 0.95
 
 
@@ -833,3 +834,235 @@ def test_shared_draw_noise_is_torch_bit_for_bit_for_every_u(cuda):
     bits = (torch.arange(2**24, device=cuda, dtype=torch.int64) << 8) | 0x5A
     want = -torch.log(-torch.log(uniform_from_bits(bits)))
     assert torch.equal(draw_noise(bits).view(torch.int32), want.view(torch.int32))
+
+
+def kernel_launches(fn) -> dict:
+    """{kernel name: launches} in one fn() call, from torch.profiler (three
+    tries: the card's tracer now and then catches nothing)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
+        if got:
+            return got
+    pytest.fail("torch.profiler traced no device activity")
+
+
+@pytest.mark.parametrize("m,k,c,ties", [
+    (4096, 8192, 4, False),  # the codec's encode: 8 row tiles x 16 splits
+    (32768, 8192, 4, False),  # an 8-frame interpolation
+    (4097, 8192, 4, False),  # an odd M: a row tile of one token
+    (4096, 8191, 4, False),  # a K no split divides
+    (4096, 8192, 4, True),  # every code twice: exact ties across splits and halves
+    (1000, 8192, 3, False), (1000, 8192, 12, False),  # narrow and wide widths
+])
+def test_codebook_lookup_kernel_is_exact_in_one_launch(cuda, m, k, c, ties):
+    """K4: indices bit for bit the plain version's (the lowest index on exact ties), from one kernel launch
+    a call (no memset, no pack kernel)."""
+    g = torch.Generator(device=cuda).manual_seed(46)
+    z = torch.randn(m, c, generator=g, device=cuda)
+    cb = torch.randn(k, c, generator=g, device=cuda)
+    if ties:
+        cb[k // 2 :] = cb[: k - k // 2]
+    got = fused_codebook_lookup(z, cb)
+    want = codebook_lookup_plain(z, cb)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if ties:
+        assert bool((got < k // 2).all())
+    launched = kernel_launches(lambda: fused_codebook_lookup(z, cb))
+    assert list(launched.values()) == [1] and "lookup_kernel" in next(iter(launched)), launched
+
+
+@pytest.mark.parametrize("m,k,c", [(4096, 8192, 4), (1000, 17, 4), (1000, 8192, 3), (1000, 8192, 12)])
+def test_codebook_lookup_kernel_gives_an_index_in_range_where_no_distance_is_finite(cuda, m, k, c):
+    """A NaN latent (every distance NaN) and a latent whose every distance
+    overflows to +inf (-3e38 against a codebook of codes >= 0.5: every dot
+    -inf) get index 0, as the plain version's argmin gives, beside finite
+    tokens that keep theirs; K 17 leaves splits with no code."""
+    g = torch.Generator(device=cuda).manual_seed(47)
+    z = torch.randn(m, c, generator=g, device=cuda)
+    cb = torch.rand(k, c, generator=g, device=cuda) + 0.5
+    z[5] = float("nan")
+    z[m - 1] = -3e38
+    got, want = fused_codebook_lookup(z, cb), codebook_lookup_plain(z, cb)
+    assert int(want[5]) == 0 and int(want[m - 1]) == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def tiny_on_card(seed: int, dtype: str = "float32"):
+    """PaellaConfig.tiny() with seeded, perturbed weights on the card, its
+    conditioning for 3 images, seeds, editing inputs and a reweight."""
+    import dataclasses
+
+    from paella_tpu_torch.config import PaellaConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import Conditioning
+
+    cfg = dataclasses.replace(PaellaConfig.tiny(), dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    model = Paella(cfg)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+    model = model.cuda().eval()
+    n = lambda *s: torch.randn(*s, generator=gen).cuda()  # noqa: E731
+    cond = Conditioning(n(3, 6, cfg.byt5_embd), n(3, cfg.clip_embd), n(3, cfg.clip_embd))
+    uncond = Conditioning(n(3, 2, cfg.byt5_embd), n(3, cfg.clip_embd))
+    seeds = torch.tensor([[11, 12], [13, 14], [15, 16]])
+    init_x = torch.randint(0, cfg.num_labels, (3, 16, 16), generator=gen).cuda()
+    keep = torch.zeros(3, 16, 16, dtype=torch.bool, device="cuda")
+    keep[:, :, :5] = True
+    rew = torch.ones(1, 14, device="cuda")
+    rew[0, 1:4] = 3.0
+    return model, cond, uncond, seeds, dict(init_x=init_x, fixed_mask=keep, fixed_tokens=init_x.flip(0), cond_reweight=rew)
+
+
+def batch_of(b: int, cond, uncond, seeds, extra):
+    from paella_tpu_torch.sampling import Conditioning
+
+    cut = lambda c: Conditioning(*(None if v is None else v[:b] for v in (c.byt5, c.clip, c.clip_image)))  # noqa: E731
+    return cut(cond), cut(uncond), seeds[:b], {k: v if k == "cond_reweight" else v[:b] for k, v in extra.items()}
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("editing", [False, True])
+def test_graph_replay_equals_eager(cuda, impl, b, editing):
+    """sample's captured graph gives the eager body's tokens bit for bit, at
+    batch 1 and 3, on both routes, with CFG and a conditional cutoff, and
+    with init_x, a fixed mask and cond_reweight."""
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.sampling import graph, sample, sample_eager
+
+    model, cond, uncond, seeds, extra = tiny_on_card(50)
+    cond, uncond, seeds, extra = batch_of(b, cond, uncond, seeds, extra)
+    extra = extra if editing else {}
+    s_cfg = SampleConfig(steps=4, cfg=(3.0, 5.0), temperature=(1.0, 0.4), sampling_conditional_steps=3,
+                         t_start=0.8 if editing else 1.0, categorical_impl=impl)
+    want = sample_eager(model, seeds, cond, (b, 16, 16), uncond, s_cfg, **extra)
+    captured = graph.captures
+    assert torch.equal(sample(model, seeds, cond, (b, 16, 16), uncond, s_cfg, **extra), want)  # the warm-up's answer
+    assert graph.captures == captured + 1
+    got = sample(model, seeds, cond, (b, 16, 16), uncond, s_cfg, **extra)  # a replay
+    assert graph.captures == captured + 1
+    assert torch.equal(got, want)
+    if editing:
+        assert torch.equal(got[extra["fixed_mask"]], extra["fixed_tokens"][extra["fixed_mask"]])
+
+
+def test_graph_takes_new_schedule_values_without_a_capture(cuda):
+    """Another cfg, temperature, t span and renoise count replay the graph
+    already captured and give the eager body's tokens at those values."""
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.sampling import graph, sample, sample_eager
+
+    model, cond, uncond, seeds, _ = tiny_on_card(51)
+    first = SampleConfig(steps=4, cfg=(3.0, 3.0))
+    sample(model, seeds, cond, (3, 16, 16), uncond, first)
+    captured = graph.captures
+    for s_cfg in (SampleConfig(steps=4, cfg=(6.0, 2.0), temperature=(0.5, 0.2), t_start=0.7, renoise_steps=1),
+                  SampleConfig(steps=4, cfg=(1.5, 1.5), temperature=(1.2, 1.2), t_end=0.2, renoise_steps=0)):
+        got = sample(model, seeds, cond, (3, 16, 16), uncond, s_cfg)
+        assert torch.equal(got, sample_eager(model, seeds, cond, (3, 16, 16), uncond, s_cfg))
+    assert graph.captures == captured
+
+
+def test_drop_derived_forces_a_recapture(cuda):
+    """After the weights change in place and drop_derived, the next call
+    captures anew and gives the eager body's tokens for the new weights."""
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.sampling import graph, sample, sample_eager
+
+    model, cond, uncond, seeds, _ = tiny_on_card(52)
+    s_cfg = SampleConfig(steps=3, cfg=(3.0, 3.0))
+    old = sample(model, seeds, cond, (3, 16, 16), uncond, s_cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.5)
+    model.drop_derived()
+    captured = graph.captures
+    want = sample_eager(model, seeds, cond, (3, 16, 16), uncond, s_cfg)
+    assert torch.equal(sample(model, seeds, cond, (3, 16, 16), uncond, s_cfg), want)
+    assert graph.captures == captured + 1
+    got = sample(model, seeds, cond, (3, 16, 16), uncond, s_cfg)  # a replay of the new capture
+    assert graph.captures == captured + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, old)
+
+
+def test_a_new_config_recaptures(cuda):
+    """The same model object with its config replaced (the attention
+    kernels switched on) captures anew and gives the eager body's tokens
+    under the new config."""
+    import dataclasses
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.sampling import graph, sample, sample_eager
+
+    model, cond, uncond, seeds, _ = tiny_on_card(55)
+    s_cfg = SampleConfig(steps=3, cfg=(3.0, 3.0))
+    for _ in range(2):
+        sample(model, seeds, cond, (3, 16, 16), uncond, s_cfg)
+    model.config = dataclasses.replace(model.config, attention_impl="pallas", attn_block_kernel=True)
+    want = sample_eager(model, seeds, cond, (3, 16, 16), uncond, s_cfg)
+    captured = graph.captures
+    for _ in range(2):
+        assert torch.equal(sample(model, seeds, cond, (3, 16, 16), uncond, s_cfg), want)
+    assert graph.captures == captured + 1
+
+
+def test_two_graphs_keep_their_results_apart(cuda):
+    """Two structures (batch 1 and 3, two routes) replayed in turns: each
+    call gives its own eager tokens."""
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.sampling import sample, sample_eager
+
+    model, cond, uncond, seeds, _ = tiny_on_card(53)
+    calls = [(1, SampleConfig(steps=3, cfg=(3.0, 3.0))), (3, SampleConfig(steps=3, cfg=(4.0, 4.0), categorical_impl="pallas"))]
+    want = {}
+    for b, s_cfg in calls:
+        c, u, sd, _ = batch_of(b, cond, uncond, seeds, {})
+        want[b] = sample_eager(model, sd, c, (b, 16, 16), u, s_cfg)
+    for _ in range(3):
+        for b, s_cfg in calls:
+            c, u, sd, _ = batch_of(b, cond, uncond, seeds, {})
+            assert torch.equal(sample(model, sd, c, (b, 16, 16), u, s_cfg), want[b])
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_graph_replay_equals_eager_at_the_flagship(cuda, impl):
+    """The flagship config (bf16, full width, seeded weights), 2 CFG steps at
+    batch 1: the replay's tokens are the eager body's bit for bit."""
+    import dataclasses
+
+    from paella_tpu_torch.config import PaellaConfig, SampleConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import Conditioning, graph, sample, sample_eager
+
+    cfg = PaellaConfig.v1_byt5_xl_inference()
+    gen = torch.Generator(device=cuda).manual_seed(54)
+    with torch.device(cuda):
+        model = Paella(cfg)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device=cuda) * 0.02)
+    model = model.to(torch.bfloat16).eval()
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(torch.bfloat16)  # noqa: E731
+    cond = Conditioning(r(1, 64, cfg.byt5_embd), r(1, cfg.clip_embd), r(1, cfg.clip_embd))
+    uncond = Conditioning(r(1, 2, cfg.byt5_embd), r(1, cfg.clip_embd))
+    s_cfg = SampleConfig(steps=2, categorical_impl=impl)
+    seeds = torch.tensor([[7, 8]])
+    want = sample_eager(model, seeds, cond, (1, 64, 64), uncond, s_cfg)
+    for _ in range(2):  # the warm-up's answer, then a replay
+        assert torch.equal(sample(model, seeds, cond, (1, 64, 64), uncond, s_cfg), want)
+    del model
+    graph.clear()
+    torch.cuda.empty_cache()
