@@ -65,7 +65,18 @@ limit):
                repeated request byte-identical, micro-batches of three
                concurrent requests against the single path at 256x256 and
                256x384, HTTP p50
- 12. K1b       the ResBlock kernel with int8 fc weights (quantized as
+ 12. entry     the serving entry point with real towers: seeded full-width
+               checkpoint files written in bf16 (the flagship denoiser,
+               VQConfig()'s codec, ByT5-XL, open_clip ViT-H-14 and a
+               synthetic merge table), serve.build_pipeline on the card from
+               them: text_to_image with CLIP conditioning (launch counts: K1
+               and K3), best-of-2 reranked by the CLIP towers, the towers'
+               encode p50s; the ViT-H-14 towers at depth 2, bf16 on the card
+               against f32 on the CPU (cosine >= 0.999); `python -m
+               paella_tpu_torch.serve` on the same files, whose PNG equals the
+               pipeline's image; the Inception featurizer card vs CPU and its
+               images/s at batch 32, 299x299
+ 13. K1b       the ResBlock kernel with int8 fc weights (quantized as
                quant.quantize_paella_int8 does), weight-only and W8A8, at the
                four K1 shapes in bf16 (weight-only also f32 at one): against
                its plain version, two runs bitwise equal, an image's output
@@ -74,7 +85,7 @@ limit):
                two products' TOP/s beside torch._int_mm's (W8A8) or
                torch.matmul's (weight-only, on the codes widened once, as a
                yardstick only), and the host's time to enqueue a call
- 13. int8 e2e  the flagship with every ResBlock quantized
+ 14. int8 e2e  the flagship with every ResBlock quantized
                (quantize_paella_int8 over fuse_eligible_levels, include_first),
                weight-only and W8A8: one CFG forward's launch counts (56 K1b,
                no K1) and features against the plain versions on the card;
@@ -82,7 +93,7 @@ limit):
                both modes) encode p50s; text_to_image at 8 steps with each
                mode's encoder as byt5_encode_fn, in turns with the bf16
                pipeline; the W8A8 quality proxies' rows
- 14. graph     the sampler's CUDA graph in the plain, attention and int8
+ 15. graph     the sampler's CUDA graph in the plain, attention and int8
                (weight-only, W8A8) configurations at the flagship's width:
                replayed tokens bit for bit the eager body's (sample_eager) on
                both routes at batch 1 and 3 with CFG, a cutoff and the
@@ -1004,9 +1015,10 @@ def phase_e2e(tag: str) -> dict:
 
 
 def flagship_towers(p_cfg, gen):
-    """Seeded stand-ins for the text towers (not ported yet), on the card: a
-    table from byte ids to (B, S, byt5_embd) states, and CLIP-text features
-    summed from a table over each prompt's bytes."""
+    """Seeded stand-ins for the text towers, on the card, kept so that the
+    kernel phases stay fast: a table from byte ids to (B, S, byt5_embd)
+    states, and CLIP-text features summed from a table over each prompt's
+    bytes. phase_entry runs the real towers (ByT5-XL, CLIP ViT-H-14)."""
     import torch
 
     table = torch.randn(260, p_cfg.byt5_embd, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1722,6 +1734,312 @@ def phase_serve(tag: str) -> dict:
             "batch_pixel_share_256x384": shares["256x384"], "batch_exact": all(v == 1.0 for v in sum(shares.values(), []))}
 
 
+def synthetic_merges() -> list:
+    """A merge table of 5408 merges over lowercase letters (letter pairs,
+    word-final pairs, word-final triples), standing in for the
+    bpe_simple_vocab_16e6 table, which is not in the repository."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    merges = [(a, b) for a in letters for b in letters]
+    merges += [(a, b + "</w>") for a in letters for b in letters]
+    merges += [(a + b, c + "</w>") for a in letters for b in letters for c in "aeiost"]
+    return merges
+
+
+def save_bf16(path: str, modules: dict, extra: dict | None = None) -> int:
+    """Modules' state dicts in bf16 (integer buffers as they are), each key
+    under its module's prefix in `modules` ({prefix: module}), and `extra`
+    as it is, to one torch file; returns its bytes."""
+    import torch
+
+    sd = {prefix + k: (v.to(torch.bfloat16) if v.is_floating_point() else v).cpu()
+          for prefix, module in modules.items() for k, v in module.state_dict().items()}
+    sd.update(extra or {})
+    torch.save(sd, path)
+    return os.path.getsize(path)
+
+
+def write_entry_checkpoints(d: str, gen) -> dict:
+    """Seeded full-width checkpoint files in the layouts the loaders read:
+    the flagship denoiser (reference layout), VQConfig()'s codec, the
+    ByT5-XL encoder (HF T5EncoderModel layout), open_clip ViT-H-14 (both
+    towers and logit_scale) and a synthetic merge table. Built on the card one
+    at a time and written in bf16."""
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.cond import CLIPTextConfig, CLIPTextEncoder, CLIPVisionConfig, CLIPVisionEncoder, T5Config, T5Encoder
+    from paella_tpu_torch.cond.tokenizers import write_merges_file
+    from paella_tpu_torch.config import PaellaConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+
+    paths = {k: os.path.join(d, f) for k, f in (("denoiser", "denoiser.pt"), ("vqgan", "vqgan.pt"), ("byt5", "byt5.pt"),
+                                                  ("clip", "clip.pt"), ("bpe", "merges.txt"))}
+    sizes = {}
+    with torch.device("cuda"):
+        model = Paella(PaellaConfig.v1_byt5_xl_inference())
+    model.reset_parameters(gen)
+    perturb_(model, gen)
+    sizes["denoiser"] = save_bf16(paths["denoiser"], {"": model})
+    del model
+    with torch.device("cuda"):
+        vq = VQModel(VQConfig())
+    vq.reset_parameters(gen)
+    perturb_(vq, gen)
+    sizes["vqgan"] = save_bf16(paths["vqgan"], {"": vq})
+    del vq
+    with torch.device("cuda"):
+        t5 = T5Encoder(T5Config.byt5_xl())
+    t5.reset_parameters(gen)
+    sizes["byt5"] = save_bf16(paths["byt5"], {"": t5})
+    del t5
+    with torch.device("cuda"):
+        text, vision = CLIPTextEncoder(CLIPTextConfig.vit_h_14()), CLIPVisionEncoder(CLIPVisionConfig.vit_h_14())
+    text.reset_parameters(gen)
+    vision.reset_parameters(gen)
+    sizes["clip"] = save_bf16(paths["clip"], {"": text, "visual.": vision}, {"logit_scale": torch.tensor(4.6052)})
+    del text, vision
+    write_merges_file(synthetic_merges(), paths["bpe"])
+    torch.cuda.empty_cache()
+    return {"paths": paths, "bytes": sizes}
+
+
+@contextlib.contextmanager
+def torch_defaults(defaults: dict):
+    """TF32 switched as a fresh process has it (the served process), for
+    work compared with it bit for bit; the script's own settings after."""
+    import torch
+
+    mine = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults["matmul"], defaults["cudnn"]
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = mine
+
+
+def p50_ms(fn, runs: int = 7) -> tuple[float, float, float]:
+    """(p50, min, max) host ms of fn() ending in a synchronize, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[runs // 2], min(times), max(times)
+
+
+def clip_towers_against_cpu(tag: str) -> dict:
+    """The ViT-H-14 widths at depth 2, seeded: bf16 towers on the card
+    against the same weights' f32 towers on the CPU (plain torch both)."""
+    import torch
+
+    from paella_tpu_torch.cond import CLIPTextConfig, CLIPTextEncoder, CLIPVisionConfig, CLIPVisionEncoder
+    from paella_tpu_torch.cond.clip import clip_preprocess
+
+    gen = torch.Generator().manual_seed(31)
+    out = {}
+    for name, cfg_cls, enc_cls in (("text", CLIPTextConfig, CLIPTextEncoder), ("image", CLIPVisionConfig, CLIPVisionEncoder)):
+        cfg = dataclasses.replace(cfg_cls.vit_h_14(), layers=2)
+        cpu = enc_cls(dataclasses.replace(cfg, dtype="float32"))
+        cpu.reset_parameters(gen)
+        with torch.device("cuda"):
+            dev = enc_cls(cfg)
+        dev.load_state_dict(cpu.state_dict())
+        dev.cast_products()
+        out[name] = (cpu.eval(), dev.eval())
+    # two token rows as the tokenizer lays them out: SOT, ids, EOT (the
+    # highest id), zeros
+    tokens = torch.zeros(2, 77, dtype=torch.long)
+    for row, n in enumerate((8, 40)):
+        tokens[row, 0], tokens[row, n + 1] = 49406, 49407
+        tokens[row, 1 : n + 1] = torch.randint(0, 49406, (n,), generator=gen)
+    images = torch.rand(2, 256, 256, 3, generator=gen)
+    feats = {
+        "text": (out["text"][0](tokens), out["text"][1](tokens.cuda())),
+        "image": (out["image"][0](clip_preprocess(images)), out["image"][1](clip_preprocess(images.cuda()))),
+    }
+    result = {}
+    for name, (want, got) in feats.items():
+        cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want, dim=-1).tolist()
+        result[name] = cos
+        print(f"[entry] CLIP ViT-H-14 {name} tower at depth 2, bf16 on the card against f32 on the CPU: cosine "
+              f"{', '.join(f'{c:.6f}' for c in cos)} (limit 0.999) ({tag})")
+        check(got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 1024), f"{name} features {got.dtype} {tuple(got.shape)}")
+        check(min(cos) >= 0.999, f"CLIP {name} tower card vs CPU cosine {min(cos)} < 0.999")
+    return result
+
+
+def phase_entry(tag: str, defaults: dict) -> dict:
+    """The serving entry point with real towers: seeded full-width checkpoint
+    files, serve.build_pipeline on the card from them (CLIP-conditioned
+    text_to_image with its launch counts, best-of-N reranked by the CLIP
+    towers, the towers' encode p50s), the depth-2 towers against the CPU,
+    the Inception featurizer, and `python -m paella_tpu_torch.serve` on the
+    same files answering a request with the pipeline's image."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paella_tpu_torch.config import SampleConfig
+    from paella_tpu_torch.eval import convert_inception, inception_features
+    from paella_tpu_torch.eval.inception import INCEPTION_SHAPES, conv_weight_shape
+    from paella_tpu_torch.serve import build_pipeline, png_pixels, request_seeds
+    from paella_tpu_torch.serve import to_uint8 as serve_uint8
+
+    result = {}
+    result["clip_cosine"] = clip_towers_against_cpu(tag)
+    d = tempfile.mkdtemp(prefix="paella_entry_")
+    proc = log = None
+    try:
+        t0 = time.perf_counter()
+        files = write_entry_checkpoints(d, torch.Generator(device="cuda").manual_seed(30))
+        write_s = time.perf_counter() - t0
+        paths, sizes = files["paths"], files["bytes"]
+        print(f"[entry] seeded full-width checkpoints written in bf16: {json.dumps(sizes)} bytes, "
+              f"{sum(sizes.values()) / 1e9:.2f} GB in {write_s:.1f} s")
+        t0 = time.perf_counter()
+        pipe = build_pipeline(paths["denoiser"], paths["vqgan"], paths["byt5"], clip_path=paths["clip"],
+                              clip_bpe_path=paths["bpe"], device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"[entry] build_pipeline on the card from the files (denoiser, VQConfig() codec, ByT5-XL, CLIP ViT-H-14 "
+              f"towers, the merge table) in {load_s:.1f} s; device memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        result.update(bytes=sizes, write_s=write_s, load_s=load_s)
+
+        prompt, seed, hw = "a red car on a beach", 17, (256, 256)
+        s_cfg = SampleConfig(steps=STEPS, cfg=8.0)
+        with torch_defaults(defaults):
+            image, launches = counted(lambda: pipe.text_to_image([prompt], request_seeds([seed]), hw, s_cfg))
+        print(f"[entry] text_to_image with CLIP conditioning ({STEPS} steps, CFG, 256x256): launches {json.dumps(launches)}")
+        check_launches("entry text_to_image", launches, {
+            "fused_resblock[float]": GRAPH_PASSES * K1_PER_FORWARD * STEPS, "gumbel_categorical": GRAPH_PASSES * STEPS,
+            "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0, "fused_codebook_lookup": 0,
+        })
+        ok = tuple(image.shape) == (1, 256, 256, 3) and bool(torch.isfinite(image).all()) and 0.0 <= image.min().item() <= image.max().item() <= 1.0
+        check(ok, f"entry text_to_image: image {tuple(image.shape)}, finite and in [0, 1]")
+        clip_feats = pipe.clip_text_fn([prompt])
+        check(tuple(clip_feats.shape) == (1, 1024) and bool(torch.isfinite(clip_feats.float()).all()), "CLIP text features")
+        result["launches"] = launches
+
+        best, scores = pipe.text_to_image_best_of([prompt], request_seeds([21, 22]), 2, hw, s_cfg, return_scores=True)
+        check(tuple(best.shape) == (1, 256, 256, 3) and tuple(scores.shape) == (1, 2), "best-of-2 shapes")
+        check(bool(torch.isfinite(scores).all()) and bool(((scores >= 0) & (scores <= 100)).all()), f"best-of-2 scores {scores.tolist()}")
+        print(f"[entry] text_to_image_best_of n=2 reranked by the CLIP towers: scores {scores.tolist()[0]}, image "
+              f"{tuple(best.shape)}")
+
+        prompts2 = [prompt, "a lighthouse in a storm, oil on canvas"]
+        text_p50 = p50_ms(lambda: pipe.clip_text_fn(prompts2))
+        images = {b: torch.rand(b, 256, 256, 3, device="cuda") for b in (1, 8)}
+        image_p50 = {b: p50_ms(lambda b=b: pipe.clip_image_fn(images[b])) for b in (1, 8)}
+        gen_p50 = p50_ms(lambda: pipe.text_to_image([prompt], request_seeds([seed + 1]), hw, s_cfg), runs=5)
+        print(f"[entry] full-depth CLIP ViT-H-14, bf16: text encode (tokenize + tower) batch 2 x 77 tokens p50 "
+              f"{text_p50[0]:.2f} ms (min {text_p50[1]:.2f}, max {text_p50[2]:.2f}); image encode (clip_preprocess "
+              f"256 -> 224 + tower) p50 batch 1 {image_p50[1][0]:.2f} ms (min {image_p50[1][1]:.2f}), batch 8 "
+              f"{image_p50[8][0]:.2f} ms (min {image_p50[8][1]:.2f}); text_to_image with ByT5-XL and CLIP text, "
+              f"{STEPS} steps CFG, p50 {gen_p50[0]:.2f} ms (min {gen_p50[1]:.2f}, max {gen_p50[2]:.2f}) ({tag})")
+        result.update(clip_text_p50_ms=text_p50[0], clip_image_p50_ms={b: v[0] for b, v in image_p50.items()},
+                      text_to_image_p50_ms=gen_p50[0])
+
+        # the same files through the command line, in a process of its own
+        port = free_port()
+        cmd = [sys.executable, "-m", "paella_tpu_torch.serve", "--denoiser", paths["denoiser"], "--vqgan", paths["vqgan"],
+               "--byt5", paths["byt5"], "--clip", paths["clip"], "--clip-bpe", paths["bpe"], "--host", "127.0.0.1",
+               "--port", str(port)]
+        log = open(os.path.join(d, "serve.log"), "w+")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        while True:
+            if proc.poll() is not None:
+                raise CheckFailed(f"the server exited with {proc.returncode}: {tail_of(log)}")
+            if time.perf_counter() - t0 > 600:
+                raise CheckFailed(f"the server did not answer /healthz in 600 s: {tail_of(log)}")
+            try:
+                check(http_get(f"http://127.0.0.1:{port}/healthz") == b"ok", "/healthz")
+                break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        req = {"prompt": prompt, "seed": seed, "steps": STEPS, "height": hw[0], "width": hw[1]}
+        times, pngs = [], []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            pngs.append(http_generate(port, req))
+            times.append((time.perf_counter() - t1) * 1e3)
+        with torch_defaults(defaults):
+            want = serve_uint8(pipe.text_to_image([prompt], request_seeds([seed]), hw, s_cfg)[0]).cpu().numpy()
+        got = png_pixels(pngs[0])
+        share = float((got == want).mean()) if got.shape == want.shape else 0.0
+        http_p50 = sorted(times)[1]
+        print(f"[entry] python -m paella_tpu_torch.serve on the same files: /healthz after {up_s:.1f} s (load and "
+              f"warm-up); its PNG against build_pipeline's image for the same prompt and seed: pixel share {share:.6f} "
+              f"(want 1.0); repeats byte-identical: {pngs[1] == pngs[0] == pngs[2]}; HTTP p50 {http_p50:.2f} ms "
+              f"(min {min(times):.2f}, max {max(times):.2f}) with ByT5-XL and CLIP ViT-H-14 ({tag})")
+        check(share == 1.0, f"the served PNG differs from build_pipeline's image: pixel share {share}")
+        check(pngs[1] == pngs[0] == pngs[2], "repeated requests gave other bytes")
+        result.update(serve_up_s=up_s, http_p50_ms=http_p50, served_pixel_share=share)
+        del pipe, clip_feats, images
+        torch.cuda.empty_cache()
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        if log is not None:
+            log.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+    # the Inception featurizer (seeded weights), batch 32 at 299x299, f32
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    sd = {}
+    for block, units in INCEPTION_SHAPES.items():
+        for unit, shape in units.items():
+            p = block if unit is None else f"{block}.{unit}"
+            w = conv_weight_shape(*shape)
+            sd[f"{p}.conv.weight"] = torch.randn(w, generator=gen, device="cuda") * (2.0 / (w[1] * w[2] * w[3])) ** 0.5
+            c = w[0]
+            sd[f"{p}.bn.weight"] = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+            sd[f"{p}.bn.bias"] = 0.05 * torch.randn(c, generator=gen, device="cuda")
+            sd[f"{p}.bn.running_mean"] = 0.05 * torch.randn(c, generator=gen, device="cuda")
+            sd[f"{p}.bn.running_var"] = 1 + 0.3 * torch.rand(c, generator=gen, device="cuda")
+    extract = inception_features(convert_inception(sd))
+    small = torch.rand(2, 128, 128, 3, generator=gen, device="cuda")
+    want = inception_features(convert_inception({k: v.cpu() for k, v in sd.items()}))(small.cpu())
+    got = extract(small)
+    err = float((got.cpu() - want).abs().max())
+    check(tuple(got.shape) == (2, 2048) and err <= 5e-3 * max(1.0, float(want.abs().max())),
+          f"Inception pool3 card vs CPU: max abs error {err}")
+    batch = torch.rand(32, 299, 299, 3, device="cuda")
+    inc = p50_ms(lambda: extract(batch), runs=5)
+    print(f"[entry] Inception pool3 ('fid' variant, seeded weights) card vs CPU at (2,128,128,3): max abs error "
+          f"{err:.2e}; batch 32 at 299x299, f32 (TF32 off): p50 {inc[0]:.2f} ms (min {inc[1]:.2f}, max {inc[2]:.2f}), "
+          f"{32e3 / inc[0]:.1f} images/s ({tag})")
+    result.update(inception_ms=inc[0], inception_images_per_s=32e3 / inc[0], inception_max_abs_err=err)
+    return result
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (bound, then released for the server)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tail_of(log) -> str:
+    log.flush()
+    log.seek(0)
+    return log.read()[-3000:]
+
+
 def phase_k1b(tag: str) -> dict:
     """K1b, both int8 modes, at the flagship's ResBlock shapes: against its
     plain version, run twice, at batch 2 and 8, timed beside the float K1 on
@@ -2130,6 +2448,7 @@ def main() -> int:
     if not os.path.abspath(paella_tpu_torch.__file__).startswith(os.path.join(REPO, "")):
         print(f"chip_smoke: paella_tpu_torch comes from {paella_tpu_torch.__file__}, not this checkout", file=sys.stderr)
         return 1
+    defaults = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = card()
@@ -2145,11 +2464,13 @@ def main() -> int:
     k6 = phase_k6(tag)
     attn = phase_attention_e2e(tag)
     served = phase_serve(tag)
+    entry_point = phase_entry(tag, defaults)
     k1b = phase_k1b(tag)
     int8 = phase_int8_e2e(tag)
     graphs = phase_graph(tag)
     launches = {}
-    for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], int8["launches"]):
+    for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], entry_point["launches"],
+                   int8["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -2187,6 +2508,9 @@ def main() -> int:
         "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
         "serve_batch_pixel_share_256x384": served["batch_pixel_share_256x384"],
+        "entry": {k: entry_point[k] for k in ("bytes", "write_s", "load_s", "clip_text_p50_ms", "clip_image_p50_ms",
+                                        "text_to_image_p50_ms", "serve_up_s", "http_p50_ms", "served_pixel_share",
+                                        "clip_cosine", "inception_ms", "inception_images_per_s")},
         "k2_batches": k2["batches"], "k1_shapes": k1["shapes"], "k1b_shapes": k1b["shapes"], "int8_text_to_image_p50_ms": int8["text_to_image_p50_ms"],
         "byt5_encode_p50_ms": int8["byt5_encode_p50_ms"], "k4_cases": k4["cases"],
         "graph": {name: {"p50_ms": g["p50_ms"], "pool_bytes": g["pool_bytes"],

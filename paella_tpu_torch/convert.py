@@ -13,6 +13,7 @@ from typing import Dict, Mapping
 import numpy as np
 
 from .config import PaellaConfig, VQConfig
+from .cond.clip import CLIPTextConfig, CLIPVisionConfig
 from .cond.t5 import T5Config
 
 StateDict = Dict[str, np.ndarray]
@@ -185,3 +186,63 @@ def t5_state_dict_from_jax(params: Mapping, cfg: T5Config) -> StateDict:
         sd[f"{b}.layer.1.layer_norm.weight"] = _np(p["ff_norm"])
     sd["encoder.final_layer_norm.weight"] = _np(params["final_norm"])
     return sd
+
+
+def _clip_blocks(out: StateDict, params: Mapping, layers: int) -> None:
+    """JAX _CLIPBlock trees -> open_clip resblocks, q, k and v re-packed
+    into in_proj (the inverse of the JAX `_split_packed_qkv`)."""
+    for i in range(layers):
+        p, o = params[f"block_{i}"], f"transformer.resblocks.{i}"
+        _mha(out, f"{o}.attn", p["attn"])
+        for src, dst in (("ln1", "ln_1"), ("ln2", "ln_2")):
+            out[f"{o}.{dst}.weight"] = _np(p[src]["scale"])
+            out[f"{o}.{dst}.bias"] = _np(p[src]["bias"])
+        _lin(out, f"{o}.mlp.c_fc", p["fc1"])
+        _lin(out, f"{o}.mlp.c_proj", p["fc2"])
+
+
+def clip_text_state_dict_from_jax(params: Mapping, cfg: CLIPTextConfig) -> StateDict:
+    """The JAX CLIPTextEncoder tree (numpy leaves) -> the open_clip text
+    layout of cond/clip.py::CLIPTextEncoder: the inverse of the JAX
+    package's convert_open_clip_text (paella_tpu/cond/clip.py:227-266)."""
+    sd: StateDict = {
+        "token_embedding.weight": _np(params["token_embedding"]),
+        "positional_embedding": _np(params["position_embedding"]),
+        "text_projection": _np(params["text_projection"]),
+        "ln_final.weight": _np(params["ln_final"]["scale"]),
+        "ln_final.bias": _np(params["ln_final"]["bias"]),
+    }
+    _clip_blocks(sd, params, cfg.layers)
+    return sd
+
+
+def clip_vision_state_dict_from_jax(params: Mapping, cfg: CLIPVisionConfig) -> StateDict:
+    """The JAX CLIPVisionEncoder tree (numpy leaves) -> the open_clip visual
+    layout (keys without `visual.`) of cond/clip.py::CLIPVisionEncoder: the
+    inverse of convert_open_clip_vision (paella_tpu/cond/clip.py:269-306)."""
+    sd: StateDict = {
+        "conv1.weight": np.ascontiguousarray(_np(params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)),
+        "class_embedding": _np(params["class_embedding"]),
+        "positional_embedding": _np(params["position_embedding"]),
+        "proj": _np(params["visual_projection"]),
+    }
+    for name in ("ln_pre", "ln_post"):
+        sd[f"{name}.weight"] = _np(params[name]["scale"])
+        sd[f"{name}.bias"] = _np(params[name]["bias"])
+    _clip_blocks(sd, params, cfg.layers)
+    return sd
+
+
+def load_params_npz(path: str) -> dict:
+    """A flat .npz of a JAX param tree (paella_tpu/train/checkpoints.py
+    save_params_npz: keys joined by '/') -> the nested dict of numpy
+    arrays, as the JAX package's load_params_npz unflattens it."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree

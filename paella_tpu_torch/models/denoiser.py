@@ -36,7 +36,7 @@ from torch import nn
 
 from ..config import PaellaConfig
 from ..nn import init
-from ..nn.blocks import AttnBlock, DerivedWeights, Downsample, ResBlock, TimestepBlock, Upsample
+from ..nn.blocks import AttnBlock, DerivedWeights, Downsample, FeedForwardBlock, ResBlock, TimestepBlock, Upsample
 from ..nn.functional import depth_to_space, layer_norm, sinusoidal_embedding, space_to_depth
 
 
@@ -99,8 +99,10 @@ class Paella(DerivedWeights):
                         blocks.append(
                             AttnBlock(c, cfg.c_cond, cfg.nhead[i], cfg.self_attn, dtype=dt, kernel=attn_route(rep))
                         )
+                    elif bt == "F":
+                        blocks.append(FeedForwardBlock(c, dtype=dt))
                     else:
-                        raise ValueError(f"block type {bt!r} is not ported")
+                        raise ValueError(f"block type {bt!r}: 'C', 'T', 'A' or 'F'")
             return blocks
 
         self.down_blocks = nn.ModuleList()
@@ -137,7 +139,7 @@ class Paella(DerivedWeights):
         for levels in (self.down_blocks, self.up_blocks):
             for blocks in levels:
                 for blk in blocks:
-                    if isinstance(blk, ResBlock):
+                    if isinstance(blk, (ResBlock, FeedForwardBlock)):
                         blk.reset_parameters(gen, out_scale)
                     else:
                         blk.reset_parameters(gen)
@@ -265,6 +267,8 @@ class Paella(DerivedWeights):
                 h = blk(h, r_embed)
             elif isinstance(blk, AttnBlock):
                 h = blk(h, c_embed, cond_mask, cond_reweight, kv=kv.get(f"{prefix}.{j}"))
+            elif isinstance(blk, FeedForwardBlock):
+                h = blk(h)
             j += 1
         return h
 

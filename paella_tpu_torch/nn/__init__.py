@@ -3,6 +3,7 @@ from .blocks import (
     AttnBlock,
     DerivedWeights,
     Downsample,
+    FeedForwardBlock,
     GlobalResponseNorm,
     ResBlock,
     TimestepBlock,
@@ -24,6 +25,7 @@ __all__ = [
     "AttnBlock",
     "DerivedWeights",
     "Downsample",
+    "FeedForwardBlock",
     "GlobalResponseNorm",
     "ResBlock",
     "TimestepBlock",

@@ -88,6 +88,19 @@ class GlobalResponseNorm(nn.Module):
         return (self.gamma.float() * (x32 * nx) + self.beta.float() + x32).to(x.dtype)
 
 
+def _reset_channelwise(mlp: nn.Sequential, gen: torch.Generator, out_init_scale: float) -> None:
+    """The c -> 4c -> c MLP of ResBlock and FeedForwardBlock: xavier fc
+    weights, zero biases and GRN, fc2 scaled by out_init_scale."""
+    fc1, grn, fc2 = mlp[0], mlp[2], mlp[4]
+    init.xavier_uniform_(fc1.weight, gen)
+    init.zeros_(fc1.bias)
+    init.zeros_(grn.gamma)
+    init.zeros_(grn.beta)
+    init.xavier_uniform_(fc2.weight, gen)
+    fc2.weight.mul_(out_init_scale)  # reference: src/modules.py:199-202
+    init.zeros_(fc2.bias)
+
+
 class ResBlock(DerivedWeights):
     """Depthwise conv + channelwise MLP residual block (reference:
     src/modules.py:43-62), with the following TimestepBlock's FiLM folded in:
@@ -118,14 +131,7 @@ class ResBlock(DerivedWeights):
     def reset_parameters(self, gen: torch.Generator, out_init_scale: float = 1.0) -> None:
         init.xavier_uniform_(self.depthwise.weight, gen)
         init.zeros_(self.depthwise.bias)
-        fc1, grn, fc2 = self.channelwise[0], self.channelwise[2], self.channelwise[4]
-        init.xavier_uniform_(fc1.weight, gen)
-        init.zeros_(fc1.bias)
-        init.zeros_(grn.gamma)
-        init.zeros_(grn.beta)
-        init.xavier_uniform_(fc2.weight, gen)
-        fc2.weight.mul_(out_init_scale)  # reference: src/modules.py:199-202
-        init.zeros_(fc2.bias)
+        _reset_channelwise(self.channelwise, gen, out_init_scale)
 
     @property
     def quantized(self) -> bool:
@@ -172,6 +178,33 @@ class ResBlock(DerivedWeights):
 
         check_int8_state(self, state_dict, prefix)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class FeedForwardBlock(nn.Module):
+    """LN + channelwise MLP residual (reference: src/modules.py:82-96), the
+    counterpart of the JAX FeedForwardBlock: ResBlock's MLP without the
+    depthwise conv, in plain torch (JAX runs it in XLA, not in a kernel)."""
+
+    def __init__(self, c: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.channelwise = nn.Sequential(
+            nn.Linear(c, c * 4),
+            nn.GELU(),
+            GlobalResponseNorm(c * 4),
+            nn.Identity(),  # the reference's Dropout
+            nn.Linear(c * 4, c),
+        )
+
+    def reset_parameters(self, gen: torch.Generator, out_init_scale: float = 1.0) -> None:
+        _reset_channelwise(self.channelwise, gen, out_init_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        fc1, grn, fc2 = self.channelwise[0], self.channelwise[2], self.channelwise[4]
+        h = F.gelu(F.linear(layer_norm(x).to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
+        h = F.linear(grn(h), fc2.weight.to(dt), fc2.bias.to(dt))
+        return x + h
 
 
 class TimestepBlock(nn.Module):

@@ -61,3 +61,53 @@ def sinusoidal_embedding(r: torch.Tensor, dim: int, max_positions: int = 10000) 
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 (F.interpolate's bicubic uses -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+_RESIZE_KERNELS = {"bicubic": _keys_cubic, "bilinear": _triangle}
+
+
+def _resize_weights(n_in: int, n_out: int, method: str, device=None) -> torch.Tensor:
+    """The (n_out, n_in) float32 resampling matrix of one axis, as
+    `jax.image.scale_and_translate` builds it (jax/_src/image/scale.py):
+    half-pixel centres, the kernel widened by in/out when downsampling
+    (antialiasing), each output's weights renormalised to sum to one (which
+    is what handles the border), and an output whose centre falls outside
+    the input zeroed."""
+    kernel = _RESIZE_KERNELS[method]
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs() / kernel_scale
+    w = kernel(x)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0).T.contiguous()
+
+
+def resize(images: torch.Tensor, size: tuple[int, int], method: str) -> torch.Tensor:
+    """(B, H, W, C) -> (B, size[0], size[1], C), bicubic or bilinear, equal
+    to `jax.image.resize(images, ..., method)` (antialiased when
+    downsampling): one weight matrix per axis (:func:`_resize_weights`), applied
+    with two einsums in float32 (the JAX package's images are float32). An
+    axis whose size does not change is left as it is, as JAX does."""
+    if method not in _RESIZE_KERNELS:
+        raise ValueError(f"resize method {method!r}: 'bicubic' or 'bilinear'")
+    x = images.float()
+    h, w = x.shape[1:3]
+    if size[0] != h:
+        x = torch.einsum("oh,bhwc->bowc", _resize_weights(h, size[0], method, x.device), x)
+    if size[1] != w:
+        x = torch.einsum("ow,bhwc->bhoc", _resize_weights(w, size[1], method, x.device), x)
+    return x

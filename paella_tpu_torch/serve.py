@@ -26,8 +26,11 @@ each image is decoded at batch 1, the single path's decode. Every kernel
 gives an image the same bits whatever its batchmates, so on the card too a
 request's PNG is the same alone or batched.
 
-Loading checkpoints into a pipeline (the JAX package's `build_pipeline` and
-`main`) waits for the port of the text towers and their loaders.
+Checkpoint files -> a pipeline: `build_pipeline`; from the command line
+(the JAX package's flags plus --device, default cuda; see `main`):
+
+    python -m paella_tpu_torch.serve --denoiser d.pt --vqgan v.pt --byt5 b.pt \
+        [--clip c.pt --clip-bpe bpe_simple_vocab_16e6.txt.gz] [--port 8000] [--device cuda]
 """
 from __future__ import annotations
 
@@ -342,9 +345,118 @@ class PaellaServer:
 
     def serve_forever(self):
         self.start()
-        print(f"paella_tpu_torch serving on http://{self.host}:{self.port}")
+        print(f"paella_tpu_torch serving on http://{self.host}:{self.port}", flush=True)
         try:
             while True:
                 time.sleep(3600)
         except KeyboardInterrupt:
             self.stop()
+
+
+def build_pipeline(
+    denoiser_path: str,
+    vqgan_path: str,
+    byt5_path: str,
+    clip_path: Optional[str] = None,
+    clip_bpe_path: Optional[str] = None,
+    p_cfg=None,
+    byt5_cfg=None,
+    vq_cfg=None,
+    bf16: bool = True,
+    optimize_layout: bool = True,
+    byt5_int8: bool = False,
+    byt5_w8a8: bool = False,
+    device="cuda",
+) -> PaellaPipeline:
+    """Checkpoint files -> a ready PaellaPipeline on `device` (the one-call
+    serving setup), the counterpart of the JAX package's build_pipeline.
+
+    denoiser_path: a reference torch checkpoint (.pt, loaded with
+    strict=True: the port keeps the reference layout) or the JAX package's
+    .npz param tree (train/checkpoints.py save_params_npz). vqgan/byt5/clip
+    load through cond.load_conditional_models (CLIP as ViT-H-14, as
+    the JAX build_pipeline fixes it). bf16 casts the denoiser's
+    weights for inference. optimize_layout is accepted so that both packages
+    start from the same arguments, and has no effect here: the split-skip
+    layout is a TPU-only workaround. Runs on a CUDA device unless the caller
+    asks for device="cpu"; without a card it raises.
+    """
+    from .cond.loader import load_conditional_models, load_state_dict, resolve_device
+    from .cond.t5 import T5Config
+    from .config import PaellaConfig, VQConfig
+    from .convert import load_params_npz, paella_state_dict_from_jax
+    from .models.denoiser import Paella
+
+    del optimize_layout
+    device = resolve_device(device)
+    p_cfg = p_cfg or PaellaConfig.v1_byt5_xl_inference()
+    if denoiser_path.endswith(".npz"):
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in paella_state_dict_from_jax(load_params_npz(denoiser_path), p_cfg).items()}
+    else:
+        sd = load_state_dict(denoiser_path)
+    with torch.device(device):
+        model = Paella(p_cfg)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(torch.bfloat16 if bf16 else torch.float32).eval()
+
+    if byt5_w8a8:
+        byt5_int8 = True
+        byt5_cfg = dataclasses.replace(byt5_cfg or T5Config.byt5_xl(), act_quant=True)
+    models = load_conditional_models(
+        vqgan_path,
+        byt5_path=byt5_path,
+        byt5_cfg=byt5_cfg or T5Config.byt5_xl(),
+        clip_path=clip_path,
+        clip_bpe_path=clip_bpe_path,
+        vq_cfg=vq_cfg or VQConfig(),
+        byt5_int8=byt5_int8,
+        device=device,
+    )
+    return PaellaPipeline(
+        model,
+        models.vq,
+        models.byt5_encode,
+        clip_text_fn=models.clip_text_encode,
+        clip_image_fn=models.clip_image_encode,
+    )
+
+
+def main(argv=None):
+    """python -m paella_tpu_torch.serve --denoiser d.pt --vqgan v.pt --byt5 b.pt
+    [--clip c.pt --clip-bpe merges.txt.gz] [--port 8000] [--max-batch 1]
+    [--device cuda]"""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="paella_tpu_torch HTTP serving")
+    ap.add_argument("--denoiser", required=True, help=".pt (torch) or .npz checkpoint")
+    ap.add_argument("--vqgan", required=True)
+    ap.add_argument("--byt5", required=True)
+    ap.add_argument("--clip", default=None)
+    ap.add_argument("--clip-bpe", default=None, help="bpe_simple_vocab_16e6.txt.gz")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--max-batch", type=int, default=1)
+    ap.add_argument("--no-optimize-layout", action="store_true",
+                    help="accepted for the JAX package's command line; no effect on this card")
+    ap.add_argument("--byt5-int8", action="store_true", help="int8 ByT5 weights: halves the encoder's memory")
+    ap.add_argument("--byt5-w8a8", action="store_true", help="W8A8 ByT5: int8 weights and int8 x int8 products")
+    ap.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' runs the plain versions)")
+    ap.add_argument("--no-warmup", action="store_true")
+    args = ap.parse_args(argv)
+
+    pipe = build_pipeline(
+        args.denoiser, args.vqgan, args.byt5,
+        clip_path=args.clip, clip_bpe_path=args.clip_bpe,
+        optimize_layout=not args.no_optimize_layout, byt5_int8=args.byt5_int8,
+        byt5_w8a8=args.byt5_w8a8, device=args.device,
+    )
+    server = PaellaServer(pipe, host=args.host, port=args.port, max_batch=args.max_batch)
+    if not args.no_warmup:
+        print("warming up (builds the kernels and captures the sampler's graph of 256x256, 8 steps)...", flush=True)
+        server.warmup()
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

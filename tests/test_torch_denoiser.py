@@ -24,7 +24,7 @@ from paella_tpu_torch.convert import paella_state_dict_from_jax
 from paella_tpu_torch.models import Paella
 from paella_tpu_torch.nn import functional as tf
 from paella_tpu_torch.nn.attention import dot_product_attention
-from paella_tpu_torch.nn.blocks import GlobalResponseNorm
+from paella_tpu_torch.nn.blocks import FeedForwardBlock, GlobalResponseNorm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -131,6 +131,22 @@ def test_paella_multi_image_and_reweight_match_jax(paella, inputs):
         clip_image_mask=torch.from_numpy(img_mask), cond_reweight=torch.from_numpy(rew),
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_feed_forward_levels_match_jax(inputs):
+    """A tiny config with "F" (FeedForwardBlock: LN, the channelwise MLP,
+    the residual) at levels 0 and 1, in a level's first repetition and in
+    the repetitions JAX scans: the port's forward against JAX's, f32."""
+    cfg = dataclasses.replace(PaellaConfig.tiny(), level_config=("CTF", "CTAF", "CTA"))
+    model, jmodel, jparams = make_paella(cfg, seed=3)
+    assert sum(isinstance(m, FeedForwardBlock) for m in model.modules()) == 6  # (1 + 2 repetitions) x (down + up)
+    x, r, cond = inputs
+    want = np.asarray(jmodel.apply({"params": jparams}, x, r, cond["byt5"], cond["clip"], byt5_mask=cond["byt5_mask"]))
+    tc = to_torch(cond)
+    got = model(torch.from_numpy(x), torch.from_numpy(r), tc["byt5"], tc["clip"], byt5_mask=tc["byt5_mask"])
+    assert np.abs(want).max() > 1e-3, "vacuous comparison"
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert sorted(paella_state_dict_from_jax(jparams, cfg)) == sorted(model.state_dict())
 
 
 def test_state_dict_from_jax_equals_export_paella(paella):
