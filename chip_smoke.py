@@ -65,7 +65,12 @@ limit):
                repeated request byte-identical, micro-batches of three
                concurrent requests against the single path at 256x256 and
                256x384, HTTP p50
- 12. entry     the serving entry point with real towers: seeded full-width
+ 12. C5        fault C5 measured: with TF32 on in the caller, an f32
+               VQConfig() decode's uint8 pixels and the Inception pool3
+               features of 32 images, card vs CPU, before the repair (the
+               exact_f32 pin switched off) and after it; after it the card's
+               output under TF32 on equals two runs under TF32 off bit for bit
+     entry     the serving entry point with real towers: seeded full-width
                checkpoint files written in bf16 (the flagship denoiser,
                VQConfig()'s codec, ByT5-XL, open_clip ViT-H-14 and a
                synthetic merge table), serve.build_pipeline on the card from
@@ -73,8 +78,9 @@ limit):
                and K3), best-of-2 reranked by the CLIP towers, the towers'
                encode p50s; the ViT-H-14 towers at depth 2, bf16 on the card
                against f32 on the CPU (cosine >= 0.999); `python -m
-               paella_tpu_torch.serve` on the same files, whose PNG equals the
-               pipeline's image; the Inception featurizer card vs CPU and its
+               paella_tpu_torch.serve` on the same files (torch's TF32
+               defaults), whose PNG equals the pipeline's image made under the
+               script's TF32 off; the Inception featurizer card vs CPU and its
                images/s at batch 32, 299x299
  13. K1b       the ResBlock kernel with int8 fc weights (quantized as
                quant.quantize_paella_int8 does), weight-only and W8A8, at the
@@ -100,6 +106,16 @@ limit):
                editing inputs; new schedule values capture nothing; graph
                and eager 8-step p50 in turns, a profile of each (busy share),
                the kernels of one replay by name, each graph's pool bytes
+ 16. train     the training step (train/trainer.py) at the JAX package's "1b"
+               training configuration (v1_byt5_xl in bf16 with remat and
+               dropout 0.1, the frozen bf16 VQConfig() codec), full width,
+               seeded f32 parameters, batch 8 at 256x256: median step ms,
+               images/s, peak memory, first and last loss, lr 0 on the first
+               update, K4 once a microbatch, a profile of one step (kernel
+               time by kind, busy share), grad_accum_steps=2, K4 on the
+               step's latents vs plain, a step's FLOPs (torch.utils.
+               flop_counter) and MFU; then PaellaConfig.tiny() two steps card
+               vs CPU on pinned draws (loss, grad_norm, updated parameters)
 Generations run as captured CUDA graphs (sampling/graph.py): a counted
 generation captures its graph, so its wrappers count the warm-up's and the
 capture's launches (GRAPH_PASSES x one generation's), and the kernels of one
@@ -357,8 +373,8 @@ def profile_kernels(fn, runs: int = 1) -> tuple[dict, float]:
         for e in prof.key_averages():
             # device events only (kernels, memcpys, memsets): a host op's self
             # device time repeats its kernels' (torch.profiler's own total skips it too)
-            if e.device_type == DeviceType.CPU:
-                continue
+            if e.device_type == DeviceType.CPU or getattr(e, "is_user_annotation", False):
+                continue  # a user-annotated range (Optimizer.step) on the device repeats its kernels' time too
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
@@ -426,7 +442,7 @@ GENERATION_GROUPS = [
     ("K6", ("ln_rows_kernel", "linear_kernel", "linear_wgmma_kernel", "linear_reduce_kernel", "block_attention_kernel")),
     ("K5", ("attention_kernel", "attention_ring_kernel")),
     ("K2, K3", ("head_wgmma_kernel", "head_simt_kernel", "gumbel_kernel")),
-    ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "Kernel2")),
+    ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "Kernel2", "nvjet")),
     ("cuDNN conv", ("conv", "cudnn", "implicit")),
 ]
 
@@ -1804,17 +1820,100 @@ def write_entry_checkpoints(d: str, gen) -> dict:
 
 
 @contextlib.contextmanager
-def torch_defaults(defaults: dict):
-    """TF32 switched as a fresh process has it (the served process), for
-    work compared with it bit for bit; the script's own settings after."""
+def tf32_on():
+    """cuDNN's and cuBLAS's TF32 switched on (a caller that never turned it
+    off, or set it on), the script's own settings (off) after."""
     import torch
 
     mine = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults["matmul"], defaults["cudnn"]
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = mine
+
+
+@contextlib.contextmanager
+def unpinned():
+    """The f32 codec and Inception forwards as they were before fault C5's
+    repair: exact_f32 replaced by a no-op where they call it, so the
+    caller's TF32 flags decide their rounding."""
+    from paella_tpu_torch.codec import vqgan
+    from paella_tpu_torch.eval import inception
+
+    saved = vqgan.exact_f32, inception.exact_f32
+    vqgan.exact_f32 = inception.exact_f32 = lambda dtype: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        vqgan.exact_f32, inception.exact_f32 = saved
+
+
+def phase_c5(tag: str) -> dict:
+    """Fault C5 measured: with TF32 on in the caller, an f32 VQConfig()
+    decode's uint8 pixels (seeded weights, 2 x 64 x 64 tokens) and the
+    Inception pool3 features of 32 images at 299x299, each on the card
+    against the same weights on the CPU, before the repair (unpinned) and
+    after it; after it, the card's output under TF32 on equals its output
+    in two runs under TF32 off, bit for bit."""
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import VQConfig
+    from paella_tpu_torch.eval import convert_inception, inception_features
+    from paella_tpu_torch.eval.inception import INCEPTION_SHAPES, conv_weight_shape
+
+    gen = torch.Generator().manual_seed(40)
+    vq_cpu = VQModel(VQConfig())
+    vq_cpu.reset_parameters(gen)
+    perturb_(vq_cpu, gen, scale=0.05)
+    vq_dev = VQModel(VQConfig()).cuda()
+    vq_dev.load_state_dict(vq_cpu.state_dict())
+    idx = torch.randint(0, 8192, (2, 64, 64), generator=gen)
+    sd = {}
+    for block, units in INCEPTION_SHAPES.items():
+        for unit, shape in units.items():
+            p = block if unit is None else f"{block}.{unit}"
+            w = conv_weight_shape(*shape)
+            sd[f"{p}.conv.weight"] = torch.randn(w, generator=gen) * (2.0 / (w[1] * w[2] * w[3])) ** 0.5
+            c = w[0]
+            sd[f"{p}.bn.weight"] = 1 + 0.1 * torch.randn(c, generator=gen)
+            sd[f"{p}.bn.bias"] = 0.05 * torch.randn(c, generator=gen)
+            sd[f"{p}.bn.running_mean"] = 0.05 * torch.randn(c, generator=gen)
+            sd[f"{p}.bn.running_var"] = 1 + 0.3 * torch.rand(c, generator=gen)
+    inc_cpu = inception_features(convert_inception(sd))
+    inc_dev = inception_features(convert_inception({k: v.cuda() for k, v in sd.items()}))
+    images = torch.rand(32, 299, 299, 3, generator=gen)
+    want_px = to_uint8(vq_cpu.decode_indices(idx))
+    want_f = inc_cpu(images)
+
+    def run():
+        return to_uint8(vq_dev.decode_indices(idx.cuda())).cpu(), inc_dev(images.cuda()).cpu()
+
+    with tf32_on():
+        with unpinned():
+            before = run()
+        after = run()
+    off, again = run(), run()
+    result = {}
+    for name, (px, f) in (("before", before), ("after", after)):
+        diff = (px.int() - want_px.int()).abs()
+        ferr = (f - want_f).abs().max().item()
+        result[name] = {"pixels_differ": float((diff > 0).float().mean()), "pixel_max_levels": int(diff.max()),
+                        "pool3_max_abs_err": ferr, "pool3_rel_err": ferr / want_f.abs().max().item()}
+    same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(after, off, again))
+    for name, r in result.items():
+        print(f"[c5] {name} the repair, TF32 on in the caller, card vs CPU: f32 VQConfig() decode (2x256x256x3 uint8) "
+              f"{r['pixels_differ']:.6f} of pixel values differ, by up to {r['pixel_max_levels']} levels; Inception "
+              f"pool3 (32x2048) max abs error {r['pool3_max_abs_err']:.3e} ({r['pool3_rel_err']:.3e} of the largest "
+              f"feature) ({tag})")
+    print(f"[c5] after the repair the card's decode and features under TF32 on equal those of two runs under TF32 "
+          f"off bit for bit: {same} ({tag})")
+    check(same, "C5: the f32 codec decode or the Inception features still depend on the caller's TF32 flags")
+    check(result["after"]["pool3_rel_err"] <= 5e-3, f"C5: Inception card vs CPU {result['after']['pool3_rel_err']}")
+    del vq_cpu, vq_dev, inc_dev
+    torch.cuda.empty_cache()
+    return result
 
 
 def p50_ms(fn, runs: int = 7) -> tuple[float, float, float]:
@@ -1873,7 +1972,7 @@ def clip_towers_against_cpu(tag: str) -> dict:
     return result
 
 
-def phase_entry(tag: str, defaults: dict) -> dict:
+def phase_entry(tag: str) -> dict:
     """The serving entry point with real towers: seeded full-width checkpoint
     files, serve.build_pipeline on the card from them (CLIP-conditioned
     text_to_image with its launch counts, best-of-N reranked by the CLIP
@@ -1913,8 +2012,7 @@ def phase_entry(tag: str, defaults: dict) -> dict:
 
         prompt, seed, hw = "a red car on a beach", 17, (256, 256)
         s_cfg = SampleConfig(steps=STEPS, cfg=8.0)
-        with torch_defaults(defaults):
-            image, launches = counted(lambda: pipe.text_to_image([prompt], request_seeds([seed]), hw, s_cfg))
+        image, launches = counted(lambda: pipe.text_to_image([prompt], request_seeds([seed]), hw, s_cfg))
         print(f"[entry] text_to_image with CLIP conditioning ({STEPS} steps, CFG, 256x256): launches {json.dumps(launches)}")
         check_launches("entry text_to_image", launches, {
             "fused_resblock[float]": GRAPH_PASSES * K1_PER_FORWARD * STEPS, "gumbel_categorical": GRAPH_PASSES * STEPS,
@@ -1970,8 +2068,9 @@ def phase_entry(tag: str, defaults: dict) -> dict:
             t1 = time.perf_counter()
             pngs.append(http_generate(port, req))
             times.append((time.perf_counter() - t1) * 1e3)
-        with torch_defaults(defaults):
-            want = serve_uint8(pipe.text_to_image([prompt], request_seeds([seed]), hw, s_cfg)[0]).cpu().numpy()
+        # the script runs with TF32 off; the served process with torch's
+        # defaults (cuDNN TF32 on): the f32 decode pins IEEE either way (C5)
+        want = serve_uint8(pipe.text_to_image([prompt], request_seeds([seed]), hw, s_cfg)[0]).cpu().numpy()
         got = png_pixels(pngs[0])
         share = float((got == want).mean()) if got.shape == want.shape else 0.0
         http_p50 = sorted(times)[1]
@@ -2023,6 +2122,219 @@ def phase_entry(tag: str, defaults: dict) -> dict:
           f"{32e3 / inc[0]:.1f} images/s ({tag})")
     result.update(inception_ms=inc[0], inception_images_per_s=32e3 / inc[0], inception_max_abs_err=err)
     return result
+
+
+TRAIN_BATCH, TRAIN_HW, TRAIN_WARMUP, TRAIN_TIMED = 8, 256, 2, 5
+# a training step's kernels by kind (plain torch but for K4)
+TRAIN_GROUPS = [
+    ("K4", ("lookup_kernel",)),
+    ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "Kernel2", "sm90_", "nvjet")),
+    ("cuDNN conv", ("conv", "cudnn", "implicit")),
+    ("reductions", ("reduce", "norm", "softmax")),
+    ("elementwise", ("elementwise", "vectorized", "Memcpy", "Memset", "copy")),
+]
+TRAIN_BYT5_LEN = 77
+
+
+def train_inputs(p_cfg, b: int, hw: int, gen, device):
+    """A seeded training batch (images in [0, 1], ByT5 states with masks of
+    seeded lengths, CLIP text and image embeddings) and a seeded NullCond."""
+    import torch
+
+    from paella_tpu_torch.train import Batch, NullCond
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    lengths = torch.randint(1, TRAIN_BYT5_LEN + 1, (b, 1), generator=gen, device=device)
+    batch = Batch(torch.rand(b, hw, hw, 3, generator=gen, device=device), r(b, TRAIN_BYT5_LEN, p_cfg.byt5_embd),
+                  torch.arange(TRAIN_BYT5_LEN, device=device)[None, :] < lengths, r(b, p_cfg.clip_embd),
+                  r(b, p_cfg.clip_embd))
+    null = NullCond(r(1, 2, p_cfg.byt5_embd), torch.ones(1, 2, dtype=torch.bool, device=device), r(1, p_cfg.clip_embd))
+    return batch, null
+
+
+def tiny_train_against_cpu(tag: str) -> dict:
+    """Two train steps of PaellaConfig.tiny() with VQConfig.tiny() (f32,
+    TrainConfig(warmup_updates=1), batch 2 at 64x64) on the card and on the
+    CPU from the same weights and the same pinned draws: the frozen encodes
+    equal, loss within 1e-4 and grad_norm within 1e-3 relative at both
+    steps, and after step 2 (the first with lr > 0) every parameter within
+    2.1 lr of the CPU's and 99% of them within 0.05 lr (Adam divides each
+    gradient by its own size, so a small gradient's rounding moves its
+    update the most)."""
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, TrainConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.train import Batch, Draws, NullCond, create_train_state, make_train_step
+
+    gen = torch.Generator().manual_seed(50)
+    p_cfg, cfg = PaellaConfig.tiny(), TrainConfig(warmup_updates=1)
+    cpu, vq_cpu = Paella(p_cfg), VQModel(VQConfig.tiny())
+    cpu.reset_parameters(gen)
+    perturb_(cpu, gen, scale=0.05)
+    vq_cpu.reset_parameters(gen)
+    perturb_(vq_cpu, gen, scale=0.05)
+    dev, vq_dev = Paella(p_cfg).cuda(), VQModel(VQConfig.tiny()).cuda()
+    dev.load_state_dict(cpu.state_dict())
+    vq_dev.load_state_dict(vq_cpu.state_dict())
+    batch, null = train_inputs(p_cfg, 2, 64, gen, "cpu")
+    latents = vq_cpu.encode(batch.images)[2]
+    agree = (vq_dev.encode(batch.images.cuda())[2].cpu() == latents).float().mean().item()
+    check(agree == 1.0, f"tiny train step: the frozen encodes agree on {agree} of the tokens, card vs CPU")
+    draws = []
+    for _ in range(2):
+        coins = [torch.rand(2, generator=gen) < p for p in (0.05, 0.9, 0.9)]
+        u = torch.rand(2, generator=gen)
+        t = torch.clamp(1.0 - u + cfg.t_min, cfg.t_min, 1.0)
+        mask = (torch.rand(latents.shape, generator=gen) <= t[:, None, None]).int()
+        ids = torch.randint(0, p_cfg.num_labels, latents.shape, generator=gen, dtype=latents.dtype)
+        draws.append(Draws(*coins, u=u, noise_mask=mask, random_x=ids, dropout_seed=0))
+    on_dev = lambda d: Draws(*(t.cuda() for t in dataclasses.astuple(d)[:-1]), dropout_seed=d.dropout_seed)  # noqa: E731
+    batch_dev = Batch(*(t.cuda() for t in (batch.images, batch.byt5, batch.byt5_mask, batch.clip, batch.clip_image)))
+    null_dev = NullCond(null.byt5.cuda(), null.byt5_mask.cuda(), null.clip.cuda())
+    runs = {}
+    for name, m, vq, b, n in (("cpu", cpu, vq_cpu, batch, null), ("card", dev, vq_dev, batch_dev, null_dev)):
+        state = create_train_state(m, cfg)
+        step = make_train_step(m, vq, cfg)
+        put = (lambda d: d) if name == "cpu" else on_dev
+        metrics = [step(state, b, n, [put(dataclasses.replace(d))]) for d in draws]
+        runs[name] = ([(float(x["loss"]), float(x["grad_norm"])) for x in metrics],
+                      {k: v.detach().float().cpu() for k, v in m.named_parameters()})
+    (m_cpu, p_cpu), (m_dev, p_dev) = runs["cpu"], runs["card"]
+    loss_err = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(m_cpu, m_dev))
+    norm_err = max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(m_cpu, m_dev))
+    d = torch.cat([((p_dev[k] - v).abs() / cfg.lr).reshape(-1) for k, v in p_cpu.items()])
+    p99, worst = torch.quantile(d, 0.99).item(), d.max().item()
+    print(f"[train] PaellaConfig.tiny() + VQConfig.tiny() f32, 2 steps, card vs CPU on the same pinned draws: frozen "
+          f"encodes equal; loss {[round(a[0], 6) for a in m_dev]} vs {[round(a[0], 6) for a in m_cpu]} (rel err "
+          f"{loss_err:.2e}, limit 1e-4), grad_norm rel err {norm_err:.2e} (limit 1e-3); parameters after step 2: "
+          f"99th percentile {p99:.2e} lr (limit 0.05), max {worst:.2e} lr (limit 2.1) ({tag})")
+    check(loss_err <= 1e-4 and norm_err <= 1e-3, f"tiny train step card vs CPU: loss {loss_err}, grad norm {norm_err}")
+    check(p99 <= 0.05 and worst <= 2.1, f"tiny train step card vs CPU: parameters {p99} / {worst} lr apart")
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err, "param_p99_lr": p99, "param_max_lr": worst}
+
+
+def phase_train(tag: str) -> dict:
+    """The training step at the JAX package's "1b" training configuration
+    (scripts/run_driver_e2e.py: PaellaConfig.v1_byt5_xl() in bf16 with
+    remat, dropout 0.1 at every level; the frozen VQConfig() codec in bf16),
+    full width and depth, seeded f32 parameters, TrainConfig(warmup_updates=1),
+    batch 8 at 256x256: two warm-up steps and five timed ones (median step ms,
+    images/s, peak memory, loss, K4 launched once per microbatch), the
+    parameters unmoved by the first update (lr 0) and moved by the second,
+    one step at grad_accum_steps=2, K4 on that step's latents against its
+    plain version, a step's FLOPs (torch.utils.flop_counter) and the MFU they
+    give at the bf16 peak, then the tiny step card vs CPU."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, TrainConfig, VQConfig
+    from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.train import create_train_state, make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    p_cfg = dataclasses.replace(PaellaConfig.v1_byt5_xl(), dtype="bfloat16", remat=True)
+    check(p_cfg.dropout == (0.1, 0.1, 0.1), f"dropout {p_cfg.dropout}")
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = Paella(p_cfg)
+        vq = VQModel(dataclasses.replace(VQConfig(), dtype="bfloat16"))
+    model.reset_parameters(gen)
+    perturb_(model, gen)
+    vq.reset_parameters(gen)
+    perturb_(vq, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    cfg = TrainConfig(warmup_updates=1)
+    state = create_train_state(model, cfg, torch.Generator(device="cuda").manual_seed(46))
+    step = make_train_step(model, vq, cfg)
+    batch, null = train_inputs(p_cfg, TRAIN_BATCH, TRAIN_HW, gen, "cuda")
+    torch.cuda.synchronize()
+    print(f"[train] '1b' config (v1_byt5_xl, bf16 compute, remat, dropout 0.1; {n_params / 1e9:.3f} B f32 parameters) "
+          f"and the frozen bf16 VQConfig() codec built on the card in {time.perf_counter() - t0:.1f} s")
+
+    def timed(fn):
+        t1 = time.perf_counter()
+        out, launches = counted(fn)
+        return out, launches, (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    before = [p.detach().clone() for p in model.parameters()]
+    metrics, times, k4 = [], [], 0
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        m, launches, ms = timed(lambda: step(state, batch, null))
+        metrics.append({k: float(v) for k, v in m.items()})
+        check_launches(f"train step {i + 1}", launches, {
+            "fused_codebook_lookup": 1, "fused_resblock": 0, "fused_head_categorical": 0, "gumbel_categorical": 0,
+            "fused_attention": 0, "fused_attn_block": 0,
+        })
+        k4 += launches["fused_codebook_lookup"]
+        if i == 0:
+            check(all(torch.equal(p.detach(), q) for p, q in zip(model.parameters(), before)),
+                  "the first update (lr 0) moved parameters")
+        if i == 1:
+            moved = sum(not torch.equal(p.detach(), q) for p, q in zip(model.parameters(), before))
+            check(moved >= 0.9 * len(before), f"the second update moved {moved} of {len(before)} parameter tensors")
+            del before
+        if i >= TRAIN_WARMUP:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(metrics):
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), f"train step {i + 1}: {m}")
+        check(m["nonfinite_skips"] == 0, f"train step {i + 1} skipped an update")
+    med = sorted(times)[len(times) // 2]
+    print(f"[train] batch {TRAIN_BATCH} at {TRAIN_HW}x{TRAIN_HW}: median step {med:.1f} ms of {TRAIN_TIMED} "
+          f"(min {min(times):.1f}, max {max(times):.1f}), {TRAIN_BATCH * 1e3 / med:.2f} images/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; loss first {metrics[0]['loss']:.4f}, last {metrics[-1]['loss']:.4f}; grad_norm "
+          f"{metrics[0]['grad_norm']:.3f} .. {metrics[-1]['grad_norm']:.3f}; first update moved nothing (lr 0), the "
+          f"second moved the parameters; K4 launched {k4} times in {len(metrics)} steps ({tag})")
+
+    kernels, wall = profile_kernels(lambda: step(state, batch, null))
+    groups = group_kernels(kernels, TRAIN_GROUPS)
+    busy = sum(us for us, _ in groups.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"[train] profile of one step (torch.profiler): "
+          f"{'; '.join(f'{k} {v[0] / 1e3:.1f} ms ({v[1]:.0f})' for k, v in groups.items())}; all kernels {busy:.1f} ms "
+          f"of {wall:.1f} ms wall = {busy / wall:.0%} busy, {sum(n for _, n in kernels.values()):.0f} launches; the "
+          f"largest: {'; '.join(f'{k[:100]} {us / 1e3:.1f} ms ({n:.0f})' for k, (us, n) in top)} ({tag})")
+
+    accum = make_train_step(model, vq, dataclasses.replace(cfg, grad_accum_steps=2))
+    accum_ms = []
+    for _ in range(2):  # the first at the microbatch shapes is cold (allocator, GEMM heuristics)
+        m, launches, ms = timed(lambda: accum(state, batch, null))
+        check_launches("train step at grad_accum_steps=2", launches, {"fused_codebook_lookup": 2, "fused_resblock": 0})
+        check(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"])), f"accumulated step {m}")
+        k4 += launches["fused_codebook_lookup"]
+        accum_ms.append(ms)
+
+    z = vq.encoder(batch.images)
+    cb = vq.vquantizer.codebook.weight.detach().float().contiguous()
+    got, want = fused_codebook_lookup(z.contiguous(), cb), codebook_lookup_plain(z.contiguous(), cb)
+    agree = (got == want).float().mean().item()
+    print(f"[train] grad_accum_steps=2 (2 microbatches of {TRAIN_BATCH // 2}): one update in {accum_ms[0]:.1f} ms "
+          f"(cold), then {accum_ms[1]:.1f} ms, loss {float(m['loss']):.4f}, K4 launched "
+          f"{launches['fused_codebook_lookup']} times a step; K4 on that step's latents "
+          f"z {tuple(z.shape)} against its plain version: indices agree {agree:.6f} (want 1.0) ({tag})")
+    check(agree == 1.0, f"K4 on the training batch's latents agrees {agree} with its plain version")
+
+    with FlopCounterMode(display=False) as flops:
+        step(state, batch, null)
+    total = flops.get_total_flops()
+    mfu = total / (med * 1e-3) / PEAK_OPS_S["bf16"]
+    print(f"[train] one step's FLOPs (torch.utils.flop_counter: products and convolutions, forward, remat "
+          f"recompute and backward) {total / 1e12:.2f} T; at the median step time {total / (med * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s, MFU {mfu:.3f} of the H100 SXM's 989 TFLOP/s bf16 dense peak ({tag})")
+    del model, vq, state, step, accum, batch, null
+    torch.cuda.empty_cache()
+    tiny = tiny_train_against_cpu(tag)
+    return {"step_ms": med, "step_ms_all": times, "images_per_s": TRAIN_BATCH * 1e3 / med, "peak_bytes": peak,
+            "loss_first": metrics[0]["loss"], "loss_last": metrics[-1]["loss"], "tflop_per_step": total / 1e12,
+            "mfu": mfu, "launches": {"fused_codebook_lookup": k4}, "accum_step_ms": accum_ms, "tiny": tiny,
+            "profile_ms": {k: v[0] / 1e3 for k, v in groups.items()}, "busy": busy / wall}
 
 
 def free_port() -> int:
@@ -2448,7 +2760,6 @@ def main() -> int:
     if not os.path.abspath(paella_tpu_torch.__file__).startswith(os.path.join(REPO, "")):
         print(f"chip_smoke: paella_tpu_torch comes from {paella_tpu_torch.__file__}, not this checkout", file=sys.stderr)
         return 1
-    defaults = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = card()
@@ -2464,13 +2775,15 @@ def main() -> int:
     k6 = phase_k6(tag)
     attn = phase_attention_e2e(tag)
     served = phase_serve(tag)
-    entry_point = phase_entry(tag, defaults)
+    c5 = phase_c5(tag)
+    entry_point = phase_entry(tag)
     k1b = phase_k1b(tag)
     int8 = phase_int8_e2e(tag)
     graphs = phase_graph(tag)
+    train = phase_train(tag)
     launches = {}
     for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], entry_point["launches"],
-                   int8["launches"]):
+                   int8["launches"], train["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -2516,6 +2829,9 @@ def main() -> int:
         "graph": {name: {"p50_ms": g["p50_ms"], "pool_bytes": g["pool_bytes"],
                          "kernels_ms": {w: g[w]["kernels_ms"] for w in ("graph", "eager")},
                          "wall_ms": {w: g[w]["wall_ms"] for w in ("graph", "eager")}} for name, g in graphs.items()},
+        "c5": c5, "train": {k: train[k] for k in ("step_ms", "step_ms_all", "images_per_s", "peak_bytes", "loss_first",
+                                                  "loss_last", "tflop_per_step", "mfu", "accum_step_ms", "tiny",
+                                                  "profile_ms", "busy")},
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

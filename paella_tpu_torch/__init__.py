@@ -9,9 +9,9 @@ The port imports torch and numpy only; its CUDA kernels (csrc/) are built
 from source on first use on a CUDA tensor.
 """
 
-from .config import PaellaConfig, SampleConfig, VQConfig
+from .config import PaellaConfig, SampleConfig, TrainConfig, VQConfig
 from .pipeline import PaellaPipeline
 
 __version__ = "0.1.0"
 
-__all__ = ["PaellaConfig", "PaellaPipeline", "SampleConfig", "VQConfig", "__version__"]
+__all__ = ["PaellaConfig", "PaellaPipeline", "SampleConfig", "TrainConfig", "VQConfig", "__version__"]

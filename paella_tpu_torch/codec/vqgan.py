@@ -7,7 +7,9 @@ reference-layout state dict loads with `strict=True`. The encoder ends in a
 BatchNorm evaluated with its running statistics in float32; its latents go to
 the quantizer (codec/quantize.py), whose nearest-code search is the port's
 CUDA kernel K4. The convolutions, blocks and decoder are plain torch: no
-Pallas kernel runs there in the JAX package either.
+Pallas kernel runs there in the JAX package either. A float32 codec's
+encoder and decoder round as IEEE float32 on the card whatever the caller's
+TF32 flags (nn/functional.py::exact_f32).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from torch import nn
 
 from ..config import VQConfig
 from ..nn import init
-from ..nn.functional import depth_to_space, gelu, layer_norm, replication_pad_2d, space_to_depth
+from ..nn.functional import depth_to_space, exact_f32, gelu, layer_norm, replication_pad_2d, space_to_depth
 from .quantize import VectorQuantize
 
 
@@ -141,18 +143,19 @@ class VQModel(nn.Module):
         latents, f = config.downscale; BatchNorm in eval mode (running
         statistics, eps 1e-5)."""
         dt = self.config.compute_dtype
-        h = _lin(self.in_block[1], space_to_depth(x.to(dt), 2), dt)
-        for m in self.down_blocks[:-1]:
-            if isinstance(m, VQResBlock):
-                h = m(h)
-            else:
-                y = F.conv2d(
-                    h.to(dt).permute(0, 3, 1, 2), m.weight.to(dt), m.bias.to(dt),
-                    stride=m.stride, padding=m.padding,
-                )
-                h = y.permute(0, 2, 3, 1)
-        to_latent, norm = self.down_blocks[-1]
-        h = _lin(to_latent, h, dt).float()
+        with exact_f32(dt):
+            h = _lin(self.in_block[1], space_to_depth(x.to(dt), 2), dt)
+            for m in self.down_blocks[:-1]:
+                if isinstance(m, VQResBlock):
+                    h = m(h)
+                else:
+                    y = F.conv2d(
+                        h.to(dt).permute(0, 3, 1, 2), m.weight.to(dt), m.bias.to(dt),
+                        stride=m.stride, padding=m.padding,
+                    )
+                    h = y.permute(0, 2, 3, 1)
+            to_latent, norm = self.down_blocks[-1]
+            h = _lin(to_latent, h, dt).float()
         # flax BatchNorm's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(norm.running_var.float() + norm.eps) * norm.weight.float()
         return (h - norm.running_mean.float()) * mul + norm.bias.float()
@@ -170,17 +173,18 @@ class VQModel(nn.Module):
     def decoder(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, c_latent) latents -> (B, 4h, 4w, 3) image."""
         dt = self.config.compute_dtype
-        h = _lin(self.up_blocks[0][0], z, dt)
-        for m in self.up_blocks[1:]:
-            if isinstance(m, VQResBlock):
-                h = m(h)
-            else:
-                y = F.conv_transpose2d(
-                    h.to(dt).permute(0, 3, 1, 2), m.weight.to(dt), m.bias.to(dt),
-                    stride=m.stride, padding=m.padding,
-                )
-                h = y.permute(0, 2, 3, 1)
-        return depth_to_space(_lin(self.out_block[0], h, dt), 2)
+        with exact_f32(dt):
+            h = _lin(self.up_blocks[0][0], z, dt)
+            for m in self.up_blocks[1:]:
+                if isinstance(m, VQResBlock):
+                    h = m(h)
+                else:
+                    y = F.conv_transpose2d(
+                        h.to(dt).permute(0, 3, 1, 2), m.weight.to(dt), m.bias.to(dt),
+                        stride=m.stride, padding=m.padding,
+                    )
+                    h = y.permute(0, 2, 3, 1)
+            return depth_to_space(_lin(self.out_block[0], h, dt), 2)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Continuous (scaled) latents -> image (reference: src/vqgan.py:97-101)."""

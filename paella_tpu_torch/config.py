@@ -2,15 +2,17 @@
 (`paella_tpu/config.py`), so a config built for one package reads the same in
 the other.
 
-Fields that steer TPU-only workarounds or training are kept so that configs
-stay interchangeable, but the port reads none of them: `remat`,
-`remat_levels`, `attn_qkvo_2d`, `split_skip_levels`, `fused_blocks`
-(PaellaConfig), `lookup_impl` (VQConfig) and `cond_cache` (SampleConfig). Where the JAX package chooses between its XLA path and a
-Pallas kernel there, the port has one path: every ResBlock(+FiLM) pair goes
-through kernels/resblock.py (the port always runs the JAX forward of
-fused_blocks=True) and every codebook lookup through kernels/quantize.py,
-whose wrappers launch the CUDA kernel on a CUDA tensor and take the plain
-torch version only on a CPU tensor.
+Fields that steer TPU-only workarounds are kept so that configs stay
+interchangeable, but the port reads none of them: `attn_qkvo_2d`,
+`split_skip_levels`, `fused_blocks` (PaellaConfig), `lookup_impl` (VQConfig)
+and `cond_cache` (SampleConfig). Where the JAX package chooses between its
+XLA path and a Pallas kernel there, the port's inference `Paella.forward`
+has one path: every ResBlock(+FiLM) pair goes through kernels/resblock.py
+(the port always runs the JAX forward of fused_blocks=True) and every
+codebook lookup through kernels/quantize.py, whose wrappers launch the CUDA
+kernel on a CUDA tensor and take the plain torch version only on a CPU
+tensor. The training forward (`Paella.forward_train`) is the JAX forward at
+fused_blocks=False and reads `dropout`, `remat` and `remat_levels`.
 
 Read, because their routes round differently:
 - `SampleConfig.categorical_impl`: "pallas" takes the fused head
@@ -54,11 +56,11 @@ class PaellaConfig:
     byt5_embd: int = 1536
     clip_seq_len: int = 4
     kernel_size: int = 3
-    dropout: Tuple[float, ...] = (0.1, 0.1, 0.1)
+    dropout: Tuple[float, ...] = (0.1, 0.1, 0.1)  # per level, read by forward_train with a dropout seed
     self_attn: bool = True
     dtype: str = "float32"  # compute dtype
-    remat: bool = False  # inert in the port (inference only)
-    remat_levels: Optional[Tuple[bool, ...]] = None  # inert
+    remat: bool = False  # forward_train: recompute every repetition >= 1 of a level in the backward
+    remat_levels: Optional[Tuple[bool, ...]] = None  # per-level override of `remat` (None: `remat` everywhere)
     attention_impl: str = "xla"  # "xla": plain torch attention; "pallas": K5 in repetition 0
     fused_blocks: bool = False  # inert: the fused kernel is the only path
     attn_block_kernel: bool = False  # K6 for the AttnBlock of repetitions >= 1
@@ -164,3 +166,31 @@ class SampleConfig:
                 else self.sampling_conditional_steps
             ),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference: src_distributed/train.py:14-30),
+    field for field the JAX package's."""
+
+    updates: int = 1_500_000
+    warmup_updates: int = 10_000
+    batch_size: int = 2048
+    grad_accum_steps: int = 1
+    lr: float = 1e-4
+    grad_clip: float = 1.0
+    label_smoothing: float = 0.1
+    loss_weight_min: float = 0.3  # reference: src_distributed/modules.py:283 min_val
+    # conditioning dropout probabilities (reference: src_distributed/train.py:79-97)
+    byt5_drop_prob: float = 0.05
+    clip_text_drop_prob: float = 0.9
+    clip_image_drop_prob: float = 0.9
+    t_min: float = 0.001  # reference: src_distributed/train.py:99 clamp
+    checkpoint_every: int = 2000
+    seed: int = 0
+    # storage dtype of BOTH Adam moments ("float32" | "bfloat16"); the moment
+    # math is float32 either way (train/trainer.py::AdamW)
+    adam_moment_dtype: str = "float32"
+    # skip an update whose gradients are not all finite: parameters, moments
+    # and the update count untouched, `nonfinite_skips` counts it
+    skip_nonfinite_updates: bool = True

@@ -20,6 +20,8 @@ runs in eval mode on the checkpoint's running stats (eps=1e-3, torchvision
 BasicConv2d), folded into a scale and shift in float32 as JAX folds it.
 Preprocessing is the standard FID recipe: resize to 299x299 bilinear (as
 `jax.image.resize`: nn/functional.py::resize), scale [0,1] -> [-1,1].
+`inception_features` runs the resize, and a float32 network, as IEEE float32
+on the card whatever the caller's TF32 flags (nn/functional.py::exact_f32).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Callable, Mapping
 import torch
 import torch.nn.functional as F
 
-from ..nn.functional import resize
+from ..nn.functional import exact_f32, resize
 
 _BN_EPS = 1e-3
 
@@ -117,10 +119,15 @@ def _inception_e(p, x, pool: str) -> torch.Tensor:
 
 @torch.no_grad()
 def inception_pool3(params: Mapping, images: torch.Tensor, variant: str = "fid") -> torch.Tensor:
-    """(B, 299, 299, 3) images in [-1, 1] -> (B, 2048) pool3 features."""
+    """(B, 299, 299, 3) images in [-1, 1] -> (B, 2048) pool3 features; a
+    float32 network rounds as IEEE float32 (exact_f32)."""
     if variant not in ("fid", "torchvision"):
         raise ValueError(f"unknown variant {variant!r}")
-    fid = variant == "fid"
+    with exact_f32(images.dtype):
+        return _pool3(params, images, variant == "fid")
+
+
+def _pool3(params: Mapping, images: torch.Tensor, fid: bool) -> torch.Tensor:
     x = images.permute(0, 3, 1, 2)
     x = _basic_conv(params["Conv2d_1a_3x3"], x, stride=2)
     x = _basic_conv(params["Conv2d_2a_3x3"], x)
@@ -158,7 +165,8 @@ def inception_features(params: Mapping, variant: str = "fid", dtype=torch.float3
     device = params["Conv2d_1a_3x3"]["conv"]["weight"].device
 
     def extract(images: torch.Tensor) -> torch.Tensor:
-        x = inception_preprocess(torch.as_tensor(images, device=device)).to(dtype)
+        with exact_f32(torch.float32):  # the resize's products
+            x = inception_preprocess(torch.as_tensor(images, device=device)).to(dtype)
         return inception_pool3(params, x, variant).float()
 
     return extract

@@ -25,6 +25,11 @@ A model quantized by quant.quantize_paella_int8 runs its int8 ResBlocks
 through kernel K1b as the JAX forward does: W8A8 under `config.act_quant`,
 weight-only otherwise, and weight-only at repetitions >= 1 of a level where
 JAX takes its attention-block kernel (`_jax_attn_block_route`).
+
+`forward_train` is the training forward, which the caller asks for by name:
+the JAX forward at fused_blocks=False (its XLA ResBlock and TimestepBlock,
+XLA attention), differentiable, with dropout and `remat`. It runs no kernel,
+and the inference `forward` never falls back to it.
 """
 from __future__ import annotations
 
@@ -33,11 +38,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import PaellaConfig
 from ..nn import init
 from ..nn.blocks import AttnBlock, DerivedWeights, Downsample, FeedForwardBlock, ResBlock, TimestepBlock, Upsample
-from ..nn.functional import depth_to_space, layer_norm, sinusoidal_embedding, space_to_depth
+from ..nn.functional import depth_to_space, exact_f32, layer_norm, sinusoidal_embedding, space_to_depth
 
 
 class Paella(DerivedWeights):
@@ -342,3 +348,111 @@ class Paella(DerivedWeights):
             # bias, so the sampler's CFG mix commutes through it.
             return h
         return F.linear(h, self.head_weight())
+
+    # -- the training forward --
+
+    def forward_train(
+        self,
+        x: torch.Tensor,
+        r: torch.Tensor,
+        byt5: torch.Tensor,
+        clip: Optional[torch.Tensor] = None,
+        clip_image: Optional[torch.Tensor] = None,
+        byt5_mask: Optional[torch.Tensor] = None,
+        clip_mask: Optional[torch.Tensor] = None,
+        clip_image_mask: Optional[torch.Tensor] = None,
+        dropout_seed: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Logits (B, H, W, num_labels) of the JAX forward at fused_blocks=False
+        (paella_tpu/models/denoiser.py:344-506, 740-828), differentiable:
+        every ResBlock and TimestepBlock as JAX's XLA modules, plain attention,
+        the parameters cast to the compute dtype per call. dropout_seed None
+        is JAX's deterministic=True; an int turns on dropout at
+        `config.dropout[i]`, each block drawing its mask from a generator
+        seeded by (dropout_seed, the block's place), so a recomputation draws
+        the same mask. With `config.remat` (or `remat_levels[i]`) every
+        repetition >= 1 of a level is recomputed in the backward
+        (torch.utils.checkpoint), where JAX puts nn.remat(BlockGroup). A
+        float32 forward rounds as IEEE float32 (exact_f32); its backward runs
+        under the caller's TF32 flags.
+
+        Refuses what has no backward: an int8 model, and the kernel routes
+        attention_impl="pallas" (K5) and attn_block_kernel (K6). jax.grad
+        cannot differentiate JAX's Pallas attention, and at
+        deterministic=False JAX runs XLA attention in place of both; the
+        port does not swap plain attention in silently."""
+        cfg = self.config
+        if cfg.attention_impl == "pallas" or cfg.attn_block_kernel:
+            raise ValueError(
+                "forward_train: attention_impl='pallas' and attn_block_kernel=True select kernels K5 / K6, which "
+                "have no backward (nor do the JAX package's Pallas kernels); train with attention_impl='xla' and "
+                "attn_block_kernel=False, which hold the same parameters"
+            )
+        dt = cfg.compute_dtype
+        n = len(cfg.c_hidden)
+        p = cfg.patch_size
+        with exact_f32(dt):
+            r_embed = self.gen_r_embedding(r)
+            c_embed, cond_mask = self._gen_c_embeddings(byt5, clip, clip_image, byt5_mask, clip_mask, clip_image_mask)
+            emb = self.embedding[1]
+            h = layer_norm(self.in_mapper[0].weight[x.long()]).to(dt)
+            h = layer_norm(F.linear(space_to_depth(h, p), emb.weight[:, :, 0, 0].to(dt), emb.bias.to(dt)))
+
+            ctx = (r_embed, c_embed, cond_mask, dropout_seed)
+            level_outputs = []
+            for i in range(n):
+                blocks = self.down_blocks[i]
+                start = 0
+                if i > 0:
+                    h = blocks[0](h, train=True)
+                    start = 1
+                h = self._run_level_train(i, i, blocks, start, len(blocks), h, None, *ctx)
+                level_outputs.insert(0, h)
+
+            h = level_outputs[0]
+            for iu, i in enumerate(reversed(range(n))):
+                blocks = self.up_blocks[iu]
+                stop = len(blocks) - 1 if i > 0 else len(blocks)
+                skip = level_outputs[iu] if iu > 0 else None
+                h = self._run_level_train(n + iu, i, blocks, 0, stop, h, skip, *ctx)
+                if i > 0:
+                    h = blocks[stop](h, train=True)
+
+            clf = self.clf[1]
+            h = F.linear(layer_norm(h).to(dt), clf.weight[:, :, 0, 0].to(dt), clf.bias.to(dt))
+            h = layer_norm(depth_to_space(h, p))
+            return F.linear(h, self.out_mapper[1].weight[:, :, 0, 0].to(dt))
+
+    def _run_level_train(self, place, i, blocks, start, stop, h, skip, r_embed, c_embed, cond_mask, dropout_seed):
+        """Level i's blocks[start:stop], one repetition (len(level_config[i])
+        blocks) at a time; repetition 0 takes the skip. `place` numbers the
+        level's pass (down 0..n-1, up n..2n-1) for the dropout seeds."""
+        cfg = self.config
+        rate = cfg.dropout[i] if dropout_seed is not None else 0.0
+        period = len(cfg.level_config[i])
+
+        def run(h, j0, skip):
+            for j in range(j0, j0 + period):
+                blk = blocks[j]
+                gen = None
+                if rate > 0.0 and isinstance(blk, (ResBlock, AttnBlock, FeedForwardBlock)):
+                    seed = (dropout_seed * 1_000_003 + place * 4096 + j) % 2**63
+                    gen = torch.Generator(device=h.device).manual_seed(seed)
+                if isinstance(blk, ResBlock):
+                    h = blk.forward_train(h, skip if j == j0 else None, rate, gen)
+                elif isinstance(blk, TimestepBlock):
+                    h = blk(h, r_embed)
+                elif isinstance(blk, AttnBlock):
+                    h = blk.forward_train(h, c_embed, cond_mask, rate, gen)
+                else:
+                    h = blk(h, rate, gen)
+            return h
+
+        h = run(h, start, skip)
+        remat = cfg.remat if cfg.remat_levels is None else cfg.remat_levels[i]
+        for j0 in range(start + period, stop, period):
+            if remat:
+                h = checkpoint(run, h, j0, None, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = run(h, j0, None)
+        return h

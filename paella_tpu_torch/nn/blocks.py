@@ -6,9 +6,16 @@ Parameters keep the reference torch modules' names and layouts
 `strict=True`. Every block computes in its compute dtype; weights that a
 kernel or a matmul wants in another layout are derived once
 (:class:`DerivedWeights`) and never per call.
+
+The training route (`ResBlock.forward_train`, `AttnBlock.forward_train`,
+`train=True` on Downsample / Upsample, and the dropout arguments) is the
+JAX package's XLA modules at fused_blocks=False: no kernel, the parameters
+cast to the compute dtype on every call, so autograd reaches them (a derived
+weight is made under no_grad and would cut the gradient).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -88,6 +95,47 @@ class GlobalResponseNorm(nn.Module):
         return (self.gamma.float() * (x32 * nx) + self.beta.float() + x32).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout when training: each element kept with probability
+    1 - rate and scaled by 1 / (1 - rate), else 0; the identity at rate 0 or
+    without a generator."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _channelwise(mlp: nn.Sequential, h: torch.Tensor, dt, rate: float = 0.0, generator=None) -> torch.Tensor:
+    """The c -> 4c -> c MLP (the JAX ChannelwiseMLP) in dtype dt, weights cast
+    per call: fc1, exact GELU, GRN, dropout, fc2."""
+    fc1, grn, fc2 = mlp[0], mlp[2], mlp[4]
+    h = F.gelu(F.linear(h.to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
+    return F.linear(dropout(grn(h), rate, generator), fc2.weight.to(dt), fc2.bias.to(dt))
+
+
+def grouped_depthwise_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The JAX GroupedDepthwiseConv on NHWC x (B, H, W, c * cpg), weight
+    (c, cpg, 3, 3), bias (c,), all in one dtype, rounding where it rounds:
+    at cpg 1 nine shifted multiply-adds, at cpg 2 (the UNet skip: group g
+    reads concat channels 2g and 2g+1) one true depthwise conv per plane,
+    summed; then the bias."""
+    b, hh, ww, _ = x.shape
+    c, cpg = weight.shape[:2]
+    if cpg == 1:
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        out = torch.zeros_like(x)
+        for ky in range(3):
+            for kx in range(3):
+                out = out + xp[:, ky : ky + hh, kx : kx + ww, :] * weight[:, 0, ky, kx]
+        return out + bias
+    xg = x.reshape(b, hh, ww, c, cpg)
+    out = None
+    for j in range(cpg):
+        conv = F.conv2d(xg[..., j].permute(0, 3, 1, 2), weight[:, j : j + 1], padding=1, groups=c)
+        out = conv if out is None else out + conv
+    return out.permute(0, 2, 3, 1) + bias
+
+
 def _reset_channelwise(mlp: nn.Sequential, gen: torch.Generator, out_init_scale: float) -> None:
     """The c -> 4c -> c MLP of ResBlock and FeedForwardBlock: xavier fc
     weights, zero biases and GRN, fc2 scaled by out_init_scale."""
@@ -107,7 +155,8 @@ class ResBlock(DerivedWeights):
     one call of kernels/resblock.py::fused_resblock, which is what the JAX
     package's FusedResBlock does. With c_skip = c the UNet skip is
     channel-concatenated before the grouped depthwise conv (groups = c, so
-    group g reads concat channels 2g and 2g+1). Inference only.
+    group g reads concat channels 2g and 2g+1). `forward_train` is the
+    training route (JAX's XLA ResBlock, FiLM apart).
 
     `level` and `rep` place the block in the UNet (quant.quantize_paella_int8
     picks blocks by them). Once quantized, fc1 and fc2 (channelwise.0 and .4)
@@ -124,7 +173,7 @@ class ResBlock(DerivedWeights):
             nn.Linear(c, c * 4),
             nn.GELU(),
             GlobalResponseNorm(c * 4),
-            nn.Identity(),  # the reference's Dropout
+            nn.Identity(),  # the reference's Dropout: `dropout` when training
             nn.Linear(c * 4, c),
         )
 
@@ -173,6 +222,28 @@ class ResBlock(DerivedWeights):
             skip=None if skip is None else skip.to(dt).contiguous(),
         )
 
+    def forward_train(
+        self,
+        x: torch.Tensor,
+        skip: Optional[torch.Tensor] = None,
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The JAX XLA ResBlock (no FiLM: the TimestepBlock after it runs
+        apart): grouped depthwise conv, LN (eps 1e-6), the channelwise MLP
+        with dropout after GRN, the residual; differentiable. Int8 codes have
+        no meaning here, so a quantized block refuses, as JAX's does."""
+        if self.quantized:
+            raise ValueError(
+                f"ResBlock at level {self.level} holds int8 weights: the training route has no int8 path "
+                "(the JAX package refuses int8 codes off its fused kernel too)"
+            )
+        dt = self.dtype
+        x = x.to(dt)
+        h = x if skip is None else torch.cat([x, skip.to(dt)], dim=-1)
+        h = grouped_depthwise_conv(h, self.depthwise.weight.to(dt), self.depthwise.bias.to(dt))
+        return _channelwise(self.channelwise, layer_norm(h), dt, dropout_rate, generator) + x
+
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         from ..quant import check_int8_state
 
@@ -192,19 +263,15 @@ class FeedForwardBlock(nn.Module):
             nn.Linear(c, c * 4),
             nn.GELU(),
             GlobalResponseNorm(c * 4),
-            nn.Identity(),  # the reference's Dropout
+            nn.Identity(),  # the reference's Dropout: `dropout` when training
             nn.Linear(c * 4, c),
         )
 
     def reset_parameters(self, gen: torch.Generator, out_init_scale: float = 1.0) -> None:
         _reset_channelwise(self.channelwise, gen, out_init_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        fc1, grn, fc2 = self.channelwise[0], self.channelwise[2], self.channelwise[4]
-        h = F.gelu(F.linear(layer_norm(x).to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
-        h = F.linear(grn(h), fc2.weight.to(dt), fc2.bias.to(dt))
-        return x + h
+    def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return x + _channelwise(self.channelwise, layer_norm(x), self.dtype, dropout_rate, generator)
 
 
 class TimestepBlock(nn.Module):
@@ -299,7 +366,6 @@ class AttnBlock(DerivedWeights):
         cond_reweight: Optional[torch.Tensor] = None,
         kv: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        b, h, w, c = x.shape
         if kv is None:
             kv = self.map_cond(cond)
         kernel = self.kernel if cond_reweight is None else None
@@ -308,6 +374,24 @@ class AttnBlock(DerivedWeights):
             return fused_attn_block(
                 x.to(dt).contiguous(), kv.to(dt).contiguous(), self.kernel_weights(), self.nhead, cond_mask
             )
+        attention_fn = fused_attention if kernel == "attention" else dot_product_attention
+        return self._attend(x, kv, cond_mask, cond_reweight, attention_fn)
+
+    def forward_train(
+        self,
+        x: torch.Tensor,
+        cond: torch.Tensor,
+        cond_mask: Optional[torch.Tensor] = None,
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The JAX AttnBlock on its XLA attention, differentiable: kv mapped
+        per call, dropout on the attention probabilities."""
+        attention_fn = functools.partial(dot_product_attention, dropout_rate=dropout_rate, generator=generator)
+        return self._attend(x, self.map_cond(cond), cond_mask, None, attention_fn)
+
+    def _attend(self, x, kv, cond_mask, cond_reweight, attention_fn: Callable) -> torch.Tensor:
+        b, h, w, c = x.shape
         tokens = layer_norm(x).reshape(b, h * w, c)
         n_pix = h * w if self.self_attn else 0
         kv_full = torch.cat([tokens.to(kv.dtype), kv], dim=1) if self.self_attn else kv
@@ -320,7 +404,6 @@ class AttnBlock(DerivedWeights):
             cw = torch.broadcast_to(cond_reweight, (b, kv.shape[1]))
             pix_w = torch.ones((b, n_pix), dtype=cw.dtype, device=x.device)
             reweight = torch.cat([pix_w, cw], dim=-1)[:, None, None, :]
-        attention_fn = fused_attention if kernel == "attention" else dot_product_attention
         out = self.attention.attn(tokens, kv_full, kv_mask=kv_mask, reweight=reweight, attention_fn=attention_fn)
         return x + out.reshape(b, h, w, c).to(x.dtype)
 
@@ -345,15 +428,17 @@ class Downsample(DerivedWeights):
         init.xavier_uniform_(self.conv.weight, gen)
         init.zeros_(self.conv.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _mat(self) -> tuple:
         dt = self.dtype
-        w, bias = self.derived(
-            "mat",
-            lambda: (  # (c_out, [p, q, c_in])
-                self.conv.weight.permute(0, 2, 3, 1).reshape(self.conv.out_channels, -1).to(dt),
-                self.conv.bias.to(dt),
-            ),
+        return (  # (c_out, [p, q, c_in])
+            self.conv.weight.permute(0, 2, 3, 1).reshape(self.conv.out_channels, -1).to(dt),
+            self.conv.bias.to(dt),
         )
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """train=True casts the parameters per call (differentiable)."""
+        dt = self.dtype
+        w, bias = self._mat() if train else self.derived("mat", self._mat)
         b, hh, ww, c = x.shape
         x = layer_norm(x).to(dt)
         x = x.reshape(b, hh // 2, 2, ww // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
@@ -381,12 +466,14 @@ class Upsample(DerivedWeights):
         init.kaiming_uniform_leaky_(self.conv.weight, gen)
         init.torch_default_bias_(self.conv.bias, c_out * 2 * 2, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _mat(self) -> torch.Tensor:  # ([p, q, c_out], c_in)
+        return self.conv.weight.permute(2, 3, 1, 0).reshape(4 * self.conv.out_channels, -1).to(self.dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """train=True casts the parameters per call (differentiable)."""
         dt = self.dtype
         c_out = self.conv.out_channels
-        w = self.derived(  # ([p, q, c_out], c_in)
-            "mat", lambda: self.conv.weight.permute(2, 3, 1, 0).reshape(4 * c_out, -1).to(dt)
-        )
+        w = self._mat() if train else self.derived("mat", self._mat)
         b, hh, ww, _ = x.shape
         z = F.linear(layer_norm(x).to(dt), w).reshape(b, hh, ww, 2, 2, c_out)
         z = z.permute(0, 1, 3, 2, 4, 5).reshape(b, hh * 2, ww * 2, c_out)

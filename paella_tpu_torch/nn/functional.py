@@ -2,10 +2,36 @@
 the counterparts of `paella_tpu/nn/functional.py`."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def exact_f32(dtype: torch.dtype):
+    """Inside, float32 convolutions (cuDNN) and float32 products (cuBLAS)
+    round as IEEE float32, not as TF32, and cuDNN takes deterministic
+    algorithms, whatever the process-wide flags say; the caller's flags are
+    back as they were on exit. Other compute dtypes run under the caller's
+    flags unchanged. The JAX package's f32 forwards (the codec, the
+    Inception featurizer) are IEEE f32, and so are the port's plain versions
+    on the CPU. Deterministic, because cuDNN's default transposed
+    convolution adds in an order that changes from call to call (two calls
+    of an f32 VQConfig() decode on an H100 differ by up to 7e-7), so without
+    it no two decodes could be compared bit for bit."""
+    if dtype != torch.float32:
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = before
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

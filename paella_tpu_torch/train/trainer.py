@@ -1,0 +1,303 @@
+"""Training: masked-token cross-entropy on the denoiser's training forward,
+the counterpart of `paella_tpu/train/trainer.py` (reference:
+src_distributed/train.py:33-189).
+
+One step (`make_train_step`): per microbatch, conditioning dropout per
+example, t ~ (t_min, 1], the frozen codec's encode (its nearest-code search
+is kernel K4 on the card), Bernoulli(t) noising, `Paella.forward_train`, the
+label-smoothed weighted cross-entropy and its backward; gradients averaged
+over `grad_accum_steps` microbatches; then one `AdamW` update. The JAX step
+takes a key and splits it; here every draw of a microbatch (`Draws`) can be
+pinned from outside, and what is not pinned comes from the state's
+`torch.Generator`, so a test can feed the JAX package's draws to this step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import TrainConfig
+from ..models.noise import add_noise, get_loss_weight
+
+
+@dataclasses.dataclass
+class Batch:
+    """One training batch: images (B, H, W, 3) in [0, 1], NHWC, and the
+    frozen encoders' conditioning; byt5_mask marks real (non-pad) tokens."""
+
+    images: torch.Tensor
+    byt5: torch.Tensor
+    byt5_mask: torch.Tensor
+    clip: torch.Tensor
+    clip_image: torch.Tensor
+
+    def split(self, n: int) -> List["Batch"]:
+        """n microbatches along the batch axis, in order."""
+        fields = (getattr(self, f.name) for f in dataclasses.fields(self))
+        return [Batch(*parts) for parts in zip(*(t.chunk(n) for t in fields))]
+
+
+@dataclasses.dataclass
+class NullCond:
+    """The frozen encoders' embeddings of "" that conditioning dropout swaps
+    in: byt5 (1, S0, D), byt5_mask (1, S0), clip (1, C)."""
+
+    byt5: torch.Tensor
+    byt5_mask: torch.Tensor
+    clip: torch.Tensor
+
+
+@dataclasses.dataclass
+class Draws:
+    """The random draws of one microbatch's loss. A field left None is drawn
+    from the step's generator, in this order: the three dropout coins, u, the
+    noise mask, the noise ids, the dropout seed."""
+
+    drop_byt5: Optional[torch.Tensor] = None  # (B,) bool: swap in the null ByT5 states
+    drop_clip: Optional[torch.Tensor] = None  # (B,) bool: swap in the null CLIP text embedding
+    drop_image: Optional[torch.Tensor] = None  # (B,) bool: mask the CLIP image tokens off
+    u: Optional[torch.Tensor] = None  # (B,) U[0, 1): t = clip(1 - u + t_min, t_min, 1)
+    noise_mask: Optional[torch.Tensor] = None  # (B, h, w) int, 1 = token replaced
+    random_x: Optional[torch.Tensor] = None  # (B, h, w) replacement ids
+    dropout_seed: Optional[int] = None  # Paella.forward_train's dropout seed
+
+
+class _SmoothedWeightedCE(torch.autograd.Function):
+    """The loss of `smoothed_weighted_ce`. Its backward recomputes the
+    softmax from the saved logits and log-sum-exp, one image at a time, so
+    the only float32 tensor it keeps is (B, H, W), never (B, H, W, K): what
+    jax.checkpoint buys the JAX loss."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, weight, smoothing: float):
+        lse = torch.empty(labels.shape, dtype=torch.float32, device=logits.device)
+        loss = torch.empty_like(lse)
+        for i in range(logits.shape[0]):
+            x = logits[i].float()
+            lse[i] = torch.logsumexp(x, dim=-1)
+            nll = lse[i] - x.gather(-1, labels[i, ..., None])[..., 0]
+            loss[i] = (1.0 - smoothing) * nll + smoothing * (lse[i] - x.mean(dim=-1))
+        per_image = (loss * weight).sum(dim=(1, 2)) / weight.sum(dim=(1, 2))
+        ctx.save_for_backward(logits, labels, weight, lse)
+        ctx.smoothing = smoothing
+        return per_image.mean()
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        logits, labels, weight, lse = ctx.saved_tensors
+        s, b, k = ctx.smoothing, logits.shape[0], logits.shape[-1]
+        # d loss / d x_k = coef * (softmax_k - (1 - s) [k = label] - s / K)
+        coef = grad_out * weight / weight.sum(dim=(1, 2), keepdim=True) / b
+        grad = torch.empty_like(logits)
+        for i in range(b):
+            g = torch.exp(logits[i].float() - lse[i, ..., None]) - s / k
+            g.scatter_add_(-1, labels[i, ..., None], torch.full_like(lse[i, ..., None], -(1.0 - s)))
+            grad[i] = g * coef[i, ..., None]
+        return grad, None, None, None
+
+
+def smoothed_weighted_ce(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor, smoothing: float) -> torch.Tensor:
+    """CrossEntropyLoss(label_smoothing, reduction='none') over logits
+    (B, H, W, K) in float32, normalized per image by its weights and averaged
+    over images: ((loss * w).sum(H, W) / w.sum(H, W)).mean() (reference:
+    src_distributed/train.py:106-107), in logsumexp form with no one-hot."""
+    return _SmoothedWeightedCE.apply(logits, labels.long(), weight.float(), float(smoothing))
+
+
+def _coin(p: float, b: int, generator, device) -> torch.Tensor:
+    return torch.rand(b, generator=generator, device=device) < p
+
+
+def apply_cond_dropout(cfg: TrainConfig, batch: Batch, null: NullCond, draws: Draws, generator=None):
+    """Per-example conditioning dropout (reference: src_distributed/train.py:79-97):
+    the null ByT5 states (padded or cut to S) at byt5_drop_prob, the null
+    CLIP text embedding at clip_text_drop_prob, the CLIP image tokens masked
+    off at clip_image_drop_prob. Fills the coins of `draws` that are None.
+    Returns (byt5, byt5_mask, clip, clip_image, clip_image_mask)."""
+    b, dev = batch.images.shape[0], batch.images.device
+    if draws.drop_byt5 is None:
+        draws.drop_byt5 = _coin(cfg.byt5_drop_prob, b, generator, dev)
+    if draws.drop_clip is None:
+        draws.drop_clip = _coin(cfg.clip_text_drop_prob, b, generator, dev)
+    if draws.drop_image is None:
+        draws.drop_image = _coin(cfg.clip_image_drop_prob, b, generator, dev)
+    s, s0 = batch.byt5.shape[1], null.byt5.shape[1]
+    pad = max(0, s - s0)
+    null_byt5 = F.pad(null.byt5, (0, 0, 0, pad))[:, :s].to(batch.byt5.dtype)
+    null_mask = F.pad(null.byt5_mask, (0, pad))[:, :s]
+    byt5 = torch.where(draws.drop_byt5[:, None, None], null_byt5, batch.byt5)
+    byt5_mask = torch.where(draws.drop_byt5[:, None], null_mask, batch.byt5_mask)
+    clip = torch.where(draws.drop_clip[:, None], null.clip.to(batch.clip.dtype), batch.clip)
+    return byt5, byt5_mask, clip, batch.clip_image, ~draws.drop_image
+
+
+def loss_fn(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, draws: Optional[Draws] = None,
+            generator: Optional[torch.Generator] = None):
+    """(loss, acc) of one microbatch, differentiable in the denoiser's
+    parameters. The coins, u and the dropout seed that `draws` did not pin
+    are drawn and written into it."""
+    draws = Draws() if draws is None else draws
+    b, dev = batch.images.shape[0], batch.images.device
+    byt5, byt5_mask, clip, clip_image, clip_image_mask = apply_cond_dropout(cfg, batch, null, draws, generator)
+    if draws.u is None:
+        draws.u = torch.rand(b, generator=generator, device=dev)
+    t = torch.clamp(1.0 - draws.u + cfg.t_min, cfg.t_min, 1.0)  # reference: src_distributed/train.py:99
+    latents = vq_model.encode(batch.images)[2]  # frozen: encode runs under no_grad
+    noised, mask = add_noise(latents, t, model.config.num_labels, generator, draws.noise_mask, draws.random_x)
+    weight = get_loss_weight(t, mask, cfg.loss_weight_min)
+    if draws.dropout_seed is None:
+        draws.dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
+    logits = model.forward_train(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask,
+                                 clip_image_mask=clip_image_mask, dropout_seed=draws.dropout_seed)
+    loss = smoothed_weighted_ce(logits, latents, weight, cfg.label_smoothing)
+    acc = (logits.argmax(dim=-1) == latents).float().mean()
+    return loss, acc
+
+
+class AdamW(torch.optim.Optimizer):
+    """The JAX package's `make_optimizer` as one torch optimizer, update for
+    update optax's chain: clip_by_global_norm(grad_clip), then Adam (b1 0.9,
+    b2 0.999, eps 1e-8 outside the square root, bias correction from the
+    int count of applied updates), then decoupled weight decay 0.01 on every
+    parameter, then -lr(count) with optax.linear_schedule(0, lr,
+    warmup_updates): the first update has lr 0. Both moments are stored in
+    `adam_moment_dtype`, the math is float32. Under skip_nonfinite_updates a
+    step whose gradients are not all finite changes nothing, not even the
+    count (optax.apply_if_finite), and `nonfinite_skips` counts it.
+
+    `torch.optim.AdamW` cannot store bf16 moments with f32 math, nor skip a
+    non-finite step. The count and skips live in each parameter group, so
+    `state_dict()` carries them."""
+
+    B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01
+
+    def __init__(self, params, cfg: TrainConfig):
+        super().__init__(params, dict(count=0, nonfinite_skips=0))
+        self.cfg = cfg
+        self.moment_dtype = getattr(torch, cfg.adam_moment_dtype)
+
+    @property
+    def count(self) -> int:
+        return self.param_groups[0]["count"]
+
+    @property
+    def nonfinite_skips(self) -> int:
+        return self.param_groups[0]["nonfinite_skips"]
+
+    def learning_rate(self, count: int) -> float:
+        """optax.linear_schedule(0, lr, warmup_updates)(count), computed in
+        float32 as optax computes it."""
+        w = self.cfg.warmup_updates
+        if w <= 0:  # optax: a constant schedule at its initial value
+            return 0.0
+        f32 = np.float32
+        frac = f32(1) - f32(min(max(count, 0), w)) / f32(w)
+        return float(f32(0.0 - self.cfg.lr) * frac + f32(self.cfg.lr))
+
+    @torch.no_grad()
+    def step(self, closure=None) -> dict:
+        """One update from the parameters' .grad (None counts as zeros), in
+        multi-tensor (`torch._foreach_*`) ops: a few launches for all
+        parameters. Returns {"grad_norm": the gradients' global norm before
+        clipping, "skipped": bool}."""
+        cfg = self.cfg
+        params = [p for g in self.param_groups for p in g["params"]]
+        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32) for p in params]
+        norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+        if cfg.skip_nonfinite_updates:
+            peak = torch.stack(torch._foreach_norm(grads, float("inf")))  # NaN or inf where a gradient is
+            if not bool(torch.isfinite(peak).all()):
+                for group in self.param_groups:
+                    group["nonfinite_skips"] += 1
+                return {"grad_norm": norm, "skipped": True}
+        if not bool(norm < cfg.grad_clip):  # optax: g / norm * max_norm
+            grads = torch._foreach_div(grads, norm)
+            torch._foreach_mul_(grads, cfg.grad_clip)
+        count = self.count + 1
+        f32 = np.float32
+        c1, c2 = float(f32(1) - f32(self.B1) ** count), float(f32(1) - f32(self.B2) ** count)
+        for p in params:
+            if not self.state[p]:
+                self.state[p]["mu"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                self.state[p]["nu"] = torch.zeros_like(p, dtype=self.moment_dtype)
+        stored = [self.state[p]["mu"] for p in params], [self.state[p]["nu"] for p in params]
+        mu, nu = ([t.float() for t in ts] for ts in stored)  # no copy where the moments are float32
+        torch._foreach_mul_(mu, self.B1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
+        torch._foreach_mul_(nu, self.B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.B2)
+        del grads
+        den = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.EPS)
+        upd = torch._foreach_div(mu, c1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(upd, [p.float() for p in params], alpha=self.WEIGHT_DECAY)
+        torch._foreach_mul_(upd, -self.learning_rate(self.count))
+        torch._foreach_add_(params, upd)
+        if self.moment_dtype != torch.float32:
+            torch._foreach_copy_(stored[0], mu)
+            torch._foreach_copy_(stored[1], nu)
+        for group in self.param_groups:
+            group["count"] = count
+        return {"grad_norm": norm, "skipped": False}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The optimizer over the denoiser's parameters, the number of steps
+    taken (skipped ones included, as the JAX TrainState counts them) and the
+    generator of the draws that are not pinned."""
+
+    optimizer: AdamW
+    generator: torch.Generator
+    step: int = 0
+
+
+def create_train_state(model, cfg: TrainConfig, generator: Optional[torch.Generator] = None) -> TrainState:
+    """AdamW over every parameter of `model`; the draws from `generator`,
+    by default one on the model's device seeded with cfg.seed."""
+    if generator is None:
+        generator = torch.Generator(device=next(model.parameters()).device).manual_seed(cfg.seed)
+    return TrainState(AdamW(model.parameters(), cfg), generator)
+
+
+def make_train_step(model, vq_model, cfg: TrainConfig):
+    """train_step(state, batch, null, draws=None) -> metrics: one optimizer
+    update from grad_accum_steps microbatches (the batch split along its
+    first axis), in place on the model and `state`. `draws` is one `Draws`
+    per microbatch, or None to draw everything.
+    Metrics: loss, acc (microbatch means), grad_norm (the averaged
+    gradients' global norm before clipping) and, under
+    skip_nonfinite_updates, nonfinite_skips."""
+    n = max(1, cfg.grad_accum_steps)
+
+    def train_step(state: TrainState, batch: Batch, null: NullCond, draws: Optional[Sequence[Draws]] = None) -> dict:
+        draws = [Draws() for _ in range(n)] if draws is None else list(draws)
+        if len(draws) != n:
+            raise ValueError(f"train_step: {len(draws)} Draws for {n} microbatches")
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            p.grad = None
+        loss = acc = 0.0
+        for mb, d in zip(batch.split(n) if n > 1 else [batch], draws):
+            mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator)
+            mb_loss.backward()
+            loss, acc = loss + mb_loss.detach(), acc + mb_acc
+        if n > 1:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(n)
+            loss, acc = loss / n, acc / n
+        out = state.optimizer.step()
+        state.step += 1
+        metrics = {"loss": loss, "acc": acc, "grad_norm": out["grad_norm"]}
+        if cfg.skip_nonfinite_updates:
+            metrics["nonfinite_skips"] = state.optimizer.nonfinite_skips
+        return metrics
+
+    return train_step

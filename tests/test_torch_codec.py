@@ -133,3 +133,45 @@ def test_encoder_init_follows_jax():
     assert not norm.bias.any() and not norm.running_mean.any()
     assert vq.vquantizer.codebook.weight.abs().max() <= 1.0 / cfg.codebook_size
     assert not vq.down_blocks[0].gammas.any()
+
+
+@pytest.mark.parametrize("caller_tf32", [False, True])
+def test_f32_forwards_pin_ieee_and_leave_the_flags(codec, monkeypatch, caller_tf32):
+    """Fault C5: the float32 encoder, decoder and Inception featurizer run
+    every convolution and product with cuDNN's and cuBLAS's TF32 off and
+    cuDNN's deterministic algorithms, whatever the caller set, and the
+    caller's flags are as they were after each call. (On the CPU the flags change nothing; on the card
+    tests/test_torch_cuda.py::test_f32_decode_ignores_the_callers_tf32 holds
+    the decode bit-equal under both settings.)"""
+    from paella_tpu_torch.eval import convert_inception, inception_features
+    from tests.test_inception import synth_inception_state_dict
+
+    F = torch.nn.functional
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args, **kwargs):
+            seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.deterministic))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name in ("conv2d", "conv_transpose2d", "linear"):
+        monkeypatch.setattr(F, name, spy(getattr(F, name)))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = caller_tf32
+    torch.backends.cudnn.deterministic = False
+    try:
+        vq, _, _ = codec
+        extract = inception_features(convert_inception(synth_inception_state_dict()))
+        for call in (lambda: vq.encode(torch.from_numpy(images(b=1))),
+                     lambda: vq.decode_indices(torch.zeros(1, 4, 4, dtype=torch.int32)),
+                     lambda: extract(torch.rand(1, 16, 16, 3, generator=torch.Generator().manual_seed(0)))):
+            seen.clear()
+            call()
+            assert seen and all(s == (False, False, True) for s in seen), seen
+            assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.deterministic) == (caller_tf32, caller_tf32, False)
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags

@@ -1066,3 +1066,30 @@ def test_graph_replay_equals_eager_at_the_flagship(cuda, impl):
     del model
     graph.clear()
     torch.cuda.empty_cache()
+
+
+def test_f32_decode_ignores_the_callers_tf32(cuda):
+    """Fault C5: an f32 VQConfig.tiny() decode (and encode) is bit-equal
+    with the caller's TF32 on and off: the codec pins IEEE float32 itself
+    (nn/functional.py::exact_f32), and leaves the caller's flags as set."""
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import VQConfig
+
+    with torch.device(cuda):
+        vq = VQModel(VQConfig.tiny())
+    vq.reset_parameters(torch.Generator(device=cuda).manual_seed(60))
+    with torch.no_grad():
+        for p in vq.parameters():
+            p.add_(torch.randn(p.shape, generator=torch.Generator(device=cuda).manual_seed(61), device=cuda) * 0.1)
+    idx = torch.randint(0, 128, (2, 16, 16), generator=torch.Generator(device=cuda).manual_seed(62), device=cuda)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    outs = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            image = vq.decode_indices(idx)
+            outs.append((image, vq.encode(image)[1]))
+            assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (tf32, tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

@@ -223,3 +223,47 @@ def test_global_response_norm_matches_jax():
     grn = GlobalResponseNorm(16)
     grn.load_state_dict({"gamma": torch.from_numpy(gamma).reshape(1, 1, 1, -1), "beta": torch.from_numpy(beta).reshape(1, 1, 1, -1)})
     np.testing.assert_allclose(grn(torch.from_numpy(x)).detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("skip", [False, True])
+def test_training_resblock_matches_jax_xla_resblock(dtype, skip):
+    """ResBlock.forward_train against the JAX package's XLA ResBlock
+    (fused_blocks=False: grouped depthwise conv, LN, the channelwise MLP, the
+    residual), with the UNet skip's channel pairs (2g, 2g+1) per group, and
+    its input gradient against jax.grad: f32 to 1e-5, bf16 (rounding at
+    JAX's points: the nine-tap depthwise chain, the per-plane convs) within
+    1.5% of the largest output and input gradient."""
+    from paella_tpu.nn.blocks import ResBlock as JaxResBlock
+    from paella_tpu_torch.nn.blocks import ResBlock
+
+    c = 16
+    blk = ResBlock(c, c if skip else 0, dtype=getattr(torch, dtype))
+    with torch.no_grad():
+        blk.reset_parameters(torch.Generator().manual_seed(0))
+    sd = perturbed_state_dict(blk, 1, scale=0.2)
+    params = {
+        "depthwise": {"kernel": sd["depthwise.weight"].transpose(2, 3, 1, 0), "bias": sd["depthwise.bias"]},
+        "channelwise": {"fc1": {"kernel": sd["channelwise.0.weight"].T, "bias": sd["channelwise.0.bias"]},
+                        "grn": {"gamma": sd["channelwise.2.gamma"].reshape(-1), "beta": sd["channelwise.2.beta"].reshape(-1)},
+                        "fc2": {"kernel": sd["channelwise.4.weight"].T, "bias": sd["channelwise.4.bias"]}},
+    }
+    rng = np.random.default_rng(2)
+    x, s = (rng.standard_normal((2, 6, 6, c)).astype(np.float32) for _ in range(2))
+    jdt = jnp.dtype(dtype)
+    jblk = JaxResBlock(c, c_skip=c if skip else 0, dtype=jdt)
+
+    def f(x):
+        out = jblk.apply({"params": params}, x.astype(jdt), jnp.asarray(s).astype(jdt) if skip else None)
+        return out.astype(jnp.float32)
+
+    want, vjp = jax.vjp(f, jnp.asarray(x))
+    probe = rng.standard_normal(want.shape).astype(np.float32)
+    want_dx = np.asarray(vjp(jnp.asarray(probe))[0])
+    tx = torch.from_numpy(x).requires_grad_()
+    got = blk.forward_train(tx, torch.from_numpy(s) if skip else None).float()
+    (got * torch.from_numpy(probe)).sum().backward()
+    tol = 1e-5 if dtype == "float32" else 0.015
+    want = np.asarray(want)
+    assert np.abs(got.detach().numpy() - want).max() <= tol * np.abs(want).max()
+    assert np.abs(tx.grad.numpy() - want_dx).max() <= tol * np.abs(want_dx).max()
