@@ -116,6 +116,25 @@ limit):
                step's latents vs plain, a step's FLOPs (torch.utils.
                flop_counter) and MFU; then PaellaConfig.tiny() two steps card
                vs CPU on pinned draws (loss, grad_norm, updated parameters)
+ 17. driver    train/driver.py::run_training at phase 16's "1b" configuration
+               (bf16 Adam moments), batch 8 at 256x256, the hash encoders of
+               make_synthetic_encode_fn at ByT5-XL / CLIP widths, data through
+               WebDatasetLoader over JPEG tar shards (SyntheticDataset where
+               PIL or a JPEG decoder is missing, printed as such): 4 steps,
+               eval_every 2 (two checkpoints, two eval grids), then fresh
+               objects resume from the step-2 checkpoint to step 4; step ms
+               and images/s beside phase 16's, checkpoint bytes and save /
+               restore seconds, eval-grid seconds, K1 / K3 / K4 launches, peak
+               memory; the step-4 grid's tokens equal a fresh model's loaded
+               from the step-4 checkpoint (fault C6), K4 on step 4's latents
+               vs plain, the resumed run within two Adam steps of the
+               uninterrupted one
+ 18. codec     codec/trainer.py at VQConfig() in f32 with the default
+               Discriminator, batch 8 at 256x256: 5 steps (step ms, images/s,
+               peak memory, losses, codes used and revived), K4 once a step,
+               K4 on the batch's latents vs plain
+ 19. ddp       parallel/ at world size 1 on NCCL: one DDP train step of
+               PaellaConfig.tiny() bit for bit the same step without DDP
 Generations run as captured CUDA graphs (sampling/graph.py): a counted
 generation captures its graph, so its wrappers count the warm-up's and the
 capture's launches (GRAPH_PASSES x one generation's), and the kernels of one
@@ -2337,6 +2356,345 @@ def phase_train(tag: str) -> dict:
             "profile_ms": {k: v[0] / 1e3 for k, v in groups.items()}, "busy": busy / wall}
 
 
+DRIVER_STEPS, DRIVER_EVAL_EVERY, DRIVER_BATCH, DRIVER_SHARDS, DRIVER_PER_SHARD = 4, 2, 8, 2, 16
+
+
+def driver_data(d: str):
+    """(the data iterable, what it is): WebDatasetLoader over JPEG tar shards
+    written by write_tar_shard where PIL (to encode them) and a JPEG decoder
+    are present, else SyntheticDataset; both at 256x256, batch 8, seeded."""
+    import numpy as np
+
+    from paella_tpu_torch.data import SampleFilter, SyntheticDataset, WebDatasetLoader, jpeg_decoder, write_tar_shard
+
+    decoder = jpeg_decoder()
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is None or decoder == "none":
+        return (SyntheticDataset(batch_size=DRIVER_BATCH, image_size=TRAIN_HW, seed=0),
+                f"SyntheticDataset (JPEG decoder here: {decoder}; PIL {'absent' if Image is None else 'present'}, "
+                "so no JPEG shard can be written or read)")
+    import io
+
+    rng = np.random.default_rng(0)
+    meta = json.dumps({"original_width": 512, "original_height": 512, "pwatermark": 0.1, "aesthetic": 6.0,
+                       "punsafe": 0.0}).encode()
+    paths = []
+    for s in range(DRIVER_SHARDS):
+        samples = []
+        for i in range(DRIVER_PER_SHARD):
+            img = np.kron(rng.uniform(0, 255, (8, 8, 3)), np.ones((40, 40, 1))).astype(np.uint8)  # 320x320
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=92)
+            samples.append((f"{s:04d}{i:06d}", {"jpg": buf.getvalue(), "txt": f"a photo of thing {s}.{i}".encode(),
+                                                "json": meta}))
+        paths.append(os.path.join(d, f"shard-{s:04d}.tar"))
+        write_tar_shard(paths[-1], samples)
+    loader = WebDatasetLoader(paths, batch_size=DRIVER_BATCH, image_size=TRAIN_HW, shuffle_buffer=8,
+                              filter=SampleFilter(min_size=256), num_workers=4, shard_offset=0, shard_stride=1)
+    return loader, f"WebDatasetLoader over {len(paths)} JPEG tar shards of {DRIVER_PER_SHARD} (decoder: {decoder})"
+
+
+def driver_launches(steps: int, grids: int) -> dict:
+    """The kernel launches of a run_training call at the flagship's depth:
+    K4 once a train step and twice an eval grid (the diagnostic encode and
+    the reconstruction's lookup); per grid K1 in the diagnostic forward and,
+    with K3, in two 8-step CFG generations, each captured as a graph
+    (GRAPH_PASSES passes through the wrappers); nothing else."""
+    generations = grids * 2 * GRAPH_PASSES * STEPS
+    return {"fused_codebook_lookup": steps + 2 * grids, "fused_resblock": grids * K1_PER_FORWARD + generations * K1_PER_FORWARD,
+            "gumbel_categorical": generations, "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0}
+
+
+def jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_driver(tag: str, bare_step_ms: float) -> dict:
+    """The training driver (train/driver.py::run_training) at the JAX
+    package's "1b" training configuration (phase 16's: v1_byt5_xl in bf16
+    with remat and dropout 0.1, the frozen bf16 VQConfig() codec), bf16 Adam
+    moments, batch 8 at 256x256, make_synthetic_encode_fn at the ByT5-XL /
+    CLIP widths (77 ByT5 tokens): 4 steps with eval_every=2 (two checkpoints,
+    two eval grids of 8-step sampling), then a fresh model and state resume
+    from the step-2 checkpoint (in a workdir of their own) and run to step 4
+    on the same data stream. Checks: the eval grid's sampled tokens at step
+    4 equal a fresh model's loaded from the step-4 checkpoint (fault C6 on
+    the card), K4 on step 4's latents equals its plain version, and the
+    resumed run ends within two Adam steps of the uninterrupted one."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, TrainConfig, VQConfig
+    from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.train import CheckpointManager, DriverConfig, make_synthetic_encode_fn, run_training
+    from paella_tpu_torch.train.driver import _eval_grid
+
+    root = tempfile.mkdtemp(prefix="paella_driver_")
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(60)
+        p_cfg = dataclasses.replace(PaellaConfig.v1_byt5_xl(), dtype="bfloat16", remat=True)
+        with torch.device("cuda"):
+            model = Paella(p_cfg)
+            vq = VQModel(dataclasses.replace(VQConfig(), dtype="bfloat16"))
+        model.reset_parameters(gen)
+        perturb_(model, gen)
+        vq.reset_parameters(gen)
+        perturb_(vq, gen)
+        init = {k: v.detach().clone() for k, v in model.named_parameters()}
+        enc, null = make_synthetic_encode_fn(p_cfg.byt5_embd, p_cfg.clip_embd, seq_len=TRAIN_BYT5_LEN, device="cuda")
+        data, data_text = driver_data(root)
+        t_cfg = TrainConfig(warmup_updates=1, adam_moment_dtype="bfloat16")
+        d_cfg = DriverConfig(workdir=os.path.join(root, "run"), total_steps=DRIVER_STEPS, log_every=1,
+                             eval_every=DRIVER_EVAL_EVERY, eval_steps=STEPS)
+        print(f"[driver] '1b' config, bf16 Adam moments, batch {DRIVER_BATCH} at {TRAIN_HW}x{TRAIN_HW}; data: {data_text}; "
+              f"run_training for {DRIVER_STEPS} steps, eval_every {DRIVER_EVAL_EVERY} ({tag})", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, launches = counted(lambda: run_training(model, vq, iter(data), enc, null, t_cfg, d_cfg))
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(state.step == DRIVER_STEPS and state.optimizer.count == DRIVER_STEPS, f"driver ended at step {state.step}")
+        recs = jsonl(os.path.join(d_cfg.workdir, "metrics.jsonl"))
+        steps = {r["step"]: r for r in recs if "loss" in r}
+        check(sorted(steps) == list(range(1, DRIVER_STEPS + 1)), f"logged steps {sorted(steps)}")
+        check(all(math.isfinite(r["loss"]) and r["nonfinite_skips"] == 0 for r in steps.values()), f"steps {steps}")
+        step_ms = [(steps[2]["time"] - steps[1]["time"]) * 1e3, (steps[4]["time"] - steps[3]["time"]) * 1e3]
+        ckpt_s = [r["checkpoint_s"] for r in recs if "checkpoint_s" in r]
+        eval_s = [r["eval_s"] for r in recs if "eval_s" in r]
+        ckpt = CheckpointManager(os.path.join(d_cfg.workdir, "checkpoints"))
+        check(ckpt.all_steps() == [2, 4] and len(ckpt_s) == 2 and len(eval_s) == 2,
+              f"checkpoints {ckpt.all_steps()}, saves {ckpt_s}, eval grids {eval_s}")
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt.directory, "4", "state.pt"))
+        k = {n: launches[n] for n in ("fused_resblock", "gumbel_categorical", "fused_codebook_lookup",
+                                      "fused_head_categorical", "fused_attention", "fused_attn_block")}
+        check_launches("driver", k, driver_launches(DRIVER_STEPS, DRIVER_STEPS // DRIVER_EVAL_EVERY))
+        check(k["fused_head_categorical"] == k["fused_attention"] == k["fused_attn_block"] == 0, f"off-path kernels ran {k}")
+        print(f"[driver] {DRIVER_STEPS} steps + 2 saves + 2 eval grids in {run_s:.1f} s: step 2 {step_ms[0]:.1f} ms, step 4 "
+              f"{step_ms[1]:.1f} ms ({DRIVER_BATCH * 1e3 / step_ms[1]:.2f} images/s; phase 16's bare step "
+              f"{bare_step_ms:.1f} ms, {DRIVER_BATCH * 1e3 / bare_step_ms:.2f} images/s); loss "
+              f"{[round(steps[s]['loss'], 4) for s in sorted(steps)]}; checkpoint {ckpt_bytes / 1e9:.2f} GB, saved in "
+              f"{', '.join(f'{s:.1f}' for s in ckpt_s)} s; eval grid {', '.join(f'{s:.1f}' for s in eval_s)} s; launches "
+              f"K1 {k['fused_resblock']}, K3 {k['gumbel_categorical']}, K4 {k['fused_codebook_lookup']}; peak memory "
+              f"{peak / 2**30:.2f} GiB ({tag})", flush=True)
+
+        # C6 on the card: the step-4 grid's tokens against a fresh model loaded from the step-4 checkpoint
+        grid = np.load(os.path.join(d_cfg.workdir, f"eval_{DRIVER_STEPS:07d}.npz"))
+        with torch.device("cuda"):
+            fresh = Paella(p_cfg)
+        fresh.load_state_dict(ckpt.restore(None, DRIVER_STEPS)[0]["model"])
+        check(all(torch.equal(a, b) for a, b in zip(fresh.state_dict().values(), model.state_dict().values())),
+              "the step-4 checkpoint holds other parameters than the trained model")
+        os.makedirs(os.path.join(root, "check"))
+        _eval_grid(fresh, vq, enc, d_cfg, DRIVER_STEPS, os.path.join(root, "check"),
+                   images=grid["orig"].astype(np.float32) / 255.0, captions=list(grid["captions"]))
+        again = np.load(os.path.join(root, "check", f"eval_{DRIVER_STEPS:07d}.npz"))
+        same = [float((again[n] == grid[n]).mean()) for n in ("tokens", "tokens_noimg")]
+        moved = sum(not torch.equal(v, init[n]) for n, v in model.named_parameters())
+        print(f"[driver] C6: the step-4 eval grid's sampled tokens against a fresh model loaded from the step-4 "
+              f"checkpoint: equal shares {same[0]:.6f} (with the image conditioning) and {same[1]:.6f} (without) "
+              f"(want 1.0); {moved} of {len(init)} tensors moved by training ({tag})", flush=True)
+        check(same == [1.0, 1.0], f"C6: the trained model's eval tokens differ from a freshly loaded model's: {same}")
+        check(moved > 0.9 * len(init), f"only {moved} tensors moved")
+        del fresh, init
+
+        # prefetch_to_device: the stream's first 6 batches through pinned memory and the side stream, each
+        # read on the compute stream as soon as it is yielded
+        from paella_tpu_torch.data import prefetch_to_device
+
+        host = list(itertools.islice(iter(data), 6))
+        t0 = time.perf_counter()
+        got = [t.clone() for t, _ in prefetch_to_device(iter(host), size=3)]
+        torch.cuda.synchronize()
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        pf_ok = all(torch.equal(g.cpu(), torch.from_numpy(h)) for g, (h, _) in zip(got, host))
+        print(f"[driver] prefetch_to_device: {len(host)} batches {host[0][0].shape} f32 through pinned memory and a "
+              f"side stream in {pf_ms:.1f} ms, each cloned on the compute stream as yielded: "
+              f"{'bit for bit' if pf_ok else 'NOT equal to'} the host batches ({tag})", flush=True)
+        check(pf_ok, "prefetch_to_device gave other values than the host batches")
+
+        # K4 on step 4's latents (item 4 of the stream: steps 1, 2, the step-2 eval batch, step 3, step 4)
+        images4, captions4 = next(itertools.islice(iter(data), 4, None))
+        z = vq.encoder(torch.from_numpy(images4).cuda()).contiguous()
+        cb = vq.vquantizer.codebook.weight.detach().float().contiguous()
+        agree = (fused_codebook_lookup(z, cb) == codebook_lookup_plain(z, cb)).float().mean().item()
+        check(agree == 1.0, f"K4 on step 4's latents agrees {agree} with its plain version")
+
+        # resume: fresh objects from the step-2 checkpoint, the same data stream from item 3 on
+        final = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        del state, model
+        torch.cuda.empty_cache()
+        with torch.device("cuda"):
+            resumed = Paella(p_cfg)
+        resumed.reset_parameters(torch.Generator(device="cuda").manual_seed(61))
+        r_cfg = dataclasses.replace(d_cfg, workdir=os.path.join(root, "resumed"))
+        os.makedirs(os.path.join(r_cfg.workdir, "checkpoints", "2"))
+        os.link(os.path.join(ckpt.directory, "2", "state.pt"), os.path.join(r_cfg.workdir, "checkpoints", "2", "state.pt"))
+        shutil.rmtree(os.path.join(ckpt.directory, "4"))
+        t0 = time.perf_counter()
+        r_state, r_launches = counted(lambda: run_training(resumed, vq, itertools.islice(iter(data), 3, None), enc, null,
+                                                           t_cfg, r_cfg))
+        resume_s = time.perf_counter() - t0
+        r_recs = jsonl(os.path.join(r_cfg.workdir, "metrics.jsonl"))
+        r_steps = {r["step"]: r for r in r_recs if "loss" in r}
+        restore_s = [r["restore_s"] for r in r_recs if "restore_s" in r]
+        check(r_state.step == DRIVER_STEPS and r_state.optimizer.count == DRIVER_STEPS and sorted(r_steps) == [3, 4]
+              and len(restore_s) == 1, f"resumed run: step {r_state.step}, logged {sorted(r_steps)}")
+        check_launches("resumed driver", r_launches, driver_launches(2, 1))
+        diff = max((v.float() - final[n].float()).abs().max().item() for n, v in resumed.state_dict().items())
+        bitwise = all(torch.equal(v, final[n]) for n, v in resumed.state_dict().items())
+        loss_gap = max(abs(r_steps[s]["loss"] - steps[s]["loss"]) for s in (3, 4))
+        print(f"[driver] resumed from the step-2 checkpoint (restored in {restore_s[0]:.1f} s) to step 4 in {resume_s:.1f} s: "
+              f"loss at steps 3, 4 {[round(r_steps[s]['loss'], 4) for s in (3, 4)]} vs {[round(steps[s]['loss'], 4) for s in (3, 4)]} "
+              f"(largest gap {loss_gap:.2e}); parameters {'bit for bit' if bitwise else 'not bit for bit'} the "
+              f"uninterrupted run's, largest difference {diff:.3e} (limit 2 Adam steps, {2.1 * 2 * t_cfg.lr:.1e}); "
+              f"launches K1 {r_launches['fused_resblock']}, K3 {r_launches['gumbel_categorical']}, K4 "
+              f"{r_launches['fused_codebook_lookup']} ({tag})", flush=True)
+        check(diff <= 2.1 * 2 * t_cfg.lr and loss_gap <= 1e-2 * abs(steps[4]["loss"]),
+              f"the resumed run ends {diff} from the uninterrupted one (loss gap {loss_gap})")
+        for n in ("fused_resblock", "gumbel_categorical", "fused_codebook_lookup"):
+            launches[n] += r_launches[n]
+        del resumed, r_state, final
+        torch.cuda.empty_cache()
+        return {"step_ms": step_ms, "images_per_s": DRIVER_BATCH * 1e3 / step_ms[1], "bare_step_ms": bare_step_ms,
+                "checkpoint_bytes": ckpt_bytes, "checkpoint_s": ckpt_s, "restore_s": restore_s[0], "eval_s": eval_s,
+                "run_s": run_s, "resume_s": resume_s, "peak_bytes": peak, "resume_bitwise": bitwise,
+                "resume_max_diff": diff, "data": data_text, "prefetch_ms": pf_ms,
+                "launches": {n: launches[n] for n in ("fused_resblock", "gumbel_categorical", "fused_codebook_lookup")}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+CODEC_BATCH, CODEC_STEPS = 8, 5
+
+
+def phase_codec_train(tag: str) -> dict:
+    """The codec trainer (codec/trainer.py) at VQConfig() in float32, the
+    geometry scripts/run_codec_pretrain.py trains, with its default
+    Discriminator (c_hidden 512, depth 6), CodecTrainConfig() (revive_after
+    100), batch 8 at 256x256 of seeded images: five steps (median step ms of
+    the last four, images/s, peak memory, losses, codes used and revived),
+    K4 launched once a step, K4 on the latents of the step's batch against
+    its plain version."""
+    import torch
+
+    from paella_tpu_torch.codec import (CodecTrainConfig, Discriminator, VQModel, create_codec_train_state,
+                                        make_codec_train_step)
+    from paella_tpu_torch.config import VQConfig
+    from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
+
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    with torch.device("cuda"):
+        vq, disc = VQModel(VQConfig()), Discriminator()
+    vq.reset_parameters(gen)
+    perturb_(vq, gen)
+    disc.reset_parameters(gen)
+    cfg = CodecTrainConfig()
+    state = create_codec_train_state(vq, disc, cfg)
+    step = make_codec_train_step(vq, disc, cfg)
+    images = torch.rand(CODEC_BATCH, TRAIN_HW, TRAIN_HW, 3, generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, k4 = [], [], 0
+    for i in range(CODEC_STEPS):
+        t0 = time.perf_counter()
+        m, launches = counted(lambda: step(state, images))
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        check_launches(f"codec step {i + 1}", launches, {"fused_codebook_lookup": 1, "fused_resblock": 0})
+        k4 += launches["fused_codebook_lookup"]
+        check(all(math.isfinite(v) for v in metrics[-1].values()), f"codec step {i + 1}: {metrics[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    z = vq.encoder(images).contiguous()
+    cb = vq.vquantizer.codebook.weight.detach().float().contiguous()
+    agree = (fused_codebook_lookup(z, cb) == codebook_lookup_plain(z, cb)).float().mean().item()
+    first, last = metrics[0], metrics[-1]
+    print(f"[codec train] VQConfig() f32 + Discriminator(c_hidden 512, depth 6), batch {CODEC_BATCH} at {TRAIN_HW}x{TRAIN_HW}, "
+          f"{CODEC_STEPS} steps: median step {med:.1f} ms of the last {CODEC_STEPS - 1} (first {times[0]:.1f}), "
+          f"{CODEC_BATCH * 1e3 / med:.2f} images/s; peak memory {peak / 2**30:.2f} GiB; g_loss {first['g_loss']:.4f} -> "
+          f"{last['g_loss']:.4f}, d_loss {first['d_loss']:.4f} -> {last['d_loss']:.4f}, recon_l1 {first['recon_l1']:.4f} -> "
+          f"{last['recon_l1']:.4f}; codes used {[int(m['codes_used_batch']) for m in metrics]}, revived "
+          f"{[int(m['codes_revived']) for m in metrics]}; K4 launched {k4} times (one a step), on z {tuple(z.shape)} "
+          f"against its plain version: indices agree {agree:.6f} (want 1.0) ({tag})", flush=True)
+    check(agree == 1.0, f"K4 on the codec batch's latents agrees {agree} with its plain version")
+    del vq, disc, state, step
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "step_ms_all": times, "images_per_s": CODEC_BATCH * 1e3 / med, "peak_bytes": peak,
+            "metrics_first": first, "metrics_last": last, "launches": {"fused_codebook_lookup": k4}}
+
+
+def phase_ddp(tag: str) -> dict:
+    """parallel/ at world size 1 on NCCL: initialize_distributed joins a
+    one-rank group (tcp://127.0.0.1, a free port), and one train step of
+    PaellaConfig.tiny() (f32, VQConfig.tiny(), batch 4 at 64x64, pinned
+    draws, grad_accum_steps=2) through data_parallel equals the same step
+    without DDP, bit for bit, under cuDNN's deterministic algorithms; two
+    plain steps are compared first, to show the step itself repeats bit for
+    bit."""
+    import torch
+    import torch.distributed as dist
+
+    from paella_tpu_torch.parallel import data_parallel, initialize_distributed
+    from paella_tpu_torch.train import Draws, create_train_state, make_train_step
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, TrainConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    p_cfg = PaellaConfig.tiny()
+    with torch.device("cuda"):
+        base, vq = Paella(p_cfg), VQModel(VQConfig.tiny())
+    base.reset_parameters(gen)
+    perturb_(base, gen, scale=0.05)
+    vq.reset_parameters(gen)
+    batch, null = train_inputs(p_cfg, 4, 64, gen, "cuda")
+    cfg = TrainConfig(warmup_updates=1, grad_accum_steps=2)
+    hw = 16
+    draws = [Draws(*(torch.rand(2, generator=gen, device="cuda") < p for p in (0.3, 0.5, 0.5)),
+                   u=torch.rand(2, generator=gen, device="cuda"),
+                   noise_mask=(torch.rand(2, hw, hw, generator=gen, device="cuda") < 0.5).int(),
+                   random_x=torch.randint(0, p_cfg.num_labels, (2, hw, hw), generator=gen, device="cuda", dtype=torch.int32),
+                   dropout_seed=0) for _ in range(2)]
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    info = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        check(info["backend"] == "nccl" and info["process_count"] == 1, f"process group {info}")
+        runs = []
+        for wrap in (False, False, True):
+            with torch.device("cuda"):
+                m = Paella(p_cfg)
+            m.load_state_dict(base.state_dict())
+            ddp = data_parallel(m) if wrap else None
+            state = create_train_state(m, cfg)
+            out = make_train_step(m, vq, cfg, ddp=ddp)(state, batch, null, [dataclasses.replace(d) for d in draws])
+            torch.cuda.synchronize()
+            runs.append(({k: float(v) for k, v in out.items()}, {n: p.grad.clone() for n, p in m.named_parameters()}))
+        same = lambda a, b: a[0] == b[0] and all(torch.equal(g, b[1][n]) for n, g in a[1].items())  # noqa: E731
+        repeat, ddp_equal = same(runs[0], runs[1]), same(runs[0], runs[2])
+        gap = max((g - runs[0][1][n]).abs().max().item() for n, g in runs[2][1].items())
+        print(f"[ddp] initialize_distributed: {info}; PaellaConfig.tiny() f32, batch 4 at 64x64, grad_accum_steps=2: "
+              f"two plain steps {'bit for bit alike' if repeat else 'NOT alike'}; the DDP step's loss, acc, grad_norm and "
+              f"every gradient {'bit for bit' if ddp_equal else 'NOT bit for bit'} the plain step's (largest gradient "
+              f"gap {gap:.2e}) ({tag})", flush=True)
+        check(repeat, "two plain tiny train steps differ on the card: the comparison has no footing")
+        check(ddp_equal, f"the world-size-1 DDP step differs from the plain step (gradient gap {gap})")
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return {"repeat_bitwise": repeat, "ddp_bitwise": ddp_equal, "grad_gap": gap}
+
+
 def free_port() -> int:
     """A free TCP port on 127.0.0.1 (bound, then released for the server)."""
     import socket
@@ -2781,9 +3139,12 @@ def main() -> int:
     int8 = phase_int8_e2e(tag)
     graphs = phase_graph(tag)
     train = phase_train(tag)
+    driver = phase_driver(tag, train["step_ms"])
+    codec_train = phase_codec_train(tag)
+    ddp = phase_ddp(tag)
     launches = {}
     for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], entry_point["launches"],
-                   int8["launches"], train["launches"]):
+                   int8["launches"], train["launches"], driver["launches"], codec_train["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -2832,6 +3193,8 @@ def main() -> int:
         "c5": c5, "train": {k: train[k] for k in ("step_ms", "step_ms_all", "images_per_s", "peak_bytes", "loss_first",
                                                   "loss_last", "tflop_per_step", "mfu", "accum_step_ms", "tiny",
                                                   "profile_ms", "busy")},
+        "driver": {k: v for k, v in driver.items() if k != "launches"},
+        "codec_train": {k: v for k, v in codec_train.items() if k != "launches"}, "ddp": ddp,
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

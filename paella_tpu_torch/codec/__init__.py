@@ -1,4 +1,16 @@
 from .quantize import VectorQuantize
-from .vqgan import VQModel, VQResBlock
+from .trainer import CodecAdamW, CodecTrainConfig, CodecTrainState, create_codec_train_state, make_codec_train_step
+from .vqgan import Discriminator, SpectralNormConv, VQModel, VQResBlock
 
-__all__ = ["VQModel", "VQResBlock", "VectorQuantize"]
+__all__ = [
+    "CodecAdamW",
+    "CodecTrainConfig",
+    "CodecTrainState",
+    "Discriminator",
+    "SpectralNormConv",
+    "VQModel",
+    "VQResBlock",
+    "VectorQuantize",
+    "create_codec_train_state",
+    "make_codec_train_step",
+]

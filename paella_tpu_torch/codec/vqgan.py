@@ -1,6 +1,6 @@
 """VQGAN f4 codec: 256x256x3 image <-> 64x64 grid of tokens, the counterpart
 of `paella_tpu/codec/vqgan.py` (encoder, encode, decoder, decode,
-decode_indices).
+decode_indices, and the patch `Discriminator` of codec training).
 
 Parameters keep the reference torch model's names (src/vqgan.py:45-112), so a
 reference-layout state dict loads with `strict=True`. The encoder ends in a
@@ -10,8 +10,16 @@ CUDA kernel K4. The convolutions, blocks and decoder are plain torch: no
 Pallas kernel runs there in the JAX package either. A float32 codec's
 encoder and decoder round as IEEE float32 on the card whatever the caller's
 TF32 flags (nn/functional.py::exact_f32).
+
+The inference methods run under no_grad with BatchNorm's running statistics.
+Codec training (codec/trainer.py) takes `encode_train` and `decode_train`:
+the same computation with gradients, BatchNorm normalizing with the batch's
+statistics and updating the running ones as flax does (momentum 0.9 on the
+running value, the biased batch variance).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -142,6 +150,9 @@ class VQModel(nn.Module):
         """(B, H, W, 3) image -> (B, H/f, W/f, c_latent) float32 pre-quantization
         latents, f = config.downscale; BatchNorm in eval mode (running
         statistics, eps 1e-5)."""
+        return self._encoder(x, train=False)
+
+    def _encoder(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         dt = self.config.compute_dtype
         with exact_f32(dt):
             h = _lin(self.in_block[1], space_to_depth(x.to(dt), 2), dt)
@@ -156,15 +167,33 @@ class VQModel(nn.Module):
                     h = y.permute(0, 2, 3, 1)
             to_latent, norm = self.down_blocks[-1]
             h = _lin(to_latent, h, dt).float()
+        if train:  # flax: var = max(0, E[x^2] - E[x]^2), running = 0.9 * running + (1 - 0.9) * batch
+            mean = h.mean(dim=(0, 1, 2))
+            var = torch.clamp((h * h).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                norm.running_mean.copy_(0.9 * norm.running_mean + (1 - 0.9) * mean)
+                norm.running_var.copy_(0.9 * norm.running_var + (1 - 0.9) * var)
+                norm.num_batches_tracked += 1
+        else:
+            mean, var = norm.running_mean.float(), norm.running_var.float()
         # flax BatchNorm's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(norm.running_var.float() + norm.eps) * norm.weight.float()
-        return (h - norm.running_mean.float()) * mul + norm.bias.float()
+        mul = torch.rsqrt(var + norm.eps) * norm.weight.float()
+        return (h - mean) * mul + norm.bias.float()
 
     @torch.no_grad()
     def encode(self, x: torch.Tensor):
         """Image -> (qe / s, z / s, indices, vq_loss + 0.25 * commit_loss), s the
         scale_factor (reference: src/vqgan.py:91-95)."""
-        z = self.encoder(x)
+        return self._encode(x, train=False)
+
+    def encode_train(self, x: torch.Tensor):
+        """`encode` for codec training (JAX's encode(x, train=True)):
+        differentiable, BatchNorm on the batch's statistics, its running
+        statistics updated in place; qe is the straight-through value."""
+        return self._encode(x, train=True)
+
+    def _encode(self, x: torch.Tensor, train: bool):
+        z = self._encoder(x, train)
         qe, (vq_loss, commit_loss), idx = self.vquantizer.quantize(z)
         s = self.config.scale_factor
         return qe / s, z / s, idx, vq_loss + commit_loss * 0.25
@@ -172,6 +201,9 @@ class VQModel(nn.Module):
     @torch.no_grad()
     def decoder(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, c_latent) latents -> (B, 4h, 4w, 3) image."""
+        return self._decoder(z)
+
+    def _decoder(self, z: torch.Tensor) -> torch.Tensor:
         dt = self.config.compute_dtype
         with exact_f32(dt):
             h = _lin(self.up_blocks[0][0], z, dt)
@@ -190,7 +222,95 @@ class VQModel(nn.Module):
         """Continuous (scaled) latents -> image (reference: src/vqgan.py:97-101)."""
         return self.decoder(z * self.config.scale_factor)
 
+    def decode_train(self, z: torch.Tensor) -> torch.Tensor:
+        """`decode` with gradients, for codec training."""
+        return self._decoder(z * self.config.scale_factor)
+
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Token grid (B, h, w) -> image (reference: src/vqgan.py:103-107).
         The unscaled codebook vectors go to the decoder: no scale_factor."""
         return self.decoder(self.vquantizer.idx2vq(indices))
+
+
+def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNormConv(nn.Module):
+    """A stride-2 3x3 conv, padding 1 (NHWC in and out), whose kernel is
+    divided by its largest singular value, estimated by one power iteration: flax
+    `nn.SpectralNorm(nn.Conv(...))` with n_steps 1 and eps 1e-12. The kernel
+    is flattened as flax flattens it, (kh * kw * c_in, c_out); the vector u
+    (1, c_out) and the estimate sigma are buffers, updated only under
+    `update_stats=True`. u and v carry no gradient; sigma does, through the
+    kernel."""
+
+    EPS = 1e-12
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+        self.register_buffer("u", torch.zeros(1, c_out))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        init.kaiming_uniform_leaky_(self.weight, gen)
+        init.zeros_(self.bias)
+        with torch.no_grad():
+            self.u.copy_(torch.randn(self.u.shape, generator=gen, device=gen.device))
+            self.sigma.fill_(1.0)
+
+    def normalized_weight(self, update_stats: bool = False) -> torch.Tensor:
+        w = self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])  # flax (kh, kw, in, out) flattened
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ w.T, self.EPS)
+            u = _l2_normalize(v @ w, self.EPS)
+        sigma = (v @ w @ u.T)[0, 0]
+        w = w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        kh, kw = self.weight.shape[2:]
+        return w.reshape(kh, kw, self.weight.shape[1], self.weight.shape[0]).permute(3, 2, 0, 1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.normalized_weight(update_stats), self.bias, stride=2, padding=1)
+        return y.permute(0, 2, 3, 1)
+
+
+class Discriminator(nn.Module):
+    """Patch discriminator for codec training (reference: src/vqgan.py:115-140),
+    the counterpart of `paella_tpu/codec/vqgan.py::Discriminator`:
+    spectral-normalized strided 3x3 convs, instance norm (eps 1e-5, no
+    affine) after all but the first, leaky ReLU 0.2, an optional broadcast
+    conditioning concat, the 1-wide `shuffle` linear and a sigmoid patch map.
+    NHWC in and out, float32. Parameters and spectral-norm state load from
+    the JAX package's variables with convert.discriminator_state_dict_from_jax."""
+
+    def __init__(self, c_in: int = 3, c_cond: int = 0, c_hidden: int = 512, depth: int = 6):
+        super().__init__()
+        d = max(depth - 3, 3)
+        chans = [c_hidden // (2**d)] + [c_hidden // (2 ** max(d - 1 - i, 0)) for i in range(depth - 1)]
+        self.convs = nn.ModuleList(SpectralNormConv(a, b) for a, b in zip([c_in] + chans[:-1], chans))
+        self.shuffle = nn.Linear(chans[-1] + c_cond, 1)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for conv in self.convs:
+            conv.reset_parameters(gen)
+        init.kaiming_uniform_leaky_(self.shuffle.weight, gen)
+        init.zeros_(self.shuffle.bias)
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None, update_stats: bool = False) -> torch.Tensor:
+        h = x.float()
+        for i, conv in enumerate(self.convs):
+            h = conv(h, update_stats=update_stats)
+            if i > 0:  # InstanceNorm: per-sample, per-channel spatial normalization
+                mean = h.mean(dim=(1, 2), keepdim=True)
+                var = (h - mean).square().mean(dim=(1, 2), keepdim=True)
+                h = (h - mean) * torch.rsqrt(var + 1e-5)
+            h = F.leaky_relu(h, 0.2)
+        if cond is not None:
+            h = torch.cat([h, cond[:, None, None, :].expand(*h.shape[:3], cond.shape[-1])], dim=-1)
+        return torch.sigmoid(self.shuffle(h))

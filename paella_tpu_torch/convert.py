@@ -168,6 +168,24 @@ def vqgan_state_dict_from_jax(variables: Mapping, cfg: VQConfig = VQConfig()) ->
     return sd
 
 
+def discriminator_state_dict_from_jax(variables: Mapping) -> StateDict:
+    """The JAX codec Discriminator {params, batch_stats} (numpy leaves) -> the
+    port's Discriminator state dict: each conv's kernel and bias, and its
+    spectral-norm u and sigma from batch_stats (torch's spectral_norm would
+    draw its own u)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    i = 0
+    while f"Conv_{i}" in params:
+        _conv(sd, f"convs.{i}", params[f"Conv_{i}"])
+        sn = stats[f"SpectralNorm_{i}"]
+        sd[f"convs.{i}.u"] = _np(sn[f"Conv_{i}/kernel/u"])
+        sd[f"convs.{i}.sigma"] = _np(sn[f"Conv_{i}/kernel/sigma"])
+        i += 1
+    _lin(sd, "shuffle", params["shuffle"])
+    return sd
+
+
 def t5_state_dict_from_jax(params: Mapping, cfg: T5Config) -> StateDict:
     """The JAX T5Encoder param tree (numpy leaves), float or quantized by the
     JAX quantize_t5_int8, -> the HF T5EncoderModel state dict layout that

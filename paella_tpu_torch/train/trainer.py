@@ -13,8 +13,9 @@ pinned from outside, and what is not pinned comes from the state's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -136,10 +137,11 @@ def apply_cond_dropout(cfg: TrainConfig, batch: Batch, null: NullCond, draws: Dr
 
 
 def loss_fn(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, draws: Optional[Draws] = None,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, forward: Optional[Callable] = None):
     """(loss, acc) of one microbatch, differentiable in the denoiser's
     parameters. The coins, u and the dropout seed that `draws` did not pin
-    are drawn and written into it."""
+    are drawn and written into it. `forward` runs the training forward in
+    place of `model.forward_train` (a DDP wrapper of it, parallel/mesh.py)."""
     draws = Draws() if draws is None else draws
     b, dev = batch.images.shape[0], batch.images.device
     byt5, byt5_mask, clip, clip_image, clip_image_mask = apply_cond_dropout(cfg, batch, null, draws, generator)
@@ -151,8 +153,9 @@ def loss_fn(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, dra
     weight = get_loss_weight(t, mask, cfg.loss_weight_min)
     if draws.dropout_seed is None:
         draws.dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
-    logits = model.forward_train(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask,
-                                 clip_image_mask=clip_image_mask, dropout_seed=draws.dropout_seed)
+    forward = model.forward_train if forward is None else forward
+    logits = forward(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask,
+                     clip_image_mask=clip_image_mask, dropout_seed=draws.dropout_seed)
     loss = smoothed_weighted_ce(logits, latents, weight, cfg.label_smoothing)
     acc = (logits.argmax(dim=-1) == latents).float().mean()
     return loss, acc
@@ -171,14 +174,21 @@ class AdamW(torch.optim.Optimizer):
 
     `torch.optim.AdamW` cannot store bf16 moments with f32 math, nor skip a
     non-finite step. The count and skips live in each parameter group, so
-    `state_dict()` carries them."""
+    `state_dict()` carries them, and `load_state_dict` keeps the moments in
+    `adam_moment_dtype` (torch's would cast them to the parameters' dtype)."""
 
     B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01
 
     def __init__(self, params, cfg: TrainConfig):
-        super().__init__(params, dict(count=0, nonfinite_skips=0))
+        super().__init__(params, dict(count=0, nonfinite_skips=0, weight_decay=self.WEIGHT_DECAY))
         self.cfg = cfg
         self.moment_dtype = getattr(torch, cfg.adam_moment_dtype)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        for s in self.state.values():
+            for k in ("mu", "nu"):
+                s[k] = s[k].to(self.moment_dtype)
 
     @property
     def count(self) -> int:
@@ -236,7 +246,12 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_add_(den, self.EPS)
         upd = torch._foreach_div(mu, c1)
         torch._foreach_div_(upd, den)
-        torch._foreach_add_(upd, [p.float() for p in params], alpha=self.WEIGHT_DECAY)
+        i = 0
+        for group in self.param_groups:
+            n = len(group["params"])
+            if group["weight_decay"]:
+                torch._foreach_add_(upd[i:i + n], [p.float() for p in group["params"]], alpha=group["weight_decay"])
+            i += n
         torch._foreach_mul_(upd, -self.learning_rate(self.count))
         torch._foreach_add_(params, upd)
         if self.moment_dtype != torch.float32:
@@ -266,14 +281,35 @@ def create_train_state(model, cfg: TrainConfig, generator: Optional[torch.Genera
     return TrainState(AdamW(model.parameters(), cfg), generator)
 
 
-def make_train_step(model, vq_model, cfg: TrainConfig):
+def _mean_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """t averaged over the ranks of `group` (SUM, then a division: gloo has
+    no AVG)."""
+    import torch.distributed as dist
+
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t / dist.get_world_size(group)
+
+
+def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None):
     """train_step(state, batch, null, draws=None) -> metrics: one optimizer
     update from grad_accum_steps microbatches (the batch split along its
     first axis), in place on the model and `state`. `draws` is one `Draws`
     per microbatch, or None to draw everything.
     Metrics: loss, acc (microbatch means), grad_norm (the averaged
     gradients' global norm before clipping) and, under
-    skip_nonfinite_updates, nonfinite_skips."""
+    skip_nonfinite_updates, nonfinite_skips.
+
+    After an update the model's derived weights are dropped
+    (`DerivedWeights.drop_derived`), so an inference forward or a sampler
+    graph that follows reads the new parameters; a skipped update changes
+    nothing and drops nothing.
+
+    ddp: a DistributedDataParallel wrapper of the model's training forward
+    (parallel/mesh.py::data_parallel). Each rank then steps on its own
+    batch, the gradients are averaged over the ranks (synchronized on the
+    last microbatch only, under `no_sync` before it), and loss and acc are
+    averaged over the ranks too, as the global batch's."""
     n = max(1, cfg.grad_accum_steps)
 
     def train_step(state: TrainState, batch: Batch, null: NullCond, draws: Optional[Sequence[Draws]] = None) -> dict:
@@ -284,16 +320,21 @@ def make_train_step(model, vq_model, cfg: TrainConfig):
         for p in params:
             p.grad = None
         loss = acc = 0.0
-        for mb, d in zip(batch.split(n) if n > 1 else [batch], draws):
-            mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator)
-            mb_loss.backward()
+        for i, (mb, d) in enumerate(zip(batch.split(n) if n > 1 else [batch], draws)):
+            with ddp.no_sync() if ddp is not None and i < n - 1 else contextlib.nullcontext():
+                mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator, forward=ddp)
+                mb_loss.backward()
             loss, acc = loss + mb_loss.detach(), acc + mb_acc
         if n > 1:
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(n)
             loss, acc = loss / n, acc / n
+        if ddp is not None:
+            loss, acc = _mean_over_ranks(torch.stack([loss, acc]), ddp.process_group)
         out = state.optimizer.step()
+        if not out["skipped"]:
+            model.drop_derived()
         state.step += 1
         metrics = {"loss": loss, "acc": acc, "grad_norm": out["grad_norm"]}
         if cfg.skip_nonfinite_updates:

@@ -187,7 +187,7 @@ def test_port_imports_no_jax():
         "import sys, importlib, pkgutil, paella_tpu_torch\n"
         "for m in pkgutil.walk_packages(paella_tpu_torch.__path__, 'paella_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'paella_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'paella_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
