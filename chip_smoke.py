@@ -135,6 +135,15 @@ limit):
                K4 on the batch's latents vs plain
  19. ddp       parallel/ at world size 1 on NCCL: one DDP train step of
                PaellaConfig.tiny() bit for bit the same step without DDP
+ 20. fsdp      parallel.shard_model (FSDP2 over a (1, 1) dp x fsdp mesh) at
+               world size 1 on NCCL, at phase 16's "1b" configuration with
+               bf16 moments, batch 8 at 256x256, pinned draws: two sharded
+               steps in turns with two plain steps from the same weights
+               (metrics and parameters held together; step ms and peak
+               memory of each route), the whole-state gather a checkpoint
+               makes (bytes, seconds), a restore into a freshly sharded
+               model (seconds) whose third step equals the uninterrupted
+               third step, K4 once a step
 Generations run as captured CUDA graphs (sampling/graph.py): a counted
 generation captures its graph, so its wrappers count the warm-up's and the
 capture's launches (GRAPH_PASSES x one generation's), and the kernels of one
@@ -2561,7 +2570,7 @@ def phase_driver(tag: str, bare_step_ms: float) -> dict:
               f"{r_launches['fused_codebook_lookup']} ({tag})", flush=True)
         check(diff <= 2.1 * 2 * t_cfg.lr and loss_gap <= 1e-2 * abs(steps[4]["loss"]),
               f"the resumed run ends {diff} from the uninterrupted one (loss gap {loss_gap})")
-        for n in ("fused_resblock", "gumbel_categorical", "fused_codebook_lookup"):
+        for n in ("fused_resblock", "fused_resblock[float]", "gumbel_categorical", "fused_codebook_lookup"):
             launches[n] += r_launches[n]
         del resumed, r_state, final
         torch.cuda.empty_cache()
@@ -2569,7 +2578,8 @@ def phase_driver(tag: str, bare_step_ms: float) -> dict:
                 "checkpoint_bytes": ckpt_bytes, "checkpoint_s": ckpt_s, "restore_s": restore_s[0], "eval_s": eval_s,
                 "run_s": run_s, "resume_s": resume_s, "peak_bytes": peak, "resume_bitwise": bitwise,
                 "resume_max_diff": diff, "data": data_text, "prefetch_ms": pf_ms,
-                "launches": {n: launches[n] for n in ("fused_resblock", "gumbel_categorical", "fused_codebook_lookup")}}
+                "launches": {n: launches[n] for n in ("fused_resblock", "fused_resblock[float]", "gumbel_categorical",
+                                                      "fused_codebook_lookup")}}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2693,6 +2703,232 @@ def phase_ddp(tag: str) -> dict:
         dist.destroy_process_group()
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     return {"repeat_bitwise": repeat, "ddp_bitwise": ddp_equal, "grad_gap": gap}
+
+
+FSDP_STEPS = 3
+# FSDP2's own device work, grouped ahead of TRAIN_GROUPS: the collectives, and the copies into and out of
+# their buffers (all_gather_copy_in, split_with_sizes_copy, chunk_cat)
+FSDP_GROUPS = [("NCCL", ("nccl",)), ("FSDP copies", ("chunk_cat", "split_with_sizes", "CatArrayBatchedCopy",
+                                                     "all_gather_copy_in"))]
+
+
+def phase_fsdp(tag: str) -> dict:
+    """FSDP inside training at world size 1: initialize_distributed joins a
+    one-rank NCCL group, and parallel.shard_model shards a copy of phase
+    16's "1b" model (v1_byt5_xl in bf16 with remat and dropout 0.1, the
+    frozen bf16 VQConfig() codec) over the (1, 1) mesh; TrainConfig with
+    bf16 Adam moments, batch 8 at 256x256, every draw pinned (dropout by
+    seed). Steps 1 and 2 run in turns, plain then sharded, from the same
+    weights: loss, acc and grad_norm within 1e-5 relative, and after step 2
+    at most 0.1% of the parameters more than 0.02 lr and none more than 2.1
+    lr from the plain ones (tests/test_torch_fsdp.py's tolerances). Then the whole state
+    is gathered as run_training's checkpoint does (checkpoint_state), loaded
+    into a freshly built and sharded model (load_state), and step 3 runs on
+    the plain, the uninterrupted sharded and the restored model in turns:
+    the restored model's parameters within the same tolerances of the
+    uninterrupted one's. Between them, rank 0's eval grid as run_training
+    draws it at fsdp > 1: a plain copy of the model loaded from the
+    gathered state (inference_copy), its grid's sampled tokens equal to the
+    same grid drawn by the plain model (K1, K3, K4 launched). Each step's host ms (ending in a synchronize), its
+    peak memory (max_memory_allocated, every model of the phase resident)
+    and the rise above what was allocated before it; K4 once a step; then a
+    profile of one more step of each route (kernel time by kind, NCCL and
+    FSDP2's copies apart, busy share)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, TrainConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.parallel import initialize_distributed, shard_model
+    from paella_tpu_torch.train import DriverConfig, Draws, create_train_state, make_synthetic_encode_fn, make_train_step
+    from paella_tpu_torch.train.driver import _eval_grid, checkpoint_state, inference_copy, load_state
+
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    p_cfg = dataclasses.replace(PaellaConfig.v1_byt5_xl(), dtype="bfloat16", remat=True)
+    with torch.device("cuda"):
+        plain = Paella(p_cfg)
+        vq = VQModel(dataclasses.replace(VQConfig(), dtype="bfloat16"))
+    plain.reset_parameters(gen)
+    perturb_(plain, gen)
+    vq.reset_parameters(gen)
+    perturb_(vq, gen)
+    cfg = TrainConfig(warmup_updates=1, adam_moment_dtype="bfloat16")
+    batch, null = train_inputs(p_cfg, TRAIN_BATCH, TRAIN_HW, gen, "cuda")
+    hw, b = TRAIN_HW // 4, TRAIN_BATCH
+    draws = [Draws(*(torch.rand(b, generator=gen, device="cuda") < p for p in (0.05, 0.9, 0.9)),
+                   u=torch.rand(b, generator=gen, device="cuda"),
+                   noise_mask=(torch.rand(b, hw, hw, generator=gen, device="cuda") < 0.5).int(),
+                   random_x=torch.randint(0, p_cfg.num_labels, (b, hw, hw), generator=gen, device="cuda",
+                                          dtype=torch.int32), dropout_seed=i + 1) for i in range(FSDP_STEPS)]
+    info = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        check(info["backend"] == "nccl" and info["process_count"] == 1, f"process group {info}")
+
+        def sharded_copy(state_dict=None):
+            with torch.device("cuda"):
+                m = Paella(p_cfg)
+            if state_dict is not None:
+                m.load_state_dict(state_dict)
+            t1 = time.perf_counter()
+            return m, shard_model(m, fsdp=1), time.perf_counter() - t1
+
+        sharded, mesh, wrap_s = sharded_copy(plain.state_dict())
+        routes = {"plain": (plain, create_train_state(plain, cfg), make_train_step(plain, vq, cfg)),
+                  "fsdp": (sharded, create_train_state(sharded, cfg), make_train_step(sharded, vq, cfg, mesh=mesh))}
+        runs = {name: {"ms": [], "peak": [], "rise": [], "metrics": []} for name in ("plain", "fsdp", "restored")}
+        k4 = 0
+
+        def run(name: str, i: int) -> None:
+            nonlocal k4
+            _, state, step = routes[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            out, launches = counted(lambda: step(state, batch, null, [dataclasses.replace(draws[i])]))
+            r = runs[name]
+            r["ms"].append((time.perf_counter() - t1) * 1e3)
+            r["peak"].append(torch.cuda.max_memory_allocated())
+            r["rise"].append(r["peak"][-1] - base)
+            r["metrics"].append({k: float(v) for k, v in out.items()})
+            check_launches(f"fsdp phase, {name} step {i + 1}", launches, {
+                "fused_codebook_lookup": 1, "fused_resblock": 0, "fused_head_categorical": 0, "gumbel_categorical": 0,
+                "fused_attention": 0, "fused_attn_block": 0})
+            k4 += launches["fused_codebook_lookup"]
+            m = r["metrics"][-1]
+            check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and m["nonfinite_skips"] == 0,
+                  f"fsdp phase, {name} step {i + 1}: {m}")
+
+        def gap(a, b) -> tuple[float, float, float, bool]:
+            """The metrics' largest relative gap; the share of parameters
+            more than 0.02 lr apart and the largest gap in lr; bit for bit
+            or not."""
+            ra, rb = runs[a]["metrics"][-1], runs[b]["metrics"][-1]
+            rel = max(abs(ra[k] - rb[k]) / max(abs(rb[k]), 1e-12) for k in ("loss", "acc", "grad_norm"))
+            local = lambda p: p.to_local() if hasattr(p, "to_local") else p  # noqa: E731
+            over = worst = total = 0
+            with torch.no_grad():
+                for p, q in zip(routes[a][0].parameters(), routes[b][0].parameters()):
+                    d = (local(p) - local(q)).abs() / cfg.lr
+                    over += int((d > 0.02).sum())
+                    worst = max(worst, d.max().item())
+                    total += d.numel()
+            return rel, over / total, worst, worst == 0.0
+
+        for i in range(2):
+            run("plain", i)
+            run("fsdp", i)
+        rel, share, worst, bitwise = gap("fsdp", "plain")
+        print(f"[fsdp] shard_model over the mesh {tuple(mesh.shape)} ({', '.join(mesh.mesh_dim_names)}) on {info['backend']} "
+              f"in {wrap_s:.2f} s; '1b', bf16 moments, batch {b} at {TRAIN_HW}x{TRAIN_HW}, pinned draws, in turns: step ms "
+              f"plain {[round(x, 1) for x in runs['plain']['ms']]}, sharded {[round(x, 1) for x in runs['fsdp']['ms']]}; "
+              f"peak memory (both models resident) plain {[round(x / 2**30, 2) for x in runs['plain']['peak']]} GiB, "
+              f"sharded {[round(x / 2**30, 2) for x in runs['fsdp']['peak']]} GiB, the steps' rise above what was "
+              f"allocated before them plain {[round(x / 2**30, 2) for x in runs['plain']['rise']]}, sharded "
+              f"{[round(x / 2**30, 2) for x in runs['fsdp']['rise']]} GiB; after step 2 against the plain step: metrics "
+              f"rel gap {rel:.2e} (limit 1e-5), parameters more than 0.02 lr apart {share:.2e} (limit 1e-3), max "
+              f"{worst:.2e} lr (limit 2.1), {'bit for bit' if bitwise else 'not bit for bit'} ({tag})", flush=True)
+        check(rel <= 1e-5 and share <= 1e-3 and worst <= 2.1,
+              f"the sharded step differs from the plain one: {rel}, {share}, {worst}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = checkpoint_state(sharded, routes["fsdp"][1])
+        gather_s = time.perf_counter() - t0
+        tensors = list(snap["model"].values()) + [v for s in snap["optimizer"]["state"].values() for v in s.values()]
+        gather_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        check(all(t.device.type == "cpu" for t in tensors), "the gathered state is not on the CPU")
+
+        # rank 0's eval grid in run_training(fsdp > 1): a plain copy loaded from the gathered state, its
+        # tokens against the same grid drawn by the plain model (bit for bit the sharded one after step 2)
+        grid_dir = tempfile.mkdtemp(prefix="paella_fsdp_")
+        try:
+            enc, _ = make_synthetic_encode_fn(p_cfg.byt5_embd, p_cfg.clip_embd, seq_len=TRAIN_BYT5_LEN, device="cuda")
+            images, captions = batch.images.float().cpu().numpy(), [f"a photo of thing {i}" for i in range(b)]
+            d_cfg = DriverConfig(eval_steps=STEPS)
+            t0 = time.perf_counter()
+            copy = inference_copy(sharded, snap["model"])
+            copy_s = time.perf_counter() - t0
+            grids = {}
+            for name, m in (("copy", copy), ("plain", plain)):
+                os.makedirs(os.path.join(grid_dir, name))
+                t0 = time.perf_counter()
+                _, grids[name] = counted(lambda: _eval_grid(m, vq, enc, d_cfg, 2, os.path.join(grid_dir, name),
+                                                            images=images, captions=captions))
+                grids[name + "_s"] = time.perf_counter() - t0
+            got, want = (np.load(os.path.join(grid_dir, n, "eval_0000002.npz")) for n in ("copy", "plain"))
+            same = [float((got[k] == want[k]).mean()) for k in ("tokens", "tokens_noimg")]
+        finally:
+            shutil.rmtree(grid_dir, ignore_errors=True)
+        del copy
+        grid_launches = grids["copy"]
+        check_launches("fsdp phase, the eval grid from the gathered copy", grid_launches, driver_launches(0, 1))
+        print(f"[fsdp] the eval grid from the gathered state (run_training's rank 0 at fsdp > 1): plain copy built and "
+              f"loaded in {copy_s:.2f} s, grid (batch {b}, two 8-step CFG generations) in {grids['copy_s']:.2f} s; its "
+              f"sampled tokens against the plain model's grid: equal shares {same[0]:.6f} / {same[1]:.6f} (want 1.0); "
+              f"launches K1 {grid_launches['fused_resblock[float]']}, K3 {grid_launches['gumbel_categorical']}, K4 "
+              f"{grid_launches['fused_codebook_lookup']} ({tag})", flush=True)
+        check(same == [1.0, 1.0], f"the grid from the gathered copy differs from the plain model's: {same}")
+        t0 = time.perf_counter()
+        restored, _, _ = sharded_copy()
+        r_state = create_train_state(restored, cfg)
+        load_state(restored, r_state, snap)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del snap, tensors
+        routes["restored"] = (restored, r_state, make_train_step(restored, vq, cfg, mesh=mesh))
+        for name in ("plain", "fsdp", "restored"):
+            run(name, 2)
+        r_rel, r_share, r_worst, r_bitwise = gap("restored", "fsdp")
+        p_rel, p_share, p_worst, _ = gap("fsdp", "plain")
+        print(f"[fsdp] whole-state gather (checkpoint_state: parameters and bf16 moments to the CPU) "
+              f"{gather_bytes / 1e9:.2f} GB in {gather_s:.2f} s ({gather_bytes / 1e9 / gather_s:.2f} GB/s); restore into "
+              f"a freshly built and sharded model (build, shard_model, load_state) in {restore_s:.2f} s; step 3 in turns: "
+              f"plain {runs['plain']['ms'][-1]:.1f} ms, sharded {runs['fsdp']['ms'][-1]:.1f} ms, restored "
+              f"{runs['restored']['ms'][-1]:.1f} ms (its first); the restored step 3 against the uninterrupted one: "
+              f"metrics rel gap {r_rel:.2e}, parameters more than 0.02 lr apart {r_share:.2e}, max {r_worst:.2e} lr, "
+              f"{'bit for bit' if r_bitwise else 'not bit for bit'}; sharded vs plain after step 3: {p_rel:.2e}, "
+              f"{p_share:.2e}, {p_worst:.2e} lr; K4 launched {k4} times ({tag})", flush=True)
+        check(r_rel <= 1e-5 and r_share <= 1e-3 and r_worst <= 2.1,
+              f"the restored step 3 differs from the uninterrupted one: {r_rel}, {r_share}, {r_worst}")
+        check(p_rel <= 1e-5 and p_share <= 1e-3 and p_worst <= 2.1, f"step 3 sharded vs plain: {p_rel}, {p_share}, {p_worst}")
+        profiles = {}
+        for name in ("plain", "fsdp"):
+            _, state, step = routes[name]
+            kernels, wall = profile_kernels(lambda: step(state, batch, null, [dataclasses.replace(draws[2])]))
+            groups = group_kernels(kernels, FSDP_GROUPS + TRAIN_GROUPS)
+            busy = sum(us for us, _ in groups.values()) / 1e3
+            profiles[name] = {"wall_ms": wall, "kernels_ms": busy, "busy": busy / wall if wall else None,
+                              "launches": sum(n for _, n in groups.values()),
+                              "groups_ms": {k: v[0] / 1e3 for k, v in groups.items()}}
+        print(f"[fsdp] profile of one step of each route (torch.profiler): " + "; ".join(
+            f"{name}: all kernels {p['kernels_ms']:.1f} ms of {p['wall_ms']:.1f} ms wall ({p['busy']:.0%} busy), "
+            f"{p['launches']:.0f} launches, NCCL {p['groups_ms']['NCCL']:.1f} ms, FSDP copies "
+            f"{p['groups_ms']['FSDP copies']:.1f} ms, elementwise {p['groups_ms']['elementwise']:.1f} ms"
+            for name, p in profiles.items()) + f" ({tag})", flush=True)
+        result = {"step_ms": {k: v["ms"] for k, v in runs.items()}, "peak_bytes": {k: v["peak"] for k, v in runs.items()},
+                  "rise_bytes": {k: v["rise"] for k, v in runs.items()}, "wrap_s": wrap_s,
+                  "step2_gap": {"metrics_rel": rel, "param_share_over_0.02lr": share, "param_max_lr": worst,
+                                "bitwise": bitwise},
+                  "gather_bytes": gather_bytes, "gather_s": gather_s, "restore_s": restore_s,
+                  "restored_gap": {"metrics_rel": r_rel, "param_share_over_0.02lr": r_share, "param_max_lr": r_worst,
+                                   "bitwise": r_bitwise},
+                  "grid": {"copy_s": copy_s, "eval_s": grids["copy_s"], "plain_eval_s": grids["plain_s"],
+                           "tokens_equal": same},
+                  "profile": profiles,
+                  "launches": {"fused_codebook_lookup": k4 + grid_launches["fused_codebook_lookup"],
+                               "fused_resblock[float]": grid_launches["fused_resblock[float]"],
+                               "gumbel_categorical": grid_launches["gumbel_categorical"]}}
+    finally:
+        dist.destroy_process_group()
+    del plain, sharded, routes
+    torch.cuda.empty_cache()
+    return result
 
 
 def free_port() -> int:
@@ -3142,9 +3378,10 @@ def main() -> int:
     driver = phase_driver(tag, train["step_ms"])
     codec_train = phase_codec_train(tag)
     ddp = phase_ddp(tag)
+    fsdp = phase_fsdp(tag)
     launches = {}
     for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], entry_point["launches"],
-                   int8["launches"], train["launches"], driver["launches"], codec_train["launches"]):
+                   int8["launches"], train["launches"], driver["launches"], codec_train["launches"], fsdp["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -3195,6 +3432,7 @@ def main() -> int:
                                                   "profile_ms", "busy")},
         "driver": {k: v for k, v in driver.items() if k != "launches"},
         "codec_train": {k: v for k, v in codec_train.items() if k != "launches"}, "ddp": ddp,
+        "fsdp": {k: v for k, v in fsdp.items() if k != "launches"},
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

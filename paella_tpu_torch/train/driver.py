@@ -12,9 +12,16 @@ holds a checkpoint resumes from its latest step: parameters, optimizer
 moments and count, step and the draw generator's state.
 
 Several processes: call `parallel.initialize_distributed` first; each rank
-then steps on its own batch (data/loader.py shards the input by rank), DDP
-averages the gradients (parallel/mesh.py::data_parallel), and only rank 0
-writes checkpoints, metrics and eval images.
+then steps on its own batch (data/loader.py shards the input by rank), and
+only rank 0 writes checkpoints, metrics and eval images. At
+`DriverConfig.fsdp` 1 DDP averages the gradients
+(parallel/mesh.py::data_parallel). At fsdp > 1 the model is sharded with
+FSDP2 over the JAX driver's (dp, fsdp) mesh (parallel/mesh.py::shard_model,
+HSDP where dp > 1) and AdamW updates the shards. A checkpoint then holds the
+whole state, gathered onto rank 0's CPU: one file, the same at every world
+size, so a run resumes at another world size or fsdp. Rank 0 draws the eval
+grid from a plain inference copy of the model loaded from that gathered
+state.
 
 Besides the step metrics, metrics.jsonl gets a record with the seconds of
 each checkpoint write (`checkpoint_s`), eval grid (`eval_s`) and restore
@@ -33,13 +40,14 @@ import torch
 from ..config import SampleConfig, TrainConfig
 from ..data.prefetch import map_tensors, background_iterator
 from ..kernels.quantize import fused_codebook_lookup
+from ..models.denoiser import Paella
 from ..models.noise import add_noise
 from ..parallel.distributed import is_main_process, process_count, process_index
-from ..parallel.mesh import data_parallel
+from ..parallel.mesh import data_parallel, shard_model
 from ..sampling.sampler import Conditioning, derive_seeds, sample
 from ..utils.logging import MetricLogger, StepTimer, save_image_grid
 from .checkpoints import CheckpointManager
-from .trainer import Batch, NullCond, TrainState, create_train_state, make_train_step
+from .trainer import Batch, NullCond, TrainState, _dtensor_type, _local, create_train_state, make_train_step
 
 EncodeFn = Callable[[np.ndarray, Sequence[str]], Batch]
 EVAL_SEED_TAG = 4  # derive_seeds' draw tag of the eval grid's per-image seeds (the sampler uses 0-3)
@@ -111,13 +119,35 @@ class _PreemptionGuard:
         return False
 
 
+def _sharded(model) -> bool:
+    """Whether `model`'s parameters are FSDP2 shards (DTensors)."""
+    dtensor = _dtensor_type()
+    return dtensor is not None and any(isinstance(p, dtensor) for p in model.parameters())
+
+
 def checkpoint_state(model, state: TrainState, group=None) -> dict:
     """What a checkpoint holds: the model's state dict, the AdamW state dict
     (moments in their own dtype; count and skips in its param groups), the
     step, the draw generator's state and, over several ranks, every rank's
-    generator state (a collective: every rank calls this)."""
-    out = {"model": model.state_dict(), "optimizer": state.optimizer.state_dict(), "step": state.step,
-           "generator": state.generator.get_state()}
+    generator state (a collective: every rank calls this).
+
+    A sharded model's parameters and moments are gathered whole onto rank
+    0's CPU (get_model_state_dict with full_state_dict and cpu_offload, and
+    each moment's full_tensor in parameter order); the other ranks' dicts
+    hold no tensors. The keys, shapes and dtypes are those of the unsharded
+    model's and optimizer's state dicts."""
+    if _sharded(model):
+        from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
+
+        weights = get_model_state_dict(model, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+        optimizer = state.optimizer.state_dict()
+        main, dtensor = is_main_process(), _dtensor_type()
+        whole = lambda v: v.full_tensor() if isinstance(v, dtensor) else v  # noqa: E731
+        gathered = {i: {k: whole(v) for k, v in s.items()} for i, s in optimizer["state"].items()}
+        optimizer["state"] = {i: {k: v.cpu() for k, v in s.items()} for i, s in gathered.items()} if main else {}
+    else:
+        weights, optimizer = model.state_dict(), state.optimizer.state_dict()
+    out = {"model": weights, "optimizer": optimizer, "step": state.step, "generator": state.generator.get_state()}
     if process_count() > 1:
         import torch.distributed as dist
 
@@ -127,19 +157,55 @@ def checkpoint_state(model, state: TrainState, group=None) -> dict:
     return out
 
 
-def restore_checkpoint(ckpt: CheckpointManager, model, state: TrainState, step: Optional[int] = None) -> bool:
-    """Load `step` (default: the latest) of `ckpt` into the model and the
-    train state in place; this rank's generator state where every rank's was
-    saved. Returns False when there is no checkpoint."""
-    saved, _ = ckpt.restore(None, step=step)
-    if saved is None:
-        return False
-    model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+def load_state(model, state: TrainState, saved: dict) -> None:
+    """Load a `checkpoint_state` dict into the model and the train state in
+    place, whatever world size wrote it: into a sharded model each rank
+    takes its shards of the whole tensors (set_model_state_dict; the moments
+    by distribute_tensor on the parameters' placements, no communication).
+    This rank's generator state where the writer saved one for it, else
+    the saved generator's (a resume at another world size is then not bit
+    for bit in its draws)."""
+    optimizer = saved["optimizer"]
+    if _sharded(model):
+        from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+        from torch.distributed.tensor import distribute_tensor
+
+        set_model_state_dict(model, saved["model"], options=StateDictOptions(full_state_dict=True))
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        shard = lambda p, v: distribute_tensor(v.to(_local(p).device), p.device_mesh, p.placements,  # noqa: E731
+                                               src_data_rank=None)
+        optimizer = dict(optimizer, state={i: {k: shard(params[i], v) for k, v in s.items()}
+                                           for i, s in optimizer["state"].items()})
+    else:
+        model.load_state_dict(saved["model"])
+    state.optimizer.load_state_dict(optimizer)
     state.step = int(saved["step"])
     gens = saved.get("generators")
     state.generator.set_state(gens[process_index()] if gens and len(gens) > process_index() else saved["generator"])
+
+
+def restore_checkpoint(ckpt: CheckpointManager, model, state: TrainState, step: Optional[int] = None) -> bool:
+    """Load `step` (default: the latest) of `ckpt` into the model and the
+    train state in place (`load_state`). Returns False when there is no
+    checkpoint."""
+    saved, _ = ckpt.restore(None, step=step)
+    if saved is None:
+        return False
+    load_state(model, state, saved)
     return True
+
+
+def inference_copy(model, weights: dict, copy: Optional[Paella] = None) -> Paella:
+    """A plain (unsharded) Paella of `model`'s config on its device, holding
+    `weights` (a whole state dict): `copy` reloaded, or a new one built on
+    the meta device and materialized there. Loading drops the copy's derived
+    weights, so the sampler's kept graphs of it recapture (C6)."""
+    if copy is None:
+        with torch.device("meta"):
+            copy = Paella(model.config)
+        copy = copy.to_empty(device=_local(next(model.parameters())).device)
+    copy.load_state_dict(weights)
+    return copy
 
 
 def run_training(
@@ -159,24 +225,30 @@ def run_training(
     data_iter yields (images NHWC [0,1] numpy, captions); encode_batch runs
     the frozen conditioning encoders (ByT5/CLIP) and assembles a Batch.
     With a torch.distributed process group up (or `process_group` given) of
-    more than one rank, the step runs under DDP over that group.
+    more than one rank, the step runs under DDP over that group; at
+    driver_cfg.fsdp > 1 under FSDP2 over the whole process group instead
+    (`shard_model`, which raises ValueError where fsdp does not divide the
+    world size).
     """
-    if driver_cfg.fsdp > 1:
-        raise NotImplementedError("run_training: FSDP (driver_cfg.fsdp > 1) is not in the port; "
-                                  "parallel.fsdp_auto_wrap_policy is its wrapping rule")
     workdir = driver_cfg.workdir
     os.makedirs(workdir, exist_ok=True)
     main = is_main_process()
+    device = next(model.parameters()).device
+    world = process_count()
+    mesh = None
+    if driver_cfg.fsdp > 1:
+        if process_group is not None:
+            raise ValueError("run_training: FSDP (driver_cfg.fsdp > 1) shards over the whole process group; "
+                             "process_group is DDP's")
+        mesh = shard_model(model, driver_cfg.fsdp)
     logger = MetricLogger(workdir, print_every=driver_cfg.log_every) if main else None
     ckpt = CheckpointManager(
         os.path.join(workdir, "checkpoints"),
         max_to_keep=driver_cfg.max_keep,
         save_interval=driver_cfg.eval_every,
     )
-    device = next(model.parameters()).device
-    world = process_count()
     gen = torch.Generator(device=device).manual_seed(train_cfg.seed + process_index())
-    state = create_train_state(model, train_cfg, gen)
+    state = create_train_state(model, train_cfg, gen)  # over the shards, where sharded
     # init or resume (the reference restores model/optimizer/scheduler/scaler,
     # src_distributed/train.py:60-67; here the whole train state round-trips)
     t0 = time.perf_counter()
@@ -185,15 +257,18 @@ def run_training(
         print(f"[driver] resumed at step {state.step} in {restore_s:.2f} s")
         if logger is not None:
             logger.log(state.step, {"restore_s": restore_s})
-    ddp = data_parallel(model, process_group) if world > 1 or process_group is not None else None
-    step_fn = make_train_step(model, vq, train_cfg, ddp=ddp)
+    ddp = data_parallel(model, process_group) if mesh is None and (world > 1 or process_group is not None) else None
+    step_fn = make_train_step(model, vq, train_cfg, ddp=ddp, mesh=mesh)
     timer = StepTimer()
 
-    def save(step: int, force: bool) -> None:
+    def save(step: int, force: bool) -> dict:
         t0 = time.perf_counter()
         snapshot = checkpoint_state(model, state, process_group)  # every rank: a collective
         if main and ckpt.save(step, snapshot, force=force) and logger is not None:
             logger.log(step, {"checkpoint_s": time.perf_counter() - t0})
+        return snapshot
+
+    eval_model = model if mesh is None else None  # sharded: rank 0's inference copy, made at the first grid
 
     def _encoded_batches():
         """(images, captions, ready-to-step Batch) stream. Run through a
@@ -232,14 +307,17 @@ def run_training(
                 # force at total_steps: the save interval would otherwise skip
                 # the FINAL checkpoint whenever total_steps isn't a multiple of
                 # eval_every
-                save(step, force=step == driver_cfg.total_steps)
+                snapshot = save(step, force=step == driver_cfg.total_steps)
                 if sample_eval:
                     eval_images, eval_captions, _ = next(enc_iter)
                     if main:
                         t0 = time.perf_counter()
-                        _eval_grid(model, vq, encode_batch, driver_cfg, step, workdir,
+                        if mesh is not None:  # the grid's graphs cannot gather: sample the saved state, unsharded
+                            eval_model = inference_copy(model, snapshot["model"], eval_model)
+                        _eval_grid(eval_model, vq, encode_batch, driver_cfg, step, workdir,
                                    images=eval_images, captions=eval_captions, logger=logger)
                         logger.log(step, {"eval_s": time.perf_counter() - t0})
+                del snapshot
     ckpt.wait()
     if logger is not None:
         logger.close()

@@ -213,17 +213,20 @@ class AdamW(torch.optim.Optimizer):
         """One update from the parameters' .grad (None counts as zeros), in
         multi-tensor (`torch._foreach_*`) ops: a few launches for all
         parameters. Returns {"grad_norm": the gradients' global norm before
-        clipping, "skipped": bool}."""
+        clipping, "skipped": bool}.
+
+        Over FSDP2's sharded parameters (DTensors) the update runs on each
+        rank's local shards, and the norm and the non-finite test are the
+        whole gradient's, the same on every rank (`_global_norm`)."""
         cfg = self.cfg
         params = [p for g in self.param_groups for p in g["params"]]
-        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32) for p in params]
-        norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
-        if cfg.skip_nonfinite_updates:
-            peak = torch.stack(torch._foreach_norm(grads, float("inf")))  # NaN or inf where a gradient is
-            if not bool(torch.isfinite(peak).all()):
-                for group in self.param_groups:
-                    group["nonfinite_skips"] += 1
-                return {"grad_norm": norm, "skipped": True}
+        grads = [_local(p.grad).float() if p.grad is not None else torch.zeros_like(_local(p), dtype=torch.float32)
+                 for p in params]
+        norm, nonfinite = _global_norm(params, grads)
+        if cfg.skip_nonfinite_updates and nonfinite:
+            for group in self.param_groups:
+                group["nonfinite_skips"] += 1
+            return {"grad_norm": norm, "skipped": True}
         if not bool(norm < cfg.grad_clip):  # optax: g / norm * max_norm
             grads = torch._foreach_div(grads, norm)
             torch._foreach_mul_(grads, cfg.grad_clip)
@@ -234,7 +237,7 @@ class AdamW(torch.optim.Optimizer):
             if not self.state[p]:
                 self.state[p]["mu"] = torch.zeros_like(p, dtype=self.moment_dtype)
                 self.state[p]["nu"] = torch.zeros_like(p, dtype=self.moment_dtype)
-        stored = [self.state[p]["mu"] for p in params], [self.state[p]["nu"] for p in params]
+        stored = [_local(self.state[p]["mu"]) for p in params], [_local(self.state[p]["nu"]) for p in params]
         mu, nu = ([t.float() for t in ts] for ts in stored)  # no copy where the moments are float32
         torch._foreach_mul_(mu, self.B1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
@@ -246,20 +249,66 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_add_(den, self.EPS)
         upd = torch._foreach_div(mu, c1)
         torch._foreach_div_(upd, den)
+        local = [_local(p) for p in params]
         i = 0
         for group in self.param_groups:
             n = len(group["params"])
             if group["weight_decay"]:
-                torch._foreach_add_(upd[i:i + n], [p.float() for p in group["params"]], alpha=group["weight_decay"])
+                torch._foreach_add_(upd[i:i + n], [p.float() for p in local[i:i + n]], alpha=group["weight_decay"])
             i += n
         torch._foreach_mul_(upd, -self.learning_rate(self.count))
-        torch._foreach_add_(params, upd)
+        torch._foreach_add_(local, upd)
         if self.moment_dtype != torch.float32:
             torch._foreach_copy_(stored[0], mu)
             torch._foreach_copy_(stored[1], nu)
         for group in self.param_groups:
             group["count"] = count
         return {"grad_norm": norm, "skipped": False}
+
+
+def _dtensor_type():
+    """torch's DTensor class, or None where torch.distributed is not built."""
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: writing to it writes the shard), any
+    other tensor itself."""
+    dtensor = _dtensor_type()
+    return t.to_local() if dtensor is not None and isinstance(t, dtensor) else t
+
+
+def _global_norm(params: list, grads: list) -> tuple:
+    """(the 2-norm of the whole gradient, whether any element of it is not
+    finite) from `grads`, the local float32 gradients of `params`.
+
+    Unsharded, the norm is the sum of the tensors' squared norms. Over
+    DTensor parameters a rank's tensors are shards and torch._foreach_norm
+    gives partial norms, so the squared norms are summed over every rank of
+    the mesh, each shard counted once: a rank adds a shard only where its
+    coordinate is 0 on every mesh axis that replicates it (HSDP's dp). The
+    non-finite test counts every rank's shards, so a NaN or inf on one rank
+    makes every rank skip."""
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    # NaN or inf where a gradient is; a rank's shard may be empty, which has no inf-norm
+    peak = torch.stack(torch._foreach_norm([g for g in grads if g.numel()], float("inf")))
+    dtensor = _dtensor_type()
+    if dtensor is None or not any(isinstance(p, dtensor) for p in params):
+        return sq.sum().sqrt(), not bool(torch.isfinite(peak).all())
+    import torch.distributed as dist
+
+    mesh = next(p.device_mesh for p in params if isinstance(p, dtensor))
+    coord = mesh.get_coordinate()
+    owned = torch.tensor([not isinstance(p, dtensor) or all(coord[d] == 0 for d, pl in enumerate(p.placements)
+                                                            if not pl.is_shard()) for p in params], device=sq.device)
+    sums = torch.stack([torch.where(owned, sq, 0.0).sum(), (~torch.isfinite(peak)).sum().float()])
+    for d in range(mesh.ndim):
+        dist.all_reduce(sums, group=mesh.get_group(d))
+    return sums[0].sqrt(), bool(sums[1] > 0)
 
 
 @dataclasses.dataclass
@@ -281,17 +330,19 @@ def create_train_state(model, cfg: TrainConfig, generator: Optional[torch.Genera
     return TrainState(AdamW(model.parameters(), cfg), generator)
 
 
-def _mean_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
-    """t averaged over the ranks of `group` (SUM, then a division: gloo has
-    no AVG)."""
+def _mean_over_ranks(t: torch.Tensor, group=None, mesh=None) -> torch.Tensor:
+    """t averaged over the ranks of `group`, or of every axis of `mesh`
+    (SUM, then a division: gloo has no AVG)."""
     import torch.distributed as dist
 
     t = t.clone()
-    dist.all_reduce(t, group=group)
-    return t / dist.get_world_size(group)
+    groups = [group] if mesh is None else [mesh.get_group(d) for d in range(mesh.ndim)]
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t / (dist.get_world_size(group) if mesh is None else mesh.size())
 
 
-def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None):
+def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None, mesh=None):
     """train_step(state, batch, null, draws=None) -> metrics: one optimizer
     update from grad_accum_steps microbatches (the batch split along its
     first axis), in place on the model and `state`. `draws` is one `Draws`
@@ -309,7 +360,15 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None):
     (parallel/mesh.py::data_parallel). Each rank then steps on its own
     batch, the gradients are averaged over the ranks (synchronized on the
     last microbatch only, under `no_sync` before it), and loss and acc are
-    averaged over the ranks too, as the global batch's."""
+    averaged over the ranks too, as the global batch's.
+
+    mesh: the DeviceMesh of a model sharded by parallel/mesh.py::shard_model
+    (FSDP2). Each rank steps on its own batch; every microbatch's backward
+    reduce-scatters its gradients over the mesh, averaged, into the sharded
+    gradient (memory: one gradient shard, never a whole unsharded gradient
+    held across microbatches); HSDP's all-reduce over dp runs on the last
+    microbatch only (`set_requires_all_reduce`). Loss and acc are averaged
+    over every rank of the mesh."""
     n = max(1, cfg.grad_accum_steps)
 
     def train_step(state: TrainState, batch: Batch, null: NullCond, draws: Optional[Sequence[Draws]] = None) -> dict:
@@ -321,6 +380,8 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None):
             p.grad = None
         loss = acc = 0.0
         for i, (mb, d) in enumerate(zip(batch.split(n) if n > 1 else [batch], draws)):
+            if mesh is not None:
+                model.set_requires_all_reduce(i == n - 1)
             with ddp.no_sync() if ddp is not None and i < n - 1 else contextlib.nullcontext():
                 mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator, forward=ddp)
                 mb_loss.backward()
@@ -330,8 +391,8 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None):
                 if p.grad is not None:
                     p.grad.div_(n)
             loss, acc = loss / n, acc / n
-        if ddp is not None:
-            loss, acc = _mean_over_ranks(torch.stack([loss, acc]), ddp.process_group)
+        if ddp is not None or mesh is not None:
+            loss, acc = _mean_over_ranks(torch.stack([loss, acc]), ddp.process_group if ddp is not None else None, mesh)
         out = state.optimizer.step()
         if not out["skipped"]:
             model.drop_derived()

@@ -3,7 +3,7 @@ gloo, the counterpart of tests/test_distributed.py's data-stream (:63) and
 train-step (:199) tests: each rank reads a disjoint share of the shards by
 default, and two DDP train steps (each rank two microbatches of its half of
 the batch, the first under no_sync) equal the single-process steps on the
-whole batch. Also the FSDP wrapping rule against the JAX package's."""
+whole batch. Also the FSDP sharding rule against the JAX package's."""
 import dataclasses
 import os
 import socket
@@ -110,16 +110,14 @@ def test_ddp_train_steps_equal_the_single_process_steps(two_ranks):
 @pytest.mark.parametrize("shape,fsdp", [((128, 64), 4), ((64, 256), 2), ((3, 3, 64, 64), 8), ((8192,), 2),
                                         ((100, 7), 2), ((7, 7), 2), ((16384,), 3), ((256, 256), 1)])
 def test_fsdp_rule_matches_jax(shape, fsdp):
-    """fsdp_param_spec picks the axis the JAX rule shards (or none), and the
-    auto-wrap policy makes a unit of each module holding such a parameter."""
+    """fsdp_param_spec picks the axis the JAX rule shards (or none), and
+    fsdp_placement gives FSDP2 that axis, or axis 0 where JAX replicates."""
+    from torch.distributed.tensor import Shard
+
     from paella_tpu.parallel import fsdp_param_spec as jax_spec
-    from paella_tpu_torch.parallel import fsdp_auto_wrap_policy, fsdp_param_spec
+    from paella_tpu_torch.parallel import fsdp_param_spec, fsdp_placement
 
     want = jax_spec((), np.zeros(shape, np.float32), fsdp)
     got = fsdp_param_spec(shape, fsdp)
     assert got == next((i for i, a in enumerate(want) if a == "fsdp"), None), (shape, want, got)
-    module = torch.nn.Module()
-    module.weight = torch.nn.Parameter(torch.zeros(shape))
-    big = int(np.prod(shape)) >= 2**14
-    assert fsdp_auto_wrap_policy()(module, recurse=False, nonwrapped_numel=0) == big
-    assert fsdp_auto_wrap_policy()(module, recurse=True, nonwrapped_numel=0)
+    assert fsdp_placement(shape, fsdp) == Shard(0 if got is None else got)
