@@ -144,6 +144,20 @@ limit):
                makes (bytes, seconds), a restore into a freshly sharded
                model (seconds) whose third step equals the uninterrupted
                third step, K4 once a step
+ 21. production the port's entry points (paella_tpu_torch/scripts/), each
+               a process of its own on the card: first, in this process,
+               the "1b" step (bf16 moments, batch 8 at 256x256) fed as
+               run_training feeds it by the frozen ByT5-XL + ViT-H-14 towers
+               or phase 17's synthetic encoders, at encode_prefetch 0 and 1,
+               in turns (step ms, images/s, the towers' encode ms a batch,
+               peak memory); then run_codec_pretrain (VQConfig() f32, 6
+               steps, the GAN term from step 3) and its codec_vars.npz read
+               back bit for bit; run_driver_e2e --geometry 1b against that
+               codec, SIGTERM after its first checkpoint and eval grid and a
+               fresh process resuming, then --byt5 w8a8; run_eval_e2e over
+               the run's checkpoints, --n 32 --trend, in image space with
+               --real-recon and in token space with the W8A8 twins (K1b);
+               each run's JSON line, K1 / K1b / K3 / K4 launches, seconds
 Generations run as captured CUDA graphs (sampling/graph.py): a counted
 generation captures its graph, so its wrappers count the warm-up's and the
 capture's launches (GRAPH_PASSES x one generation's), and the kernels of one
@@ -2931,6 +2945,382 @@ def phase_fsdp(tag: str) -> dict:
     return result
 
 
+PROD_BATCH, PROD_TURNS, PROD_TURN_STEPS = 8, 3, 4
+PROD_CODEC_STEPS, PROD_CODEC_DISC_START, PROD_CODEC_COLLAGE = 6, 3, 3
+PROD_EVAL_N, PROD_EVAL_BATCH = 32, 16
+PROD_EVAL_EVERY = 2
+
+
+def run_script(name: str, args: list, log_path: str, timeout: float) -> tuple[dict, float, str]:
+    """`python -m paella_tpu_torch.scripts.<name> *args` from this checkout, a
+    process of its own, killed at `timeout`: (its last line as JSON, its
+    seconds, its output)."""
+    t0 = time.perf_counter()
+    with open(log_path, "w+") as log:
+        try:
+            rc = subprocess.run([sys.executable, "-m", f"paella_tpu_torch.scripts.{name}", *args], cwd=REPO,
+                                stdout=log, stderr=subprocess.STDOUT, timeout=timeout).returncode
+        except subprocess.TimeoutExpired:
+            raise CheckFailed(f"{name} ran past {timeout} s: {tail_of(log)}")
+        check(rc == 0, f"{name} {' '.join(args)} exited {rc}: {tail_of(log)}")
+        log.seek(0)
+        text = log.read()
+    return json.loads(text.strip().splitlines()[-1]), time.perf_counter() - t0, text
+
+
+def check_script_launches(what: str, got: dict, expect: dict) -> None:
+    """A script's launch counts (its summary's `launches`, read at the end of
+    its process, which started at 0): no plain version ran, and `expect`."""
+    for name, n in got.items():
+        if name.endswith("_plain"):
+            check(n == 0, f"{what}: {name} ran {n} times on the card")
+    check_launches(what, got, expect)
+
+
+def production_turns(tag: str) -> dict:
+    """In this process: the "1b" train step (bf16 moments, batch 8 at
+    256x256) fed as run_training feeds it (each host batch through
+    encode_batch and onto the card, through background_iterator at
+    encode_prefetch 1, inline at 0), with the frozen ByT5-XL + ViT-H-14
+    towers of run_driver_e2e.build_encoders (bf16, bucket 64) or phase 17's
+    synthetic hash encoders at the same widths and length; the four arms in
+    turns (A B C D D C B A), each one untimed step then PROD_TURN_STEPS timed
+    (host time between step ends, the loss read each step as the driver's
+    log_every 1 does), and per step the host ms the loop waited for its
+    batch and the host ms of the encode call (in the producer thread at
+    prefetch 1); the towers' encode ms a batch alone; the towers' bytes and
+    the peak memory above what this process held before (the earlier
+    phases' kept sampler graphs dropped first)."""
+    import gc
+    import itertools
+    import types
+
+    import numpy as np
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import TrainConfig
+    from paella_tpu_torch.data import SyntheticDataset, background_iterator
+    from paella_tpu_torch.data.prefetch import map_tensors
+    from paella_tpu_torch.models import Paella
+    from paella_tpu_torch.sampling import graph
+    from paella_tpu_torch.scripts import run_driver_e2e as drv
+    from paella_tpu_torch.train import create_train_state, make_synthetic_encode_fn, make_train_step
+
+    graph.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    towers, null_towers, _, _ = drv.build_encoders(types.SimpleNamespace(smoke=False, byt5="bf16", byt5_bucket=64),
+                                                   torch.device("cuda"))
+    torch.cuda.synchronize()
+    towers_s = time.perf_counter() - t0
+    towers_bytes = torch.cuda.memory_allocated() - base
+    p_cfg, vq_cfg = drv.make_geometry("1b")
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    with torch.device("cuda"):
+        model, vq = Paella(p_cfg), VQModel(vq_cfg)
+    model.reset_parameters(gen)
+    perturb_(model, gen)
+    vq.reset_parameters(gen)
+    perturb_(vq, gen)
+    t_cfg = TrainConfig(warmup_updates=100, adam_moment_dtype="bfloat16")
+    state = create_train_state(model, t_cfg, torch.Generator(device="cuda").manual_seed(81))
+    step = make_train_step(model, vq, t_cfg)
+    synth, null_synth = make_synthetic_encode_fn(p_cfg.byt5_embd, p_cfg.clip_embd, seq_len=64, device="cuda")
+    captions = tuple(f"{s} a {o}" for s in drv.CAPTION_STYLES for o in drv.CAPTION_OBJECTS)
+    host = list(itertools.islice(iter(SyntheticDataset(PROD_BATCH, TRAIN_HW, seed=3, captions=captions)), 4))
+
+    enc_ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        towers(*host[i % len(host)])
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t1) * 1e3)
+    enc_ms = enc_ms[1:]
+
+    losses = []
+
+    def arm(encode, null, prefetch: int, steps: int) -> tuple[list, list, list]:
+        enc = []
+
+        def encoded():  # run_training's _encoded_batches over the cycled host batches
+            for images, caps in itertools.islice(itertools.cycle(host), steps):
+                t1 = time.perf_counter()
+                batch = encode(images, caps)
+                enc.append((time.perf_counter() - t1) * 1e3)
+                yield map_tensors(lambda t: t.to("cuda", non_blocking=True), batch)
+
+        stream = background_iterator(encoded(), depth=prefetch) if prefetch else encoded()
+        ends, waits = [], []
+        while True:
+            t1 = time.perf_counter()
+            batch = next(stream, None)
+            if batch is None:
+                break
+            waits.append((time.perf_counter() - t1) * 1e3)
+            metrics = {k: float(v) for k, v in step(state, batch, null).items()}
+            losses.append(metrics["loss"])
+            ends.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(ends, ends[1:])], waits[1:], enc[1:]
+
+    arm(synth, null_synth, 0, 2)  # warm-up: the step's first calls
+    arms = {("towers", 1): (towers, null_towers), ("towers", 0): (towers, null_towers),
+            ("synthetic", 1): (synth, null_synth), ("synthetic", 0): (synth, null_synth)}
+    order = list(arms)
+    times, waits, encodes = ({k: [] for k in arms} for _ in range(3))
+    for turn in range(PROD_TURNS):
+        for k in order if turn % 2 == 0 else order[::-1]:
+            t, w, e = arm(*arms[k], k[1], PROD_TURN_STEPS + 1)
+            times[k] += t
+            waits[k] += w
+            encodes[k] += e
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(v) for v in losses), f"production turns: losses {losses}")
+    p50 = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    med = {k: p50(v) for k, v in times.items()}
+    added = med[("towers", 0)] - med[("synthetic", 0)]
+    hidden = (med[("towers", 0)] - med[("towers", 1)]) / added if added > 0 else None
+    enc_p50 = p50(enc_ms)
+    print(f"[production] the '1b' step (bf16 moments, batch {PROD_BATCH} at {TRAIN_HW}x{TRAIN_HW}) fed as run_training "
+          f"feeds it, {PROD_TURNS * PROD_TURN_STEPS} timed steps an arm in turns: " + "; ".join(
+              f"{k[0]} encoders at encode_prefetch {k[1]}: median {med[k]:.1f} ms ({PROD_BATCH * 1e3 / med[k]:.2f} "
+              f"images/s; {', '.join(f'{t:.0f}' for t in times[k])}), waited {p50(waits[k]):.1f} ms for its batch, "
+              f"encode call {p50(encodes[k]):.1f} ms on the host" for k in order) +
+          f"; the towers (ByT5-XL + ViT-H-14 text and vision, bf16, bucket 64, built in {towers_s:.1f} s, "
+          f"{towers_bytes / 2**30:.2f} GiB) encode a batch in {enc_p50:.1f} ms alone (p50 of 5; "
+          f"{', '.join(f'{t:.1f}' for t in enc_ms)}); at prefetch 0 they add {added:.1f} ms a step, and prefetch 1 "
+          f"hides {'n/a' if hidden is None else f'{hidden:.0%}'} of that; peak memory {peak / 2**30:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB this process held before ({tag})",
+          flush=True)
+    del towers, null_towers, synth, null_synth, model, vq, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": {f"{k[0]}_prefetch{k[1]}": med[k] for k in order},
+            "step_ms_all": {f"{k[0]}_prefetch{k[1]}": times[k] for k in order},
+            "wait_ms": {f"{k[0]}_prefetch{k[1]}": p50(waits[k]) for k in order},
+            "encode_call_ms": {f"{k[0]}_prefetch{k[1]}": p50(encodes[k]) for k in order},
+            "images_per_s": {f"{k[0]}_prefetch{k[1]}": PROD_BATCH * 1e3 / med[k] for k in order},
+            "towers_encode_ms": enc_p50, "towers_encode_ms_all": enc_ms, "towers_build_s": towers_s,
+            "towers_bytes": towers_bytes, "towers_added_ms": added, "prefetch_hidden_share": hidden, "peak_bytes": peak,
+            "base_bytes": base}
+
+
+def driver_steps_ms(recs: list, first: int, last: int) -> list:
+    """Host ms of each step first+1..last from metrics.jsonl's step records
+    (the time between consecutive steps' records; a save or a grid between
+    them counts in)."""
+    t = {r["step"]: r["time"] for r in recs if "loss" in r}
+    return [(t[s] - t[s - 1]) * 1e3 for s in range(first + 1, last + 1) if s in t and s - 1 in t]
+
+
+def phase_production(tag: str) -> dict:
+    """The port's production entry points (paella_tpu_torch/scripts/), each a
+    process of its own on the card, in a temporary directory removed at the
+    end: run_codec_pretrain (VQConfig() f32 + Discriminator(), batch 8 at
+    256x256, 6 steps, the GAN term from step 3) whose codec_vars.npz is read
+    back bit for bit; run_driver_e2e at "1b" (bf16 moments, batch 8, the
+    frozen ByT5-XL + ViT-H-14 towers, against that codec) stopped by SIGTERM
+    after its first checkpoint and eval grid, then resumed by a fresh
+    process to the next even step, and again with --byt5 w8a8 for 2 steps;
+    run_eval_e2e over the bf16 run's checkpoints with --n 32 --trend, in
+    image space with --real-recon and in token space with the W8A8 twin.
+    Before them, production_turns in this process."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import VQConfig
+    from paella_tpu_torch.convert import load_params_npz, vqgan_state_dict_from_jax, vqgan_variables_to_jax
+    from paella_tpu_torch.train import save_params_npz
+
+    turns = production_turns(tag)
+    root = tempfile.mkdtemp(prefix="paella_production_")
+    launches = {}
+
+    def add(counts: dict) -> None:
+        for k in ("fused_resblock", "fused_resblock[float]", "fused_resblock[int8]", "fused_resblock[w8a8]",
+                  "gumbel_categorical", "fused_codebook_lookup"):
+            launches[k] = launches.get(k, 0) + counts[k]
+
+    def show(what: str, summary: dict, secs: float) -> None:
+        print(f"[production] {what} in {secs:.1f} s; its JSON line: {json.dumps(summary)} ({tag})", flush=True)
+
+    try:
+        codec_dir, run_dir, w8_dir = (os.path.join(root, d) for d in ("codec", "run", "run_w8a8"))
+        npz = os.path.join(codec_dir, "codec_vars.npz")
+
+        # 1. codec pretraining
+        codec, codec_s, _ = run_script("run_codec_pretrain", [
+            "--workdir", codec_dir, "--steps", str(PROD_CODEC_STEPS), "--batch", "8", "--disc-start",
+            str(PROD_CODEC_DISC_START), "--log-every", "1", "--collage-every", str(PROD_CODEC_COLLAGE),
+            "--shards", "1", "--per-shard", "16"], os.path.join(root, "codec.log"), 300)
+        show("run_codec_pretrain", codec, codec_s)
+        snapshots = 2 + PROD_CODEC_STEPS // PROD_CODEC_COLLAGE  # init, every collage step, final
+        check_script_launches("run_codec_pretrain", codec["launches"], {
+            "fused_codebook_lookup": PROD_CODEC_STEPS + snapshots, "fused_resblock": 0, "gumbel_categorical": 0})
+        check(codec["steps"] == PROD_CODEC_STEPS and all(math.isfinite(codec[k]) for k in (
+            "init_eval_recon_l1", "final_eval_recon_l1")), f"codec summary {codec}")
+        tree = load_params_npz(npz)
+        with torch.device("cuda"):
+            vq = VQModel(VQConfig())
+        vq.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in vqgan_state_dict_from_jax(tree, VQConfig()).items()}, strict=True)
+        again = os.path.join(root, "codec_vars_again.npz")
+        save_params_npz(again, vqgan_variables_to_jax(vq.state_dict(), VQConfig()))
+        with np.load(npz) as f, np.load(again) as g:
+            saved, flat = {k: f[k] for k in f.files}, {k: g[k] for k in g.files}
+        bitwise = set(flat) == set(saved) and all(saved[k].dtype == np.float32 and np.array_equal(flat[k], saved[k])
+                                                  for k in saved)
+        tokens = torch.randint(0, VQConfig().codebook_size, (2, 64, 64), generator=torch.Generator(device="cuda")
+                               .manual_seed(82), device="cuda")
+        img = vq.decode_indices(tokens)
+        print(f"[production] codec_vars.npz: {len(saved)} arrays, {sum(a.nbytes for a in saved.values()) / 1e6:.1f} MB, "
+              f"loaded onto the card (the driver's --codec path) and written back "
+              f"{'bit for bit' if bitwise else 'NOT bit for bit'}; a decode of seeded tokens "
+              f"{tuple(img.shape)} finite: {bool(torch.isfinite(img).all())}; recon L1 of the fixed eval batch "
+              f"{codec['init_eval_recon_l1']} at init -> {codec['final_eval_recon_l1']} after {codec['steps']} steps, "
+              f"codebook usage {codec['init_codebook_usage']} -> {codec['final_codebook_usage']} ({tag})", flush=True)
+        check(bitwise and bool(torch.isfinite(img).all()), "codec_vars.npz does not read back bit for bit")
+        del vq, img
+        add(codec["launches"])
+
+        # 2. the driver at "1b" with the towers: SIGTERM after the first checkpoint and grid, a fresh resume
+        common = ["--workdir", run_dir, "--geometry", "1b", "--adam-moments", "bf16", "--batch", str(PROD_BATCH),
+                  "--log-every", "1", "--eval-every", str(PROD_EVAL_EVERY), "--shards", "1", "--per-shard", "32",
+                  "--workers", "4", "--codec", npz]
+        metrics_path = os.path.join(run_dir, "metrics.jsonl")
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "driver_a.log"), "w+") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "paella_tpu_torch.scripts.run_driver_e2e", *common,
+                                     "--steps", "40"], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+            try:
+                deadline = time.time() + 400
+                while time.time() < deadline and proc.poll() is None:
+                    if os.path.exists(metrics_path) and any("eval_s" in r for r in jsonl(metrics_path)):
+                        break
+                    time.sleep(0.2)
+                check(proc.poll() is None, f"run_driver_e2e ended before its first eval grid: {tail_of(log)}")
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            log.seek(0)
+            out_a = log.read()
+        a_s = time.perf_counter() - t0
+        check(rc == 0 and "preemption checkpoint saved" in out_a, f"phase A exited {rc}: {out_a[-3000:]}")
+        summary_a = json.loads(out_a.strip().splitlines()[-1])
+        show("run_driver_e2e phase A (SIGTERM after the first checkpoint)", summary_a, a_s)
+        final_a = summary_a["final_step"]
+        steps_b = final_a + 2 - final_a % 2  # the next even step: a grid and a forced save
+        summary_b, b_s, out_b = run_script("run_driver_e2e", [*common, "--steps", str(steps_b)],
+                                           os.path.join(root, "driver_b.log"), 400)
+        show(f"run_driver_e2e phase B (a fresh process resuming to step {steps_b})", summary_b, b_s)
+        check(f"resumed at step {final_a}" in out_b and "init skipped" in out_b and summary_b["final_step"] == steps_b,
+              f"phase B did not resume from step {final_a}: {out_b[-3000:]}")
+        recs = jsonl(metrics_path)
+        grids = [r["step"] for r in recs if "eval_s" in r]
+        ckpts = sorted(int(s) for s in os.listdir(os.path.join(run_dir, "checkpoints")) if s.isdigit())
+        for what, summary, first, last in (("phase A", summary_a, 0, final_a), ("phase B", summary_b, final_a, steps_b)):
+            n_grids = sum(first < s <= last for s in grids)
+            check_script_launches(f"run_driver_e2e {what}", summary["launches"], {
+                **driver_launches(last - first, n_grids), "fused_resblock[int8]": 0, "fused_resblock[w8a8]": 0})
+            add(summary["launches"])
+        check(all(math.isfinite(r["loss"]) and r["nonfinite_skips"] == 0 for r in recs if "loss" in r),
+              "driver losses")
+        ms_a, ms_b = driver_steps_ms(recs, 1, final_a), driver_steps_ms(recs, final_a + 1, steps_b)
+        saves = [r["checkpoint_s"] for r in recs if "checkpoint_s" in r]
+        eval_s = [r["eval_s"] for r in recs if "eval_s" in r]
+        restore_s = [r["restore_s"] for r in recs if "restore_s" in r]
+        ckpt_bytes = os.path.getsize(os.path.join(run_dir, "checkpoints", str(ckpts[-1]), "state.pt"))
+        print(f"[production] driver, bf16 towers: phase A to step {final_a} ({len([s for s in grids if s <= final_a])} "
+              f"grid), phase B {final_a} -> {steps_b}; host ms between step records (a save or grid in between counts "
+              f"in) A {', '.join(f'{t:.0f}' for t in ms_a)}, B {', '.join(f'{t:.0f}' for t in ms_b)}; checkpoints "
+              f"{ckpts} ({ckpt_bytes / 1e9:.2f} GB each) saved in {', '.join(f'{s:.1f}' for s in saves)} s, restored "
+              f"in {', '.join(f'{s:.1f}' for s in restore_s)} s; grids at {grids} in "
+              f"{', '.join(f'{s:.1f}' for s in eval_s)} s; peak memory A {summary_a['peak_bytes'] / 2**30:.2f} GiB, "
+              f"B {summary_b['peak_bytes'] / 2**30:.2f} GiB; data: {summary_a['data']}; launches A "
+              f"K1 {summary_a['launches']['fused_resblock[float]']} K3 {summary_a['launches']['gumbel_categorical']} "
+              f"K4 {summary_a['launches']['fused_codebook_lookup']}, B K1 {summary_b['launches']['fused_resblock[float]']} "
+              f"K3 {summary_b['launches']['gumbel_categorical']} K4 {summary_b['launches']['fused_codebook_lookup']} "
+              f"({tag})", flush=True)
+
+        # 3. again with the W8A8 ByT5-XL
+        w8a8, w8_s, _ = run_script("run_driver_e2e", [*[w8_dir if a == run_dir else a for a in common], "--byt5", "w8a8",
+                                                      "--steps", str(PROD_EVAL_EVERY)],
+                                   os.path.join(root, "driver_w8a8.log"), 400)
+        show("run_driver_e2e --byt5 w8a8", w8a8, w8_s)
+        w_recs = jsonl(os.path.join(w8_dir, "metrics.jsonl"))
+        check_script_launches("run_driver_e2e --byt5 w8a8", w8a8["launches"], {
+            **driver_launches(PROD_EVAL_EVERY, 1), "fused_resblock[int8]": 0, "fused_resblock[w8a8]": 0})
+        check(all(math.isfinite(r["loss"]) for r in w_recs if "loss" in r), "w8a8 driver losses")
+        add(w8a8["launches"])
+        ms_w = driver_steps_ms(w_recs, 1, PROD_EVAL_EVERY)
+        print(f"[production] driver, W8A8 ByT5-XL: step 2 {', '.join(f'{t:.0f}' for t in ms_w)} ms after step 1; peak "
+              f"memory {w8a8['peak_bytes'] / 2**30:.2f} GiB ({tag})", flush=True)
+        shutil.rmtree(os.path.join(w8_dir, "checkpoints"))
+
+        # 4-5. the eval over the bf16 run's checkpoints
+        arms = 1 + len(ckpts)
+        gens = arms * GRAPH_PASSES  # each arm's model captures its graph at its first batch, then replays
+        ev_common = ["--workdir", run_dir, "--geometry", "1b", "--adam-moments", "bf16", "--byt5", "bf16", "--n",
+                     str(PROD_EVAL_N), "--batch", str(PROD_EVAL_BATCH), "--trend", "--codec", npz]
+        image, image_s, _ = run_script("run_eval_e2e", [*ev_common, "--real-recon"], os.path.join(root, "eval_image.log"), 400)
+        show("run_eval_e2e --trend --real-recon", image, image_s)
+        check_script_launches("run_eval_e2e image space", image["launches"], {
+            "fused_resblock[float]": gens * STEPS * K1_PER_FORWARD, "fused_resblock[w8a8]": 0, "fused_resblock[int8]": 0,
+            "gumbel_categorical": gens * STEPS, "fused_codebook_lookup": PROD_EVAL_N // PROD_EVAL_BATCH,
+            "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0})
+        check(len(image["arms"]) == arms and all(math.isfinite(a["fid_synthetic_featurizer"]) for a in image["arms"])
+              and math.isfinite(image["fid_noise_floor_real_vs_real"]), f"image-space eval {image}")
+        add(image["launches"])
+        tokens, tokens_s, _ = run_script("run_eval_e2e", [*ev_common, "--space", "tokens", "--w8a8"],
+                                         os.path.join(root, "eval_tokens.log"), 500)
+        show("run_eval_e2e --trend --space tokens --w8a8", tokens, tokens_s)
+        check_script_launches("run_eval_e2e token space with W8A8 twins", tokens["launches"], {
+            "fused_resblock[float]": gens * STEPS * K1_PER_FORWARD, "fused_resblock[w8a8]": gens * STEPS * K1_PER_FORWARD,
+            "fused_resblock[int8]": 0, "gumbel_categorical": 2 * gens * STEPS,
+            "fused_codebook_lookup": PROD_EVAL_N // PROD_EVAL_BATCH, "fused_head_categorical": 0,
+            "fused_attention": 0, "fused_attn_block": 0})
+        check(len(tokens["arms"]) == 2 * arms and tokens["w8a8"]["levels"] == [0, 1, 2]
+              and all(math.isfinite(a["token_frechet"]) and 0 <= a["token_js_to_real"] <= math.log(2) + 1e-6
+                      for a in tokens["arms"]), f"token-space eval {tokens}")
+        add(tokens["launches"])
+        flips = {a["arm"]: a["token_flip_to_bf16_twin"] for a in tokens["arms"] if a["arm"].endswith("-w8a8")}
+        print(f"[production] eval over checkpoints {ckpts} (+ init), n {PROD_EVAL_N}, 8 steps, CFG 8: image-space FID "
+              f"(seeded featurizer, codec-recon real set; floor {image['fid_noise_floor_real_vs_real']}) "
+              + ", ".join(f"{a['arm']} {a['fid_synthetic_featurizer']}" for a in image["arms"])
+              + f"; token Fréchet (floor {tokens['token_frechet_floor_real_vs_real']}) / JS to real (floor "
+              f"{tokens['token_js_floor_real_vs_real']}) " + ", ".join(
+                  f"{a['arm']} {a['token_frechet']} / {a['token_js_to_real']}" for a in tokens["arms"])
+              + f"; W8A8 twin token flip rates {flips}; sampling images/s " + ", ".join(
+                  f"{a['arm']} {a['sampling_images_per_sec']}" for a in tokens["arms"])
+              + f"; peak memory {image['peak_bytes'] / 2**30:.2f} / {tokens['peak_bytes'] / 2**30:.2f} GiB; "
+              f"launches K1 {image['launches']['fused_resblock[float]']} + {tokens['launches']['fused_resblock[float]']}, "
+              f"K1b (W8A8) {tokens['launches']['fused_resblock[w8a8]']}, K3 {image['launches']['gumbel_categorical']} + "
+              f"{tokens['launches']['gumbel_categorical']}, K4 {image['launches']['fused_codebook_lookup']} + "
+              f"{tokens['launches']['fused_codebook_lookup']} ({tag})", flush=True)
+        return {
+            "turns": turns, "codec": codec, "codec_s": codec_s, "codec_npz_bitwise": bitwise,
+            "driver": {"phase_a": summary_a, "phase_b": summary_b, "w8a8": w8a8, "step_ms_a": ms_a, "step_ms_b": ms_b,
+                       "step_ms_w8a8": ms_w, "checkpoint_s": saves, "restore_s": restore_s, "eval_s": eval_s,
+                       "checkpoint_bytes": ckpt_bytes, "run_s": {"a": a_s, "b": b_s, "w8a8": w8_s}},
+            "eval": {"image": image, "tokens": tokens, "run_s": {"image": image_s, "tokens": tokens_s}},
+            "launches": launches,
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     """A free TCP port on 127.0.0.1 (bound, then released for the server)."""
     import socket
@@ -3379,9 +3769,11 @@ def main() -> int:
     codec_train = phase_codec_train(tag)
     ddp = phase_ddp(tag)
     fsdp = phase_fsdp(tag)
+    production = phase_production(tag)
     launches = {}
     for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], entry_point["launches"],
-                   int8["launches"], train["launches"], driver["launches"], codec_train["launches"], fsdp["launches"]):
+                   int8["launches"], train["launches"], driver["launches"], codec_train["launches"], fsdp["launches"],
+                   production["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -3433,6 +3825,8 @@ def main() -> int:
         "driver": {k: v for k, v in driver.items() if k != "launches"},
         "codec_train": {k: v for k, v in codec_train.items() if k != "launches"}, "ddp": ddp,
         "fsdp": {k: v for k, v in fsdp.items() if k != "launches"},
+        "production": {"turns": production["turns"], "codec": production["codec"],
+                       "driver": production["driver"], "eval": production["eval"]},
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -168,6 +168,56 @@ def vqgan_state_dict_from_jax(variables: Mapping, cfg: VQConfig = VQConfig()) ->
     return sd
 
 
+def vqgan_variables_to_jax(state_dict: Mapping, cfg: VQConfig = VQConfig()) -> dict:
+    """The inverse of `vqgan_state_dict_from_jax`: a VQModel state dict
+    (tensors or numpy) -> the JAX VQModel's {params, batch_stats} tree of
+    float32 numpy arrays, the tree the JAX package's codec trainer saves as
+    codec_vars.npz (BatchNorm's num_batches_tracked has no JAX counterpart
+    and is left out)."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v) for k, v in state_dict.items()}
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)  # noqa: E731
+
+    def dense(prefix: str, bias: bool = True) -> dict:
+        w = sd[f"{prefix}.weight"]
+        out = {"kernel": f32((w[:, :, 0, 0] if w.ndim == 4 else w).T)}
+        if bias:
+            out["bias"] = f32(sd[f"{prefix}.bias"])
+        return out
+
+    def conv(prefix: str, transpose: bool = False) -> dict:
+        w = sd[f"{prefix}.weight"]  # (out, in/g, kh, kw); transposed: (in, out, kh, kw)
+        return {"kernel": f32(w.transpose((2, 3, 0, 1) if transpose else (2, 3, 1, 0))), "bias": f32(sd[f"{prefix}.bias"])}
+
+    def vq_res(prefix: str) -> dict:
+        return {"gammas": f32(sd[f"{prefix}.gammas"]), "depthwise": conv(f"{prefix}.depthwise.1"),
+                "fc1": dense(f"{prefix}.channelwise.0"), "fc2": dense(f"{prefix}.channelwise.2")}
+
+    params: dict = {"in_conv": dense("in_block.1")}
+    j = 0
+    for i in range(cfg.levels):
+        if i > 0:
+            params[f"down_conv_{i}"] = conv(f"down_blocks.{j}")
+            j += 1
+        params[f"down_res_{i}"] = vq_res(f"down_blocks.{j}")
+        j += 1
+    params["to_latent"] = dense(f"down_blocks.{j}.0", bias=False)
+    norm = f"down_blocks.{j}.1"
+    params["latent_norm"] = {"scale": f32(sd[f"{norm}.weight"]), "bias": f32(sd[f"{norm}.bias"])}
+    params["vquantizer"] = {"codebook": f32(sd["vquantizer.codebook.weight"])}
+    params["from_latent"] = dense("up_blocks.0.0")
+    j = 1
+    for i in range(cfg.levels):
+        for b in range(cfg.bottleneck_blocks if i == 0 else 1):
+            params[f"up_res_{i}_{b}"] = vq_res(f"up_blocks.{j}")
+            j += 1
+        if i < cfg.levels - 1:
+            params[f"up_conv_{i}"] = conv(f"up_blocks.{j}", transpose=True)
+            j += 1
+    params["out_conv"] = dense("out_block.0")
+    stats = {"latent_norm": {"mean": f32(sd[f"{norm}.running_mean"]), "var": f32(sd[f"{norm}.running_var"])}}
+    return {"params": params, "batch_stats": stats}
+
+
 def discriminator_state_dict_from_jax(variables: Mapping) -> StateDict:
     """The JAX codec Discriminator {params, batch_stats} (numpy leaves) -> the
     port's Discriminator state dict: each conv's kernel and bias, and its
