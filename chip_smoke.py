@@ -158,6 +158,19 @@ limit):
                the run's checkpoints, --n 32 --trend, in image space with
                --real-recon and in token space with the W8A8 twins (K1b);
                each run's JSON line, K1 / K1b / K3 / K4 launches, seconds
+ 22. examples  the JAX repo's examples as the port's entry points
+               (paella_tpu_torch/examples/), each main() in this process on
+               seeded full-width files (phase 12's writer): generate at the
+               flagship, 8 steps (the six calls at 256x256 and 256x512, each
+               call's ms, five graph captures, K1 / K3 / K4 launches, the
+               inpainted left half equal to the source's tokens);
+               train_minimal at v1_byt5_xl() f32 with the frozen ByT5-XL,
+               batch 8 at 256x256, 4 steps (losses, step ms, peak memory, two
+               12 GB checkpoints, K4 once a step); eval_quality's W8A8 proxy
+               on the denoiser file at a 64x64 latent (K1 and K1b W8A8), the
+               ByT5 proxy with its stress arm at byt5_small_like, the tiny
+               CLIP demo on the card
+Then a line of each phase's seconds.
 Generations run as captured CUDA graphs (sampling/graph.py): a counted
 generation captures its graph, so its wrappers count the warm-up's and the
 capture's launches (GRAPH_PASSES x one generation's), and the kernels of one
@@ -3321,6 +3334,172 @@ def phase_production(tag: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+EXAMPLE_STEPS = 8  # generate's --steps
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_BATCH = 4, 8  # train_minimal's --steps and --batch
+EXAMPLE_CALLS = ("text_to_image", "inpaint", "outpaint", "img2img", "text_to_image_b", "interpolate", "edited")
+# the structures generate's main captures: text_to_image (its second prompt
+# replays it), inpaint (a fixed mask), outpaint (another latent shape),
+# img2img (init_x) and the edit (cond_reweight)
+EXAMPLE_CAPTURES = 5
+PROXY_T_VALUES = 5  # quant.w8a8_quality_proxy's noise levels, one float and one W8A8 forward each
+
+
+def phase_examples(tag: str) -> dict:
+    """The JAX repo's examples as the port's entry points
+    (paella_tpu_torch/examples/), each main() called in this process as a
+    user calls it: generate at full width from seeded full-width files
+    (write_entry_checkpoints: the flagship denoiser, VQConfig(), ByT5-XL;
+    no CLIP tower, as in the JAX example), 8 steps at 256x256, its six
+    calls; train_minimal on the same codec and ByT5-XL files at the
+    released v1_byt5_xl() (f32, dropout 0.1), batch 8 at 256x256, 4 steps
+    with checkpoints at 2 and 4; eval_quality's W8A8 proxy on the denoiser
+    file at a 64x64 latent (K1 against K1b W8A8), the ByT5 proxy with its
+    stress arm at the byt5_small_like geometry, and the tiny CLIP demo.
+    Every model is freed before the next; the files are removed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paella_tpu_torch import PaellaPipeline
+    from paella_tpu_torch.examples import eval_quality, generate, train_minimal
+    from paella_tpu_torch.sampling import graph
+
+    result = {"launches": {}}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            result["launches"][k] = result["launches"].get(k, 0) + n
+
+    d = tempfile.mkdtemp(prefix="paella_examples_")
+    tapped = PaellaPipeline._decode_clipped
+    try:
+        t0 = time.perf_counter()
+        paths = write_entry_checkpoints(d, torch.Generator("cuda").manual_seed(31))["paths"]
+        print(f"[examples] seeded full-width files written in {time.perf_counter() - t0:.1f} s")
+
+        # generate: the six calls, with the token grids on their way to the decoder
+        taps = []
+        PaellaPipeline._decode_clipped = lambda self, tokens: (taps.append(tokens), tapped(self, tokens))[1]
+        captures = graph.captures
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: generate.main([
+            "--vqgan", paths["vqgan"], "--denoiser", paths["denoiser"], "--byt5", paths["byt5"],
+            "--steps", str(EXAMPLE_STEPS), "--out", os.path.join(d, "gen")]))
+        gen_s = time.perf_counter() - t0
+        PaellaPipeline._decode_clipped = tapped
+        captures = graph.captures - captures
+        images, ms, pipe = out["images"], out["ms"], out["pipeline"]
+        print(f"[examples] generate (build_pipeline from the files + six calls) in {gen_s:.1f} s: "
+              + ", ".join(f"{k} {tuple(images[k].shape)} {ms[k]:.1f} ms" for k in EXAMPLE_CALLS)
+              + f"; graphs captured {captures}; launches {json.dumps(launches)} ({tag})")
+        shapes = {k: tuple(v.shape) for k, v in images.items()}
+        want = {k: (1, 256, 256, 3) for k in EXAMPLE_CALLS}
+        want.update(outpaint=(1, 256, 512, 3), interpolate=(5, 256, 256, 3))
+        check(shapes == want, f"generate shapes {shapes}")
+        for k, v in images.items():
+            check(bool(torch.isfinite(v).all()) and 0.0 <= v.min().item() <= v.max().item() <= 1.0,
+                  f"generate {k}: not finite or outside [0, 1]")
+        check(captures == EXAMPLE_CAPTURES, f"generate captured {captures} graphs, want {EXAMPLE_CAPTURES}")
+        forwards = GRAPH_PASSES * EXAMPLE_CAPTURES * EXAMPLE_STEPS
+        check_launches("generate", launches, {
+            "fused_resblock[float]": forwards * K1_PER_FORWARD, "fused_resblock[int8]": 0, "fused_resblock[w8a8]": 0,
+            "gumbel_categorical": forwards,
+            "fused_codebook_lookup": 6,  # the encodes of inpaint, outpaint and img2img; interpolate's two and its requantization
+            "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0})
+        # inpaint (the second decode) kept the left half of the latent: the source's tokens there
+        keep = torch.zeros(1, 64, 64, dtype=torch.bool, device="cuda")
+        keep[:, :, :32] = True
+        source = pipe.encode_image_tokens(images["text_to_image"])
+        check(torch.equal(taps[1][keep], source[keep]), "generate: inpaint's kept tokens differ from the encoded source")
+        print(f"[examples] generate: inpaint's {int(keep.sum())} kept tokens equal the source image's encoded tokens")
+        add(launches)
+        result["generate"] = {"ms": ms, "s": gen_s, "captures": captures}
+        del out, images, pipe, taps, source
+        graph.clear()
+        torch.cuda.empty_cache()
+
+        # train_minimal: the released v1_byt5_xl() with the frozen ByT5-XL
+        workdir = os.path.join(d, "train")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, launches = counted(lambda: train_minimal.main([
+            "--vqgan", paths["vqgan"], "--byt5", paths["byt5"], "--steps", str(EXAMPLE_TRAIN_STEPS),
+            "--batch", str(EXAMPLE_TRAIN_BATCH), "--workdir", workdir]))
+        train_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        recs = jsonl(os.path.join(workdir, "metrics.jsonl"))
+        losses = [r["loss"] for r in recs if "loss" in r]
+        steps_ms = driver_steps_ms(recs, 1, EXAMPLE_TRAIN_STEPS)
+        saves = sorted(int(s) for s in os.listdir(os.path.join(workdir, "checkpoints")))
+        save_s = [r["checkpoint_s"] for r in recs if "checkpoint_s" in r]
+        ckpt_bytes = os.path.getsize(os.path.join(workdir, "checkpoints", str(saves[-1]), "state.pt"))
+        print(f"[examples] train_minimal (v1_byt5_xl() f32, frozen ByT5-XL, batch {EXAMPLE_TRAIN_BATCH} at 256x256, "
+              f"{EXAMPLE_TRAIN_STEPS} steps) in {train_s:.1f} s: losses {[round(v, 4) for v in losses]}; step ms "
+              f"{[round(v, 1) for v in steps_ms]} for steps 2-4 (median {sorted(steps_ms)[len(steps_ms) // 2]:.1f}; step "
+              f"3's includes the step-2 save); checkpoints {saves}, {ckpt_bytes / 1e9:.2f} GB each, saved in "
+              f"{[round(v, 2) for v in save_s]} s; peak {peak:.2f} GiB; launches {json.dumps(launches)} ({tag})")
+        check(int(state.step) == EXAMPLE_TRAIN_STEPS, f"train_minimal ended at step {state.step}")
+        check(len(losses) == EXAMPLE_TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"train_minimal losses {losses}")
+        check(saves == [2, 4], f"train_minimal checkpoints {saves}, want [2, 4]")
+        check_launches("train_minimal", launches, {
+            "fused_codebook_lookup": EXAMPLE_TRAIN_STEPS, "fused_resblock": 0, "gumbel_categorical": 0,
+            "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0})
+        add(launches)
+        result["train_minimal"] = {"s": train_s, "losses": losses, "step_ms": steps_ms, "peak_gib": peak,
+                                   "checkpoint_bytes": ckpt_bytes, "checkpoint_s": save_s}
+        del state
+        torch.cuda.empty_cache()
+
+        # eval_quality: the W8A8 proxy on the denoiser file (K1 vs K1b W8A8, 64x64 latent)
+        t0 = time.perf_counter()
+        (rows, ok), launches = counted(lambda: eval_quality.main(["--w8a8-proxy", "--ckpt", paths["denoiser"]]))
+        proxy_s = time.perf_counter() - t0
+        print(f"[examples] eval_quality --w8a8-proxy --ckpt (v1_byt5_xl() bf16 compute, 64x64 latent) in "
+              f"{proxy_s:.1f} s: rows {json.dumps(rows)}; verdict {'PASS' if ok else 'FAIL'}; launches "
+              f"{json.dumps(launches)} ({tag})")
+        check(len(rows) == PROXY_T_VALUES and all(math.isfinite(v) for r in rows for v in r.values()),
+              f"W8A8 proxy rows {rows}")
+        check_launches("eval_quality --w8a8-proxy", launches, {
+            "fused_resblock[float]": PROXY_T_VALUES * K1_PER_FORWARD, "fused_resblock[w8a8]": PROXY_T_VALUES * K1_PER_FORWARD,
+            "fused_resblock[int8]": 0, "gumbel_categorical": 0, "fused_codebook_lookup": 0})
+        add(launches)
+        result["w8a8_proxy"] = {"s": proxy_s, "rows": rows, "pass": ok}
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        (arms, ok), launches = counted(lambda: eval_quality.main(["--byt5-w8a8-proxy", "--stress", "--geometry", "small"]))
+        byt5_s = time.perf_counter() - t0
+        print(f"[examples] eval_quality --byt5-w8a8-proxy --stress --geometry small in {byt5_s:.1f} s: "
+              f"{json.dumps(arms)}; verdict {'PASS' if ok else 'FAIL'}; launches {json.dumps(launches)} ({tag})")
+        check(list(arms) == ["synthetic", "synthetic_outliers"], f"ByT5 proxy arms {list(arms)}")
+        check(all(math.isfinite(v) for rs in arms.values() for r in rs for v in r.values()), "ByT5 proxy rows not finite")
+        check(launches["fused_resblock[float]"] > 0 and launches["fused_resblock[w8a8]"] == 0, "ByT5 proxy launches")
+        add(launches)
+        result["byt5_proxy"] = {"s": byt5_s, "arms": arms, "pass": ok}
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        demo, launches = counted(lambda: eval_quality.main([]))
+        demo_s = time.perf_counter() - t0
+        scores = demo["scores"].tolist()
+        print(f"[examples] eval_quality tiny demo on the card in {demo_s:.1f} s: CLIP scores {scores}, CLIP-FID "
+              f"{demo['fid']}; launches {json.dumps(launches)} ({tag})")
+        check(all(math.isfinite(v) for v in scores) and math.isfinite(demo["fid"]), "tiny demo scores")
+        check(launches["fused_resblock[float]"] > 0 and launches["gumbel_categorical"] == GRAPH_PASSES * 4,
+              "tiny demo launches")
+        add(launches)
+        result["demo"] = {"s": demo_s, "scores": scores, "fid": demo["fid"]}
+        del demo
+        graph.clear()
+        torch.cuda.empty_cache()
+    finally:
+        PaellaPipeline._decode_clipped = tapped
+        shutil.rmtree(d, ignore_errors=True)
+    return result
+
+
 def free_port() -> int:
     """A free TCP port on 127.0.0.1 (bound, then released for the server)."""
     import socket
@@ -3747,33 +3926,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = card()
-    build = phase_build(tag)
-    k1 = phase_k1(tag)
-    k2 = phase_k2(tag)
-    k3 = phase_k3(tag)
-    k4 = phase_k4(tag)
-    e2e = phase_e2e(tag)
-    pipe = phase_pipeline(tag)
-    phase_small_reference(tag)
-    k5 = phase_k5(tag)
-    k6 = phase_k6(tag)
-    attn = phase_attention_e2e(tag)
-    served = phase_serve(tag)
-    c5 = phase_c5(tag)
-    entry_point = phase_entry(tag)
-    k1b = phase_k1b(tag)
-    int8 = phase_int8_e2e(tag)
-    graphs = phase_graph(tag)
-    train = phase_train(tag)
-    driver = phase_driver(tag, train["step_ms"])
-    codec_train = phase_codec_train(tag)
-    ddp = phase_ddp(tag)
-    fsdp = phase_fsdp(tag)
-    production = phase_production(tag)
+    phase_s = {}
+
+    def timed(fn, *args):
+        """fn(*args), its seconds kept under the phase's name."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__.removeprefix("phase_")] = round(time.perf_counter() - t0, 1)
+        return out
+
+    build = timed(phase_build, tag)
+    k1 = timed(phase_k1, tag)
+    k2 = timed(phase_k2, tag)
+    k3 = timed(phase_k3, tag)
+    k4 = timed(phase_k4, tag)
+    e2e = timed(phase_e2e, tag)
+    pipe = timed(phase_pipeline, tag)
+    timed(phase_small_reference, tag)
+    k5 = timed(phase_k5, tag)
+    k6 = timed(phase_k6, tag)
+    attn = timed(phase_attention_e2e, tag)
+    served = timed(phase_serve, tag)
+    c5 = timed(phase_c5, tag)
+    entry_point = timed(phase_entry, tag)
+    k1b = timed(phase_k1b, tag)
+    int8 = timed(phase_int8_e2e, tag)
+    graphs = timed(phase_graph, tag)
+    train = timed(phase_train, tag)
+    driver = timed(phase_driver, tag, train["step_ms"])
+    codec_train = timed(phase_codec_train, tag)
+    ddp = timed(phase_ddp, tag)
+    fsdp = timed(phase_fsdp, tag)
+    production = timed(phase_production, tag)
+    examples = timed(phase_examples, tag)
+    print(f"[time] seconds by phase: {json.dumps(phase_s)}; {sum(phase_s.values()):.1f} s in all ({tag})")
     launches = {}
     for counts in (e2e["launches"], pipe["launches"], attn["launches"], served["launches"], entry_point["launches"],
                    int8["launches"], train["launches"], driver["launches"], codec_train["launches"], fsdp["launches"],
-                   production["launches"]):
+                   production["launches"], examples["launches"]):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -3827,6 +4017,7 @@ def main() -> int:
         "fsdp": {k: v for k, v in fsdp.items() if k != "launches"},
         "production": {"turns": production["turns"], "codec": production["codec"],
                        "driver": production["driver"], "eval": production["eval"]},
+        "examples": {k: v for k, v in examples.items() if k != "launches"}, "phase_s": phase_s,
     }))
     print(tag)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
