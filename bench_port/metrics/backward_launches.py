@@ -1,0 +1,9 @@
+"""Kernels launched inside the program's `train.backward` ranges (autograd's
+thread included), per `train.step` range of the profiled slice with the
+host (core/program.py)."""
+
+from bench_port.core import program
+
+
+def read(run, metric):
+    return program.launches(run, "train.backward", per="train.step")

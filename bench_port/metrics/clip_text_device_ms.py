@@ -1,0 +1,10 @@
+"""The CLIP text tower's device time a request: the union of the device
+intervals launched inside the program's `cond.clip_text` ranges, over the
+`serve.request` ranges of the profiled slice with the host, in ms
+(core/program.py)."""
+
+from bench_port.core import program
+
+
+def read(run, metric):
+    return program.device_ms(run, "cond.clip_text", per="serve.request")

@@ -13,6 +13,11 @@ batched JAX key, so the same seed pairs give the same draws in both packages
 Weights live in the modules (`model`, `vq`); the pipeline runs on the
 model's device. Conditioning encoders are callables, as in the JAX package;
 text is padded to bucket sizes, and text conditioning is kept in an LRU.
+
+Spans (utils/tracing.py): pipeline.tokenize (ByT5 tokenization, padding and
+the host->device copy), cond.byt5 / cond.clip_text / cond.clip_image (the
+encoder callables), pipeline.decode (the clipped decode); counters
+text_cache.hit and text_cache.miss, one per LRU lookup.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from .cond.tokenizers import byt5_batch_encode, pad_bucket
 from .config import SampleConfig
 from .models.denoiser import Paella
 from .sampling.sampler import Conditioning, interpolate_latents, linspace_f32, outpaint_canvas, sample
+from .utils import tracing
 
 
 @dataclasses.dataclass
@@ -67,6 +73,9 @@ class PaellaPipeline:
         hit = self._text_cache.get(key)
         if hit is not None:
             self._text_cache.move_to_end(key)
+            tracing.count("text_cache.hit")
+        else:
+            tracing.count("text_cache.miss")
         return hit
 
     # -- conditioning ------------------------------------------------------
@@ -77,14 +86,16 @@ class PaellaPipeline:
         hit = self._recall(key)
         if hit is not None:
             return hit
-        ids, mask = byt5_batch_encode(prompts, max_length=self.byt5_max_length)
-        pad = pad_bucket(ids.shape[1]) - ids.shape[1]
-        if pad > 0:
-            ids = np.pad(ids, ((0, 0), (0, pad)))
-            mask = np.pad(mask, ((0, 0), (0, pad)))
-        ids_t = torch.from_numpy(ids).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
-        out = (self.byt5_encode_fn(ids_t, mask_t), mask_t)
+        with tracing.span("pipeline.tokenize"):
+            ids, mask = byt5_batch_encode(prompts, max_length=self.byt5_max_length)
+            pad = pad_bucket(ids.shape[1]) - ids.shape[1]
+            if pad > 0:
+                ids = np.pad(ids, ((0, 0), (0, pad)))
+                mask = np.pad(mask, ((0, 0), (0, pad)))
+            ids_t = torch.from_numpy(ids).to(self.device)
+            mask_t = torch.from_numpy(mask).to(self.device)
+        with tracing.span("cond.byt5"):
+            out = (self.byt5_encode_fn(ids_t, mask_t), mask_t)
         self._remember(key, out)
         return out
 
@@ -98,10 +109,13 @@ class PaellaPipeline:
             if hit is not None:
                 return hit
         byt5, byt5_mask = self.encode_text(prompts)
-        clip = self.clip_text_fn(prompts) if self.clip_text_fn is not None else None
-        clip_image = (
-            self.clip_image_fn(images) if (self.clip_image_fn is not None and images is not None) else None
-        )
+        clip = clip_image = None
+        if self.clip_text_fn is not None:
+            with tracing.span("cond.clip_text"):
+                clip = self.clip_text_fn(prompts)
+        if self.clip_image_fn is not None and images is not None:
+            with tracing.span("cond.clip_image"):
+                clip_image = self.clip_image_fn(images)
         out = Conditioning(byt5=byt5, byt5_mask=byt5_mask, clip=clip, clip_image=clip_image)
         if images is None:
             self._remember(key, out)
@@ -127,7 +141,8 @@ class PaellaPipeline:
 
     def _decode_clipped(self, tokens: torch.Tensor) -> torch.Tensor:
         """decode, clipped to [0, 1]: the generation paths' deliverable."""
-        return self.decode(tokens).float().clamp(0.0, 1.0)
+        with tracing.span("pipeline.decode"):
+            return self.decode(tokens).float().clamp(0.0, 1.0)
 
     def encode_image_tokens(self, images) -> torch.Tensor:
         """Image (B, H, W, 3) -> token grid (B, H/4, W/4) via the frozen codec

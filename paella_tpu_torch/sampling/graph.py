@@ -22,7 +22,14 @@ ordered after the caller's current stream and before it again, under one
 lock: so a graph never replays on two streams at once, and the scratch a
 kernel keeps per stream (kernels/_build.py::stream_scratch) is shared only
 by calls that never overlap. The kernels' Python launch counters tick in the
-warm-up and in the capture, never in a replay.
+warm-up and in the capture, never in a replay: a graph keeps what its
+capture added to each, and each replay adds that to the recorder's
+`launches.<wrapper>` counters (utils/tracing.py).
+
+Recorded (utils/tracing.py): spans graph.replay (the input copies and the
+replay) and graph.capture (the eager warm-up and the capture), counters
+graph.hit, graph.miss and graph.evicted, and the gauge graph.pool_bytes,
+the sum of `pool_bytes()`.
 """
 from __future__ import annotations
 
@@ -35,7 +42,9 @@ from typing import Callable
 
 import torch
 
+from ..kernels import launch_counts
 from ..nn.blocks import DerivedWeights
+from ..utils import tracing
 
 # Graphs kept, least recently used dropped first. The structures a process
 # cycles through: a PaellaServer pads its micro-batches to 1, 2, 4 or 8 images
@@ -57,6 +66,7 @@ class _Graph:
     inputs: dict  # the static input buffers (None where absent)
     output: torch.Tensor
     pool_bytes: int  # device memory reserved while it was captured: its private pool
+    launches: dict  # "launches.<wrapper>" -> the wrapper's calls in the capture: one replay's launches
 
 
 def graph_key(model, structure, inputs: dict) -> tuple:
@@ -78,18 +88,27 @@ def run(body: Callable, model, structure, inputs: dict) -> torch.Tensor:
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
             entry = _GRAPHS.get(key)
-            if entry is None or entry.model() is not model:
+            missed = entry is None or entry.model() is not model
+            if missed:
+                tracing.count("graph.miss")
                 _drop_stale(key)
-                out, _GRAPHS[key] = _capture(body, model, structure, inputs)
+                with tracing.span("graph.capture"):
+                    out, _GRAPHS[key] = _capture(body, model, structure, inputs)
             else:
+                tracing.count("graph.hit")
                 _GRAPHS.move_to_end(key)
-                for name, t in inputs.items():
-                    if t is not None:
-                        entry.inputs[name].copy_(t)
-                entry.graph.replay()
-                out = entry.output.clone()
+                with tracing.span("graph.replay"):
+                    for name, t in inputs.items():
+                        if t is not None:
+                            entry.inputs[name].copy_(t)
+                    entry.graph.replay()
+                    out = entry.output.clone()
+                for name, n in entry.launches.items():
+                    tracing.count(name, n)
         caller.wait_stream(stream)
         out.record_stream(caller)
+    if missed:
+        tracing.gauge("graph.pool_bytes", sum(pool_bytes()))
     return out
 
 
@@ -101,6 +120,7 @@ def _capture(body: Callable, model, structure, inputs: dict) -> tuple[torch.Tens
     graph = torch.cuda.CUDAGraph()
     device = inputs["seeds"].device
     before = torch.cuda.memory_reserved(device)
+    calls = launch_counts()
     graph.capture_begin(capture_error_mode="thread_local")
     try:
         output = body(model, structure, static)
@@ -110,18 +130,23 @@ def _capture(body: Callable, model, structure, inputs: dict) -> tuple[torch.Tens
         raise
     graph.capture_end()
     captures += 1
-    return out, _Graph(weakref.ref(model), graph, static, output, torch.cuda.memory_reserved(device) - before)
+    launches = {f"launches.{k}": n - calls[k] for k, n in launch_counts().items() if n != calls[k]}
+    return out, _Graph(weakref.ref(model), graph, static, output, torch.cuda.memory_reserved(device) - before,
+                       launches)
 
 
 def _drop_stale(key: tuple) -> None:
     """Drop the graph under `key` (its model is gone), the graphs captured
     before the derived-weight generation moved, whose weights may no longer
     exist, and the least recently used past MAX_GRAPHS - 1."""
+    n = len(_GRAPHS)
     _GRAPHS.pop(key, None)
     for k in [k for k, g in _GRAPHS.items() if k[2] != DerivedWeights.generation or g.model() is None]:
         del _GRAPHS[k]
     while len(_GRAPHS) >= MAX_GRAPHS:
         _GRAPHS.popitem(last=False)
+    if len(_GRAPHS) < n:
+        tracing.count("graph.evicted", n - len(_GRAPHS))
 
 
 def pool_bytes() -> list:
@@ -134,3 +159,4 @@ def clear() -> None:
     """Drop every graph kept (their pools return to the allocator's cache)."""
     with _LOCK:
         _GRAPHS.clear()
+        tracing.gauge("graph.pool_bytes", 0)

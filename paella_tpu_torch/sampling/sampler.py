@@ -46,6 +46,7 @@ from ..kernels.sampling import Scalar, fused_head_categorical, gumbel_categorica
 from ..kernels.sampling import hash_bits as _hash_bits
 from ..kernels.sampling import hash_uniform as _hash_uniform
 from ..kernels.sampling import mix32 as _mix32
+from ..utils import tracing
 from . import graph
 
 _M32 = 0xFFFFFFFF
@@ -331,12 +332,14 @@ def sample(
     every call of the same structure (sampling/graph.py); :func:`sample_eager`
     runs the same work op by op.
     """
-    structure, inputs = prepare_sample(
-        model, seeds, conditioning, latent_shape, unconditional, config, init_x, fixed_mask, fixed_tokens, cond_reweight
-    )
-    if inputs["seeds"].device.type == "cuda":
-        return graph.run(sample_body, model, structure, inputs)
-    return sample_body(model, structure, inputs)
+    with tracing.span("sample"):
+        structure, inputs = prepare_sample(
+            model, seeds, conditioning, latent_shape, unconditional, config, init_x, fixed_mask, fixed_tokens,
+            cond_reweight,
+        )
+        if inputs["seeds"].device.type == "cuda":
+            return graph.run(sample_body, model, structure, inputs)
+        return sample_body(model, structure, inputs)
 
 
 def sample_eager(

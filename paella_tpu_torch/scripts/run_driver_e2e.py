@@ -256,15 +256,15 @@ def load_codec(vq, path: str) -> None:
 
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count in this process (K1 and K1b also
-    by mode) and its plain version's, which a run on the card keeps at 0."""
-    from ..kernels import attention, attn_block, quantize, resblock, sampling
+    by mode) and its plain version's, which a run on the card keeps at 0;
+    beside them, as `launches.<wrapper>`, the launches of the sampler's
+    graph replays, which no wrapper sees (utils/tracing.py's counters)."""
+    from ..kernels import launch_counts, resblock
+    from ..utils import tracing
 
-    fns = (resblock.fused_resblock, sampling.fused_head_categorical, sampling.gumbel_categorical,
-           quantize.fused_codebook_lookup, attention.fused_attention, attn_block.fused_attn_block,
-           resblock.resblock_plain, sampling.head_categorical_plain, sampling.gumbel_categorical_plain,
-           quantize.codebook_lookup_plain, attention.attention_plain, attn_block.attn_block_plain)
-    out = {f.__name__: f.launches for f in fns}
+    out = launch_counts()
     out.update({f"fused_resblock[{m}]": n for m, n in resblock.fused_resblock.launches_by_mode.items()})
+    out.update({k: n for k, n in tracing.snapshot()["counters"].items() if k.startswith("launches.")})
     return out
 
 

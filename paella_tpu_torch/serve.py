@@ -7,6 +7,15 @@ negative prompts and optional micro-batching.
                      "negative_prompt": "...", "cfg": 8.0,
                      "width": 256, "height": 256}        -> image/png
     GET  /healthz                                        -> 200 ok
+    GET  /stats                                          -> {"counters": {...}, "gauges": {...}}
+
+/stats is the process's counters and gauges (utils/tracing.py): requests
+served and failed, micro-batches and their images, text-cache hits and
+misses, sampler graph hits, misses and evictions, the graphs' pool bytes
+and the kernels launched by graph replays. The server's layers open spans
+(serve.request, its lock wait, the device->host copy, the PNG encode; with
+micro-batching each request's queue wait and the batch), which the
+recorder keeps while it is on.
 
 A dispatch lock serializes only the host-side dispatch (conditioning, sampler
 and decode, queued on the device); the device->host copy and the PNG encode
@@ -35,6 +44,7 @@ Checkpoint files -> a pipeline: `build_pipeline`; from the command line
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -53,6 +63,7 @@ from .cond.tokenizers import byt5_batch_encode, pad_bucket
 from .config import SampleConfig
 from .pipeline import PaellaPipeline
 from .sampling.sampler import sample
+from .utils import tracing
 
 _seed_counter = itertools.count()
 
@@ -125,6 +136,8 @@ class _Job:
     done: threading.Event
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
+    enqueued_ns: int = 0
+    at: Optional[tuple] = None  # the request's span (tracing.here()), for the batcher's threads
 
 
 def _text_bucket(text: str, max_length: int) -> int:
@@ -186,12 +199,22 @@ class PaellaServer:
         negative = req.get("negative_prompt")
         cfg = SampleConfig(steps=int(req.get("steps", 8)), cfg=req.get("cfg", 8.0))
         hw = (int(req.get("height", 256)), int(req.get("width", 256)))
-        with self._dispatch_lock:
+        with self._locked():
             img = self.pipeline.text_to_image(
                 [prompt], request_seeds([seed]), hw, cfg, negative_prompts=[negative] if negative else None
             )
             img = to_uint8(img[0])
-        return img.cpu().numpy()  # the device->host copy outside the lock
+        with tracing.span("serve.to_host"):
+            return img.cpu().numpy()  # the device->host copy outside the lock
+
+    @contextlib.contextmanager
+    def _locked(self):
+        with tracing.span("serve.lock_wait"):
+            self._dispatch_lock.acquire()
+        try:
+            yield
+        finally:
+            self._dispatch_lock.release()
 
     # -- micro-batching path ------------------------------------------------
 
@@ -217,12 +240,17 @@ class PaellaServer:
                 (jobs if _batch_key(j.req, max_length) == key else incompatible).append(j)
             for j in incompatible:
                 self._queue.put(j)  # the next round forms their batch
+            formed = time.perf_counter_ns()
+            for j in jobs:
+                tracing.record("serve.queue_wait", j.enqueued_ns, formed, at=j.at)
             self._run_batch(jobs, key)
 
     def _run_batch(self, jobs, key):
         steps, cfg_w, h, w = key[:4]
+        n = len(jobs)
+        tracing.count("serve.batches")
+        tracing.count("serve.batch_images", n)
         try:
-            n = len(jobs)
             b = 1
             while b < n:
                 b *= 2  # power-of-two batches
@@ -232,7 +260,8 @@ class PaellaServer:
             # slots take seed 0; their tokens are dropped)
             seeds = request_seeds([int(j.req.get("seed", _fresh_seed())) for j in jobs] + [0] * (b - n))
             pipe = self.pipeline
-            with self._dispatch_lock:
+            ids = [j.at[1] for j in jobs if j.at is not None]
+            with tracing.span("serve.batch", requests=ids, size=n), self._locked():
                 cond = pipe.conditioning(prompts)
                 # a job without a negative prompt gets "", the single path's
                 # null conditioning
@@ -255,7 +284,8 @@ class PaellaServer:
     def _finish_batch(jobs, imgs):
         try:
             for j, img in zip(jobs, imgs):
-                j.result = img.cpu().numpy()
+                with tracing.span("serve.to_host", at=j.at):
+                    j.result = img.cpu().numpy()
             for j in jobs:
                 j.done.set()
         except Exception as e:
@@ -264,15 +294,26 @@ class PaellaServer:
                 j.done.set()
 
     def generate(self, req: dict) -> bytes:
+        tracing.count("serve.requests")
+        try:
+            with tracing.span("serve.request", new_request=True):
+                img = self._generate(req)
+                with tracing.span("serve.png"):
+                    return png_bytes(img)
+        except Exception:
+            tracing.count("serve.failed")
+            raise
+
+    def _generate(self, req: dict) -> np.ndarray:
         if self.max_batch <= 1 or self._batcher is None:
-            return png_bytes(self._generate_single(req))
-        job = _Job(req, threading.Event())
+            return self._generate_single(req)
+        job = _Job(req, threading.Event(), enqueued_ns=time.perf_counter_ns(), at=tracing.here())
         self._queue.put(job)
         if not job.done.wait(timeout=3600):
             raise TimeoutError("generation timed out")
         if job.error is not None:
             raise job.error
-        return png_bytes(job.result)
+        return job.result
 
     def warmup(self, image_hw=(256, 256), steps: int = 8):
         """Build the kernels, fill the caches and, on a CUDA device, capture
@@ -298,6 +339,10 @@ class PaellaServer:
             def do_GET(self):
                 if self.path == "/healthz":
                     self._reply(200, "text/plain", b"ok")
+                elif self.path == "/stats":
+                    snap = tracing.snapshot()
+                    body = json.dumps({"counters": snap["counters"], "gauges": snap["gauges"]})
+                    self._reply(200, "application/json", body.encode())
                 else:
                     self.send_error(404)
 

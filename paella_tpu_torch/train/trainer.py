@@ -10,6 +10,14 @@ over `grad_accum_steps` microbatches; then one `AdamW` update. The JAX step
 takes a key and splits it; here every draw of a microbatch (`Draws`) can be
 pinned from outside, and what is not pinned comes from the state's
 `torch.Generator`, so a test can feed the JAX package's draws to this step.
+
+Spans (utils/tracing.py): train.step, and under it per microbatch
+train.encode (the frozen codec's encode), train.noise (conditioning
+dropout, t, the noising and the loss weights), train.forward, train.loss
+and train.backward, then train.allreduce (loss and acc over the ranks) and
+train.optimizer (`AdamW.step` and the derived weights' drop); train.sync
+covers each host read that waits for the device (the dropout seed drawn
+when not pinned, AdamW's non-finite test and its clipping test).
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 
 from ..config import TrainConfig
 from ..models.noise import add_noise, get_loss_weight
+from ..utils import tracing
 
 
 @dataclasses.dataclass
@@ -144,20 +153,25 @@ def loss_fn(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, dra
     place of `model.forward_train` (a DDP wrapper of it, parallel/mesh.py)."""
     draws = Draws() if draws is None else draws
     b, dev = batch.images.shape[0], batch.images.device
-    byt5, byt5_mask, clip, clip_image, clip_image_mask = apply_cond_dropout(cfg, batch, null, draws, generator)
-    if draws.u is None:
-        draws.u = torch.rand(b, generator=generator, device=dev)
-    t = torch.clamp(1.0 - draws.u + cfg.t_min, cfg.t_min, 1.0)  # reference: src_distributed/train.py:99
-    latents = vq_model.encode(batch.images)[2]  # frozen: encode runs under no_grad
-    noised, mask = add_noise(latents, t, model.config.num_labels, generator, draws.noise_mask, draws.random_x)
-    weight = get_loss_weight(t, mask, cfg.loss_weight_min)
+    with tracing.span("train.encode"):
+        latents = vq_model.encode(batch.images)[2]  # frozen: encode runs under no_grad
+    with tracing.span("train.noise"):
+        byt5, byt5_mask, clip, clip_image, clip_image_mask = apply_cond_dropout(cfg, batch, null, draws, generator)
+        if draws.u is None:
+            draws.u = torch.rand(b, generator=generator, device=dev)
+        t = torch.clamp(1.0 - draws.u + cfg.t_min, cfg.t_min, 1.0)  # reference: src_distributed/train.py:99
+        noised, mask = add_noise(latents, t, model.config.num_labels, generator, draws.noise_mask, draws.random_x)
+        weight = get_loss_weight(t, mask, cfg.loss_weight_min)
     if draws.dropout_seed is None:
-        draws.dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
+        with tracing.span("train.sync"):
+            draws.dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
     forward = model.forward_train if forward is None else forward
-    logits = forward(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask,
-                     clip_image_mask=clip_image_mask, dropout_seed=draws.dropout_seed)
-    loss = smoothed_weighted_ce(logits, latents, weight, cfg.label_smoothing)
-    acc = (logits.argmax(dim=-1) == latents).float().mean()
+    with tracing.span("train.forward"):
+        logits = forward(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask,
+                         clip_image_mask=clip_image_mask, dropout_seed=draws.dropout_seed)
+    with tracing.span("train.loss"):
+        loss = smoothed_weighted_ce(logits, latents, weight, cfg.label_smoothing)
+        acc = (logits.argmax(dim=-1) == latents).float().mean()
     return loss, acc
 
 
@@ -227,7 +241,9 @@ class AdamW(torch.optim.Optimizer):
             for group in self.param_groups:
                 group["nonfinite_skips"] += 1
             return {"grad_norm": norm, "skipped": True}
-        if not bool(norm < cfg.grad_clip):  # optax: g / norm * max_norm
+        with tracing.span("train.sync"):
+            clip = not bool(norm < cfg.grad_clip)
+        if clip:  # optax: g / norm * max_norm
             grads = torch._foreach_div(grads, norm)
             torch._foreach_mul_(grads, cfg.grad_clip)
         count = self.count + 1
@@ -298,7 +314,9 @@ def _global_norm(params: list, grads: list) -> tuple:
     peak = torch.stack(torch._foreach_norm([g for g in grads if g.numel()], float("inf")))
     dtensor = _dtensor_type()
     if dtensor is None or not any(isinstance(p, dtensor) for p in params):
-        return sq.sum().sqrt(), not bool(torch.isfinite(peak).all())
+        norm = sq.sum().sqrt()
+        with tracing.span("train.sync"):
+            return norm, not bool(torch.isfinite(peak).all())
     import torch.distributed as dist
 
     mesh = next(p.device_mesh for p in params if isinstance(p, dtensor))
@@ -308,7 +326,9 @@ def _global_norm(params: list, grads: list) -> tuple:
     sums = torch.stack([torch.where(owned, sq, 0.0).sum(), (~torch.isfinite(peak)).sum().float()])
     for d in range(mesh.ndim):
         dist.all_reduce(sums, group=mesh.get_group(d))
-    return sums[0].sqrt(), bool(sums[1] > 0)
+    norm = sums[0].sqrt()
+    with tracing.span("train.sync"):
+        return norm, bool(sums[1] > 0)
 
 
 @dataclasses.dataclass
@@ -375,27 +395,32 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None, mesh=None):
         draws = [Draws() for _ in range(n)] if draws is None else list(draws)
         if len(draws) != n:
             raise ValueError(f"train_step: {len(draws)} Draws for {n} microbatches")
-        params = [p for g in state.optimizer.param_groups for p in g["params"]]
-        for p in params:
-            p.grad = None
-        loss = acc = 0.0
-        for i, (mb, d) in enumerate(zip(batch.split(n) if n > 1 else [batch], draws)):
-            if mesh is not None:
-                model.set_requires_all_reduce(i == n - 1)
-            with ddp.no_sync() if ddp is not None and i < n - 1 else contextlib.nullcontext():
-                mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator, forward=ddp)
-                mb_loss.backward()
-            loss, acc = loss + mb_loss.detach(), acc + mb_acc
-        if n > 1:
+        with tracing.span("train.step"):
+            params = [p for g in state.optimizer.param_groups for p in g["params"]]
             for p in params:
-                if p.grad is not None:
-                    p.grad.div_(n)
-            loss, acc = loss / n, acc / n
-        if ddp is not None or mesh is not None:
-            loss, acc = _mean_over_ranks(torch.stack([loss, acc]), ddp.process_group if ddp is not None else None, mesh)
-        out = state.optimizer.step()
-        if not out["skipped"]:
-            model.drop_derived()
+                p.grad = None
+            loss = acc = 0.0
+            for i, (mb, d) in enumerate(zip(batch.split(n) if n > 1 else [batch], draws)):
+                if mesh is not None:
+                    model.set_requires_all_reduce(i == n - 1)
+                with ddp.no_sync() if ddp is not None and i < n - 1 else contextlib.nullcontext():
+                    mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator, forward=ddp)
+                    with tracing.span("train.backward"):
+                        mb_loss.backward()
+                loss, acc = loss + mb_loss.detach(), acc + mb_acc
+            if n > 1:
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(n)
+                loss, acc = loss / n, acc / n
+            if ddp is not None or mesh is not None:
+                group = ddp.process_group if ddp is not None else None
+                with tracing.span("train.allreduce"):
+                    loss, acc = _mean_over_ranks(torch.stack([loss, acc]), group, mesh)
+            with tracing.span("train.optimizer"):
+                out = state.optimizer.step()
+                if not out["skipped"]:
+                    model.drop_derived()
         state.step += 1
         metrics = {"loss": loss, "acc": acc, "grad_norm": out["grad_norm"]}
         if cfg.skip_nonfinite_updates:

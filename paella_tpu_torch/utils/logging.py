@@ -5,7 +5,8 @@ The reference logs scalars to a tqdm bar and images/tables to wandb
 (reference: src_distributed/train.py:126, 182-183) and has no profiler.
 Here: a structured JSONL metric logger (machine-readable, resumable, no
 external service), optional wandb passthrough when the package is present,
-and a torch.profiler trace context for performance work on the card.
+and a torch.profiler trace context for performance work on the card, which
+turns the port's span recorder (utils/tracing.py) on while it runs.
 """
 from __future__ import annotations
 
@@ -94,22 +95,36 @@ class MetricLogger:
 
 @contextlib.contextmanager
 def trace(workdir: str, name: str = "trace"):
-    """torch.profiler trace context (host and CUDA activity): the trace is
-    written as a Chrome trace to <workdir>/<name>.json on exit; the profiler
-    itself is yielded, for its `key_averages()`.
+    """torch.profiler trace context (host and CUDA activity) with the port's
+    span recorder on (utils/tracing.py), so the trace carries the program's
+    spans as ranges of their names: the Chrome trace is written to
+    <workdir>/<name>.json on exit, and the recorder's counters and gauges to
+    <workdir>/<name>_counters.json beside it; the profiler itself is
+    yielded, for its `key_averages()`.
 
     Usage: with trace("/tmp/profiles") as prof: run_steps(...)
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from . import tracing
+
     os.makedirs(workdir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
+    was_on = tracing.enabled()
+    tracing.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        if not was_on:
+            tracing.disable()
     prof.export_chrome_trace(os.path.join(workdir, f"{name}.json"))
+    snap = tracing.snapshot()
+    with open(os.path.join(workdir, f"{name}_counters.json"), "w") as f:
+        json.dump({k: snap[k] for k in ("counters", "gauges", "dropped")}, f, indent=1)
 
 
 class StepTimer:
