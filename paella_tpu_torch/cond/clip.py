@@ -21,6 +21,14 @@ plain torch (the JAX towers run it in XLA, not in a Pallas kernel).
 encode_text returns the UN-normalized projected feature at the EOT token and
 encode_image the un-normalized projected class-token feature, matching what
 the reference feeds the denoiser (it never L2-normalizes).
+
+On a card the text tower's forward is a CUDA graph replay, one graph per
+shape and dtype of the token ids (sampling/graph.py::tower): a prompt costs
+one launch instead of over a thousand eager ops. The graph's key holds the
+module, its config, the device, the ids' shape and dtype and its weights'
+storage, never the ids' values nor the derived-weight generation (it moves
+at every training update; the tower is frozen). On the CPU, and when called
+inside another capture, it runs eagerly. The vision tower stays eager.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.functional import resize
+from ..sampling import graph
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -206,6 +215,13 @@ class CLIPTextEncoder(_Tower):
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """On a card, a replay of the graph captured for these ids' shape and
+        dtype, the config and the weights' storage (sampling/graph.py::tower),
+        which copies the ids in and returns a new tensor; on the CPU, and
+        inside an outer capture, the eager forward."""
+        return graph.tower(self, "clip_text", self._forward, {"input_ids": input_ids})
+
+    def _forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         ids = input_ids.long()
         s = ids.shape[1]
         x = (self.token_embedding.weight[ids] + self.positional_embedding[:s].float()).to(self.config.compute_dtype)

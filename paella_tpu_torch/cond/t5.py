@@ -19,7 +19,14 @@ After quant.quantize_t5_int8 every block linear is an int8
 quant.Int8Linear: weight-only (dequantized per output channel before a float
 product), or with `T5Config.act_quant` a W8A8 product (quant.w8a8_dot).
 The encoder is a callable (ids, mask) -> states, the pipeline's
-`byt5_encode_fn`.
+`byt5_encode_fn`. On a card its forward is a CUDA graph replay, one
+graph per input signature (sampling/graph.py::tower): a fresh prompt costs
+one launch instead of thousands of eager ops. The graph's key holds the
+module, its config (`act_quant` included), the device, the ids' and mask's
+shapes and dtypes, and its weights' storage, never the values of the ids or
+the mask, nor the derived-weight generation (it moves at every training
+update; the encoder is frozen). On the CPU, and when called inside another
+capture, the forward runs eagerly, op by op.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from torch import nn
 
 from ..nn import init
 from ..quant import check_int8_state, w8a8_dot
+from ..sampling import graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +218,14 @@ class T5Encoder(nn.Module):
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """On a card, a replay of the graph captured for this call's input
+        signature (batch, bucket, dtypes), the config and the weights' storage
+        (sampling/graph.py::tower), which copies the ids and the mask in and
+        returns a new tensor; on the CPU, and inside an outer capture, the
+        eager forward. Every int8 mode takes the graph route too."""
+        return graph.tower(self, "byt5", self._forward, {"input_ids": input_ids, "attention_mask": attention_mask})
+
+    def _forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.config
         x = self.shared.weight[input_ids.long()].to(cfg.compute_dtype)
         s = input_ids.shape[1]

@@ -125,13 +125,15 @@ def _whitespace_clean(text: str) -> str:
     return _re.sub(r"\s+", " ", text).strip()
 
 
-def _basic_clean(text: str) -> str:
-    try:
-        import ftfy
+try:  # optional, as in open_clip; looked up once: a failed import searches sys.path again at every call
+    import ftfy as _ftfy
+except ImportError:  # pragma: no cover
+    _ftfy = None
 
-        text = ftfy.fix_text(text)
-    except ImportError:
-        pass
+
+def _basic_clean(text: str) -> str:
+    if _ftfy is not None:
+        text = _ftfy.fix_text(text)
     return html.unescape(html.unescape(text)).strip()
 
 
