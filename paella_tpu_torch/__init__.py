@@ -9,9 +9,10 @@ The port imports torch and numpy only; its CUDA kernels (csrc/) are built
 from source on first use on a CUDA tensor.
 """
 
-from .config import PaellaConfig, SampleConfig, TrainConfig, VQConfig
-from .pipeline import PaellaPipeline
+from .config import PaellaConfig, PriorSampleConfig, SampleConfig, StageCConfig, TrainConfig, VQConfig
+from .pipeline import CascadePriorPipeline, PaellaPipeline
 
 __version__ = "0.1.0"
 
-__all__ = ["PaellaConfig", "PaellaPipeline", "SampleConfig", "TrainConfig", "VQConfig", "__version__"]
+__all__ = ["CascadePriorPipeline", "PaellaConfig", "PaellaPipeline", "PriorSampleConfig", "SampleConfig",
+           "StageCConfig", "TrainConfig", "VQConfig", "__version__"]

@@ -69,6 +69,13 @@ class CLIPTextConfig:
         return cls(dtype=dtype)
 
     @classmethod
+    def vit_bigg_14(cls, dtype: str = "bfloat16") -> "CLIPTextConfig":
+        """laion/CLIP-ViT-bigG-14-laion2B-39B-b160k's text tower, Stable
+        Cascade's text encoder: width 1280, 20 heads, 32 layers (MLP 5120,
+        exact GELU), 77 positions, projection 1280 -> 1280."""
+        return cls(width=1280, heads=20, layers=32, embed_dim=1280, dtype=dtype)
+
+    @classmethod
     def tiny(cls) -> "CLIPTextConfig":
         return cls(vocab_size=64, width=32, heads=4, layers=2, context_length=16, embed_dim=24)
 
@@ -164,9 +171,9 @@ class _Transformer(nn.Module):
         super().__init__()
         self.resblocks = nn.ModuleList([_ResidualBlock(width, heads, eps) for _ in range(layers)])
 
-    def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for blk in self.resblocks:
-            x = blk(x, causal)
+            x = blk(x, causal, mask)
         return x
 
 
@@ -202,11 +209,18 @@ class _Tower(nn.Module):
 class CLIPTextEncoder(_Tower):
     """encode_text: a causal transformer over BPE tokens (B, S) -> (B,
     embed_dim), the projected hidden state at the EOT position (the highest
-    token id of a sequence, its first occurrence, as open_clip takes it)."""
+    token id of a sequence, its first occurrence, as open_clip takes it).
 
-    def __init__(self, cfg: CLIPTextConfig):
+    `hidden_states` is Stable Cascade's route (diffusers'
+    StableCascadePriorPipeline.encode_prompt): the last layer's hidden states
+    before ln_final (HF's `hidden_states[-1]`) beside the projected EOT
+    feature (`text_embeds`), under the causal mask and the tokenizer's
+    padding mask on keys. `graph_tag` names the tower's graph counters
+    (`tower_graph.hit.<graph_tag>`)."""
+
+    def __init__(self, cfg: CLIPTextConfig, graph_tag: str = "clip_text"):
         super().__init__()
-        self.config = cfg
+        self.config, self.graph_tag = cfg, graph_tag
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, cfg.width))
         self.transformer = _Transformer(cfg.width, cfg.heads, cfg.layers, cfg.layer_norm_eps)
@@ -219,15 +233,31 @@ class CLIPTextEncoder(_Tower):
         dtype, the config and the weights' storage (sampling/graph.py::tower),
         which copies the ids in and returns a new tensor; on the CPU, and
         inside an outer capture, the eager forward."""
-        return graph.tower(self, "clip_text", self._forward, {"input_ids": input_ids})
+        return graph.tower(self, self.graph_tag, self._forward, {"input_ids": input_ids})
+
+    @torch.no_grad()
+    def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> tuple:
+        """(hidden (B, S, width) before ln_final, pooled (B, embed_dim)): on a
+        card a replay of this route's graph, as `forward`."""
+        return graph.tower(self, self.graph_tag, self._forward_hidden,
+                           {"input_ids": input_ids, "attention_mask": attention_mask})
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        s = ids.shape[1]
+        return (self.token_embedding.weight[ids] + self.positional_embedding[:s].float()).to(self.config.compute_dtype)
+
+    def _pool(self, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        feats = self.ln_final(x)[torch.arange(x.shape[0], device=x.device), ids.argmax(dim=-1)]
+        return feats @ self.text_projection.to(feats.dtype)
 
     def _forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         ids = input_ids.long()
-        s = ids.shape[1]
-        x = (self.token_embedding.weight[ids] + self.positional_embedding[:s].float()).to(self.config.compute_dtype)
-        x = self.ln_final(self.transformer(x, causal=True))
-        feats = x[torch.arange(x.shape[0], device=x.device), ids.argmax(dim=-1)]
-        return feats @ self.text_projection.to(feats.dtype)
+        return self._pool(self.transformer(self._embed(ids), causal=True), ids)
+
+    def _forward_hidden(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> tuple:
+        ids = input_ids.long()
+        x = self.transformer(self._embed(ids), causal=True, mask=attention_mask.bool())
+        return x, self._pool(x, ids)
 
 
 class CLIPVisionEncoder(_Tower):

@@ -243,6 +243,15 @@ class CLIPTokenizer:
             result[i, : len(tokens)] = tokens
         return result
 
+    def with_mask(self, prompts: Sequence[str], context_length: int = 77) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, mask) as HF's CLIP-bigG tokenizer gives them to Stable
+        Cascade's prior: the ids of __call__ padded with the EOT id instead of
+        0, and the attention mask, True through the first EOT."""
+        ids = self(prompts, context_length)
+        first = (ids == self.eot_token_id).argmax(axis=1)
+        mask = np.arange(context_length)[None, :] <= first[:, None]
+        return np.where(mask, ids, self.eot_token_id).astype(np.int32), mask
+
 
 def write_merges_file(merges: Sequence[tuple], path: str, header: str = "#version: bpe") -> None:
     """Write a merge table in the standard format (testing / fixture helper)."""

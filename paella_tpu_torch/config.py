@@ -194,3 +194,62 @@ class TrainConfig:
     # skip an update whose gradients are not all finite: parameters, moments
     # and the update count untouched, `nonfinite_skips` counts it
     skip_nonfinite_updates: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class StageCConfig:
+    """Stable Cascade's Stage C, the text-conditional prior (Würstchen v3,
+    arXiv:2306.00637; StableCascade `modules/stage_c.py` defaults, which are
+    `stabilityai/stable-cascade-prior`'s `prior/config.json`): continuous
+    c_in-channel latents in, the noise estimate out. The port runs the
+    published level layout only: block_repeat 1 and switch_level False (a
+    1x1 conv between two levels of one resolution)."""
+
+    c_in: int = 16
+    c_out: int = 16
+    c_r: int = 64
+    patch_size: int = 1
+    c_cond: int = 2048
+    c_hidden: Tuple[int, ...] = (2048, 2048)
+    nhead: Tuple[int, ...] = (32, 32)
+    blocks: Tuple[Tuple[int, ...], ...] = ((8, 24), (24, 8))
+    block_repeat: Tuple[Tuple[int, ...], ...] = ((1, 1), (1, 1))
+    level_config: Tuple[str, ...] = ("CTA", "CTA")
+    c_clip_text: int = 1280
+    c_clip_text_pooled: int = 1280
+    c_clip_img: int = 768
+    c_clip_seq: int = 4
+    kernel_size: int = 3
+    dropout: Tuple[float, ...] = (0.1, 0.1)  # inert: inference only
+    self_attn: bool = True
+    t_conds: Tuple[str, ...] = ("sca", "crp")
+    switch_level: Tuple[bool, ...] = (False,)
+    dtype: str = "float32"  # compute dtype
+    act_quant: bool = False  # W8A8 for int8 ResBlocks (quant.quantize_paella_int8)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @classmethod
+    def published(cls) -> "StageCConfig":
+        """The 3.6 B prior as served: bf16 compute."""
+        return cls(dtype="bfloat16")
+
+    @classmethod
+    def tiny(cls) -> "StageCConfig":
+        """Small config for tests."""
+        return cls(c_in=4, c_out=4, c_r=16, c_cond=32, c_hidden=(32, 32), nhead=(4, 4), blocks=((1, 2), (2, 1)),
+                   c_clip_text=24, c_clip_text_pooled=24, c_clip_img=16, dropout=(0.0, 0.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorSampleConfig:
+    """Stage C's sampling, as diffusers' StableCascadePriorPipeline runs it by
+    default: DDPMWuerstchenScheduler (s 0.008, scaler 1) over t =
+    linspace(1, 0, steps + 1)[:-1], classifier-free guidance scale `cfg`
+    against the empty prompt, latents (B, ceil(H / 42.67), ceil(W / 42.67),
+    c_in)."""
+
+    steps: int = 20
+    cfg: float = 4.0

@@ -19,7 +19,10 @@
 // over all of HW between the two products becomes a phase boundary:
 //   1. dw_ln_kernel  one block per token: 3x3 depthwise (the skip variant
 //                    reads concat channels 2c, 2c+1 straight from x and skip),
-//                    bias and LayerNorm -> xn (M, C).
+//                    bias and LayerNorm -> xn (M, C). In the channelwise-skip
+//                    mode (Stable Cascade's ResBlock) the conv reads x alone
+//                    and the skip row is copied beside the LN row: xn (M, 2C)
+//                    = [LN(dw(x) + dw_b) | skip], and fc1 runs over K = 2C.
 //   2. fc1           xn @ W1^T with a bias + GELU epilogue that writes h
 //                    (M, 4C) and, for each batch item the M-tile touches,
 //                    each column's f32 sum of squares over the tile's rows
@@ -154,19 +157,23 @@ __device__ __forceinline__ void load_codes_f32(float* smem, int lds, const int8_
 // dtype, or (Q8) as s8 codes with the row's scale in sx. kPadded is
 // compiled apart (C % 8 != 0): the flagship's widths keep the unpadded
 // stores, which measured 10-20% faster than the padded form.
+// With cat (the channelwise skip), the row is [LN | skip] of width 2C: the
+// skip's values copied as they are, or in W8A8 quantized with the LN values
+// under the one scale of the whole row.
 template <typename T, bool Q8, bool kPadded>
 __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x,
                                                          const T* __restrict__ skip,
                                                          const T* __restrict__ dw_w,
                                                          const T* __restrict__ dw_b,
                                                          void* __restrict__ xn_, float* __restrict__ sx,
-                                                         int H, int W, int C, int ldo) {
+                                                         int H, int W, int C, int ldo, int cat) {
   extern __shared__ float s_acc[];  // C floats
   __shared__ float red[32];
   const int m = blockIdx.x;
   const int hw = H * W;
   const int b = m / hw, p = m % hw, y = p / W, xq = p % W;
-  const int cpg = skip != nullptr ? 2 : 1;
+  const int cpg = skip != nullptr && !cat ? 2 : 1;
+  const int width = cat ? 2 * C : C;
   float lsum = 0.f;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float acc = 0.f;
@@ -177,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
       // (2c, 2c + 1) for group c
       const T* src = x;
       int ch = c;
-      if (skip != nullptr) {
+      if (cpg == 2) {
         const int q = 2 * c + j;
         src = q < C ? x : skip;
         ch = q < C ? q : q - C;
@@ -214,17 +221,24 @@ __global__ void __launch_bounds__(kThreads) dw_ln_kernel(const T* __restrict__ x
       s_acc[c] = (s_acc[c] - mean) * inv;  // each thread rewrites only its own columns
       amax = fmaxf(amax, fabsf(s_acc[c]));
     }
+    const T* srow = cat ? skip + (size_t)m * C : nullptr;
+    if (cat)
+      for (int c = threadIdx.x; c < C; c += blockDim.x) amax = fmaxf(amax, fabsf(to_f<T>(srow[c])));
     const float s = row_scale(block_max(amax, red));
     const float inv_s = __fdiv_rn(1.f, s);
-    int8_t* xn = static_cast<int8_t*>(xn_);
-    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[(size_t)m * C + c] = (int8_t)s8_code(s_acc[c], inv_s);
+    int8_t* xn = static_cast<int8_t*>(xn_) + (size_t)m * width;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[c] = (int8_t)s8_code(s_acc[c], inv_s);
+    if (cat)
+      for (int c = threadIdx.x; c < C; c += blockDim.x) xn[C + c] = (int8_t)s8_code(to_f<T>(srow[c]), inv_s);
     if (threadIdx.x == 0) sx[m] = s;
   } else {
-    T* xn = static_cast<T*>(xn_);
-    const int ld = kPadded ? ldo : C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[(size_t)m * ld + c] = from_f<T>((s_acc[c] - mean) * inv);
+    const int ld = kPadded ? ldo : width;
+    T* xn = static_cast<T*>(xn_) + (size_t)m * ld;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) xn[c] = from_f<T>((s_acc[c] - mean) * inv);
+    if (cat)
+      for (int c = threadIdx.x; c < C; c += blockDim.x) xn[C + c] = skip[(size_t)m * C + c];
     if constexpr (kPadded)
-      for (int c = C + threadIdx.x; c < ldo; c += blockDim.x) xn[(size_t)m * ldo + c] = from_f<T>(0.f);
+      for (int c = width + threadIdx.x; c < ldo; c += blockDim.x) xn[c] = from_f<T>(0.f);
   }
 }
 
@@ -718,8 +732,12 @@ struct Args {
   float *gx_part, *scale, *part, *sx;
   int8_t* hq;
   float* sh2;
-  int slots, splits, B, H, W, C, group, bn1, bn2, tpi;
+  int slots, splits, B, H, W, C, group, bn1, bn2, tpi, cat;
 };
+
+// fc1's depth: the width of an xn row, C or (channelwise skip) 2C, before
+// its padding to the pitch K1 = round8(width).
+inline int fc1_width(const Args& a) { return a.cat ? 2 * a.C : a.C; }
 
 // fc1's M-tiles of bm rows: tpi per image, or absolute (tile_rows).
 inline int fc1_tiles(const Args& a, int bm) {
@@ -730,9 +748,9 @@ inline int fc1_tiles(const Args& a, int bm) {
 // (K1 or K2) exceeds the width.
 template <typename T, bool Q8>
 cudaError_t launch_dw_ln(const Args& a, int M, int K1, cudaStream_t st) {
-  const auto kernel = K1 != a.C ? dw_ln_kernel<T, Q8, true> : dw_ln_kernel<T, Q8, false>;
+  const auto kernel = K1 != fc1_width(a) ? dw_ln_kernel<T, Q8, true> : dw_ln_kernel<T, Q8, false>;
   kernel<<<M, kThreads, a.C * sizeof(float), st>>>((const T*)a.x, (const T*)a.skip, (const T*)a.dw_w,
-                                                     (const T*)a.dw_b, a.xn, a.sx, a.H, a.W, a.C, K1);
+                                                     (const T*)a.dw_b, a.xn, a.sx, a.H, a.W, a.C, K1, a.cat);
   return cudaGetLastError();
 }
 
@@ -811,12 +829,12 @@ cudaError_t launch_fc2(const Args& a, const Fc2Args& f, int M, int K, int C, int
 // its application to h (in place; W8A8 requantizes h instead), fc2 on wgmma
 // (bn2 wide, `splits` K splits of whole K steps) and, with splits, the
 // fixed-order reduce. bn1, bn2, splits and tpi come from
-// kernels/resblock.py::launch_plan. K1 = round8(C), K2 = round8(4C): the
-// padded pitches of xn and h (C and 4C in the int8 modes).
+// kernels/resblock.py::launch_plan. K1 = round8(C) (round8(2C) with the
+// channelwise skip), K2 = round8(4C): the padded pitches of xn and h.
 template <typename T, int MODE>
 int launch_wgmma(const Args& a, cudaStream_t st) {
   constexpr bool Q8 = MODE == kW8A8;
-  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C, K1 = round8(C), K2 = round8(N1);
+  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C, K1 = round8(fc1_width(a)), K2 = round8(N1);
   const int step = Q8 ? 128 : sm90::kBK;
   const bool tiles_ok = (a.bn1 == 64 || a.bn1 == 128) && (a.bn2 == 64 || a.bn2 == 128) && a.splits >= 1 &&
                         (a.splits == 1 || K2 % (a.splits * step) == 0);
@@ -844,7 +862,7 @@ int launch_wgmma(const Args& a, cudaStream_t st) {
 // tiles (64-row fc1 tiles; fc2 splits of whole 32-deep K tiles).
 template <typename T, int MODE>
 int launch_fma(const Args& a, cudaStream_t st) {
-  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C, K1 = round8(C), K2 = round8(N1);
+  const int hw = a.H * a.W, M = a.B * hw, C = a.C, N1 = 4 * C, K1 = round8(fc1_width(a)), K2 = round8(N1);
   if (a.splits < 1 || (a.splits > 1 && (K2 % a.splits || (K2 / a.splits) % BK))) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if ((err = launch_dw_ln<T, false>(a, M, K1, st)) != cudaSuccess) return (int)err;
@@ -880,21 +898,25 @@ int launch_fma(const Args& a, cudaStream_t st) {
 // (C). mode 2 (W8A8): as mode 1, plus xn int8 with sx (B*H*W) f32, h f32,
 // hq (B*H*W, 4C) int8 and sh2 (B*H*W) f32, and h's provisional codes taken
 // per `group` columns (4C % group == 0). skip and film may be null. Any C in
-// float mode; C % 64 == 0 in the int8 modes. Returns a cudaError_t.
+// float mode; C % 64 == 0 in the int8 modes. cat 1 is the channelwise skip:
+// dw_w (3,3,1,C), w1 (4C, round8(2C)) (int8: (4C, 2C)), xn (B*H*W,
+// round8(2C)), skip not null. Returns a cudaError_t.
 extern "C" int paella_resblock(const void* x, const void* skip, const void* dw_w, const void* dw_b,
                                const void* w1, const void* b1, const void* gamma, const void* w2,
                                const void* bw2, const void* b2, const void* film, const void* s1,
                                const void* s2, void* out, void* xn, void* h, void* gx_part, void* scale,
                                void* part, void* sx, void* hq, void* sh2, int slots, int splits, int B,
                                int H, int W, int C, int is_bf16, int mode, int group, int bn1, int bn2,
-                               int tpi, void* stream) {
+                               int tpi, int cat, void* stream) {
   using namespace paella;
   using bf16 = __nv_bfloat16;
   const Args a{x, skip, dw_w, dw_b, w1, b1, (const float*)gamma, w2, (const float*)bw2, b2, film,
                (const float*)s1, (const float*)s2, out, xn, h, (float*)gx_part, (float*)scale,
-               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group, bn1, bn2, tpi};
+               (float*)part, (float*)sx, (int8_t*)hq, (float*)sh2, slots, splits, B, H, W, C, group, bn1, bn2, tpi,
+               cat};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((mode != kFloat && C % 64) || mode < kFloat || mode > kW8A8) return (int)cudaErrorInvalidValue;
+  if ((mode != kFloat && C % 64) || mode < kFloat || mode > kW8A8 || (cat && skip == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     switch (mode) {
       case kFloat: return launch_wgmma<bf16, kFloat>(a, st);

@@ -10,6 +10,13 @@
     y  = h @ W2^T + beta @ W2 + b2 + x_res
     y  = y * (1 + film_a) + film_b          # TimestepBlock, optional
 
+With the channelwise skip (Stable Cascade's ResBlock, `channelwise_skip`
+weights: a depthwise conv over C channels and fc1 over 2C) the skip joins
+after the LN instead, as the second half of fc1's input:
+
+    x  = layer_norm(depthwise3x3(x) + dw_b)
+    h  = gelu([x | skip] @ W1^T + b1)       # K = 2C; the rest as above
+
 The int8 modes take W1, W2 as int8 codes with per-output-channel f32 scales
 s1 (4C,), s2 (C,) (quant.py), at the TPU kernel's rounding points:
 - weight-only ("int8", resblock.py:214-224, 287-302): the products run over
@@ -70,6 +77,7 @@ class ResBlockWeights(NamedTuple):
     s1: Optional[torch.Tensor] = None  # (4C,) float32 fc1 scales (int8 modes)
     s2: Optional[torch.Tensor] = None  # (C,) float32 fc2 scales (int8 modes)
     act_quant: bool = False  # W8A8 (int8 modes only)
+    channelwise_skip: bool = False  # fc1 reads [LN(dw(x)) | skip], K = 2C (W1 (4C, round8(2C)))
 
     @property
     def mode(self) -> str:
@@ -91,7 +99,7 @@ def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
 def prepare_resblock_weights(
     dw_weight: torch.Tensor,  # (C, cpg, 3, 3) torch Conv2d(groups=C) weight
     dw_bias: torch.Tensor,
-    fc1_weight: torch.Tensor,  # (4C, C), float or int8 codes
+    fc1_weight: torch.Tensor,  # (4C, C), float or int8 codes; (4C, 2C): the channelwise skip
     fc1_bias: torch.Tensor,
     grn_gamma: torch.Tensor,  # (4C,) or the reference's (1, 1, 1, 4C)
     grn_beta: torch.Tensor,
@@ -121,9 +129,9 @@ def prepare_resblock_weights(
         bw2 = (w2.float() @ beta.float()) * s2
     else:  # beta rounded to the dtype; int8 codes are exact in it
         bw2 = w2.float() @ beta.to(dtype).float()
+    c, k = w2.shape[0], w1.shape[1]
     if not quantized:  # the padded pitch; the int8 modes' widths need none
-        c = w1.shape[1]
-        w1, w2 = _pad_columns(w1, round8(c)), _pad_columns(w2, round8(4 * c))
+        w1, w2 = _pad_columns(w1, round8(k)), _pad_columns(w2, round8(4 * c))
     return ResBlockWeights(
         dw=cast(dw_weight.permute(2, 3, 1, 0)),
         dw_b=cast(dw_bias),
@@ -136,6 +144,7 @@ def prepare_resblock_weights(
         s1=s1,
         s2=s2,
         act_quant=act_quant,
+        channelwise_skip=k == 2 * c,
     )
 
 
@@ -161,7 +170,9 @@ def resblock_plain(
     tile_n1: int = 512,
 ) -> torch.Tensor:
     """The kernels' computation in torch ops, every mode: x (B, H, W, C),
-    film (B, 2C) [a | b], skip (B, H, W, C). Depthwise, LN, GELU and GRN run
+    film (B, 2C) [a | b], skip (B, H, W, C), joined where the weights say
+    (`channelwise_skip`: beside the LN rows, as x's dtype, before the
+    rounding or quantization of fc1's input). Depthwise, LN, GELU and GRN run
     in f32; xn and h are rounded to x's dtype where the kernel stores them
     (to s8 codes in W8A8, whose h codes are first taken per `tile_n1`-column
     group); float products take f32 operands (exact for bf16 values and int8
@@ -170,7 +181,10 @@ def resblock_plain(
     dt = x.dtype
     b, hh, ww, c = x.shape
     m, hw = b * hh * ww, hh * ww
-    if skip is None:
+    cat = w.channelwise_skip
+    if cat and skip is None:
+        raise ValueError("resblock_plain: channelwise-skip weights need a skip")
+    if skip is None or cat:
         planes = [x]
     else:
         cc = torch.cat([x, skip.to(dt)], dim=-1)
@@ -185,13 +199,19 @@ def resblock_plain(
     mean = acc.mean(dim=-1, keepdim=True)
     var = (acc - mean).square().mean(dim=-1, keepdim=True)
     xn = ((acc - mean) * torch.rsqrt(var + 1e-6)).reshape(m, c)
+    k = 2 * c if cat else c
 
-    w1, w2 = w.w1[:, :c].float().contiguous(), w.w2[:, : 4 * c].float().contiguous()  # the true widths
+    w1, w2 = w.w1[:, :k].float().contiguous(), w.w2[:, : 4 * c].float().contiguous()  # the true widths
     if w.act_quant:
+        if cat:
+            xn = torch.cat([xn, skip.float().reshape(m, c)], dim=-1)
         xq, sx = quantize_rows(xn)
         ht = _s8_product(xq, w1) * (sx[:, None] * w.s1[None, :])
     else:
-        ht = xn.to(dt).float() @ w1.t()
+        xn = xn.to(dt)
+        if cat:
+            xn = torch.cat([xn, skip.to(dt).reshape(m, c)], dim=-1)
+        ht = xn.float() @ w1.t()
         if w.s1 is not None:
             ht = ht * w.s1
     ht = F.gelu(ht + w.b1.float())  # (M, 4C) f32
@@ -340,10 +360,13 @@ def _check_args(what: str, x, w: ResBlockWeights, film, skip) -> None:
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: dtype {dt} (kernel takes float32 or bfloat16)")
     b, hh, ww, c = x.shape
-    cpg = 1 if skip is None else 2
+    if w.channelwise_skip and skip is None:
+        raise ValueError(f"{what}: channelwise-skip weights need a skip")
+    cpg = 1 if skip is None or w.channelwise_skip else 2
     if w.s1 is not None and c % 64:  # the int8 modes keep JAX's alignment
         raise ValueError(f"{what}: int8 weights need C % 64 == 0, got C={c}")
-    k1, k2 = (c, 4 * c) if w.s1 is not None else (round8(c), round8(4 * c))
+    width = 2 * c if w.channelwise_skip else c
+    k1, k2 = (width, 4 * c) if w.s1 is not None else (round8(width), round8(4 * c))
     if w.dw.shape != (3, 3, cpg, c) or w.w1.shape != (4 * c, k1) or w.w2.shape != (c, k2):
         raise ValueError(
             f"{what}: weight shapes dw {tuple(w.dw.shape)}, w1 "
@@ -373,7 +396,8 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
     m = b * hh * ww
     dev = x.device
     bm, bn1, bn2, splits, slots, tpi = launch_plan(b, hh * ww, c, w.mode, dt, _sm_count(dev))
-    k1, k2 = round8(c), round8(4 * c)  # the padded pitches (C and 4C in the int8 modes)
+    # the padded pitches (C or 2C, and 4C, in the int8 modes)
+    k1, k2 = round8(2 * c if w.channelwise_skip else c), round8(4 * c)
     out = torch.empty_like(x)
     xn = torch.empty((m, k1), dtype=torch.int8 if q8 else dt, device=dev)
     h = torch.empty((m, k2), dtype=torch.float32 if q8 else dt, device=dev)
@@ -391,7 +415,8 @@ def _launch(x: torch.Tensor, w: ResBlockWeights, film, skip, tile_n1: int) -> to
         ptr(x), ptr(skip), ptr(w.dw), ptr(w.dw_b), ptr(w.w1), ptr(w.b1), ptr(w.gamma),
         ptr(w.w2), ptr(w.bw2), ptr(w.b2), ptr(film), ptr(w.s1), ptr(w.s2), ptr(out), ptr(xn), ptr(h),
         ptr(gx_part), ptr(scale), ptr(part), ptr(sx), ptr(hq), ptr(sh2),
-        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, bn1, bn2, tpi, stream_handle(x),
+        slots, splits, b, hh, ww, c, int(dt == torch.bfloat16), mode, tile_n1, bn1, bn2, tpi, int(w.channelwise_skip),
+        stream_handle(x),
     )
     check_rc(rc, "fused_resblock")
     return out
@@ -430,6 +455,6 @@ def _library() -> ctypes.CDLL:
     lib = load_library("resblock")
     fn = lib.paella_resblock
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -1,4 +1,5 @@
 from .denoiser import Paella
 from .noise import add_noise, get_loss_weight
+from .stage_c import StageC
 
-__all__ = ["Paella", "add_noise", "get_loss_weight"]
+__all__ = ["Paella", "StageC", "add_noise", "get_loss_weight"]

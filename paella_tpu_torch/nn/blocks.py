@@ -155,22 +155,30 @@ class ResBlock(DerivedWeights):
     one call of kernels/resblock.py::fused_resblock, which is what the JAX
     package's FusedResBlock does. With c_skip = c the UNet skip is
     channel-concatenated before the grouped depthwise conv (groups = c, so
-    group g reads concat channels 2g and 2g+1). `forward_train` is the
-    training route (JAX's XLA ResBlock, FiLM apart).
+    group g reads concat channels 2g and 2g+1), Paella's placement
+    (skip_at="depthwise"); with skip_at="channelwise" it is concatenated
+    after the LN instead, into fc1 (`Linear(c + c_skip, 4c)`), Stable
+    Cascade's placement (StableCascade modules/common.py::ResBlock).
+    `forward_train` is the training route (JAX's XLA ResBlock, FiLM apart).
 
     `level` and `rep` place the block in the UNet (quant.quantize_paella_int8
     picks blocks by them). Once quantized, fc1 and fc2 (channelwise.0 and .4)
     are quant.Int8Linear and fused_resblock runs kernel K1b: W8A8 where the
     caller passes act_quant, else weight-only."""
 
-    def __init__(self, c: int, c_skip: int = 0, kernel_size: int = 3, dtype=torch.float32, level: int = 0, rep: int = 0):
+    SKIP_AT = ("depthwise", "channelwise")
+
+    def __init__(self, c: int, c_skip: int = 0, kernel_size: int = 3, dtype=torch.float32, level: int = 0, rep: int = 0,
+                 skip_at: str = "depthwise"):
         super().__init__()
-        if kernel_size != 3 or c_skip not in (0, c):
-            raise ValueError(f"ResBlock supports kernel_size 3 and c_skip in (0, c), got {kernel_size}, {c_skip}")
-        self.c, self.dtype, self.level, self.rep = c, dtype, level, rep
-        self.depthwise = nn.Conv2d(c + c_skip, c, kernel_size, padding=kernel_size // 2, groups=c)
+        if kernel_size != 3 or c_skip not in (0, c) or skip_at not in self.SKIP_AT:
+            raise ValueError(f"ResBlock supports kernel_size 3, c_skip in (0, c) and skip_at in {self.SKIP_AT}, "
+                             f"got {kernel_size}, {c_skip}, {skip_at!r}")
+        self.c, self.dtype, self.level, self.rep, self.skip_at = c, dtype, level, rep, skip_at
+        cat = c_skip if skip_at == "channelwise" else 0
+        self.depthwise = nn.Conv2d(c + c_skip - cat, c, kernel_size, padding=kernel_size // 2, groups=c)
         self.channelwise = nn.Sequential(
-            nn.Linear(c, c * 4),
+            nn.Linear(c + cat, c * 4),
             nn.GELU(),
             GlobalResponseNorm(c * 4),
             nn.Identity(),  # the reference's Dropout: `dropout` when training
@@ -240,9 +248,12 @@ class ResBlock(DerivedWeights):
             )
         dt = self.dtype
         x = x.to(dt)
-        h = x if skip is None else torch.cat([x, skip.to(dt)], dim=-1)
-        h = grouped_depthwise_conv(h, self.depthwise.weight.to(dt), self.depthwise.bias.to(dt))
-        return _channelwise(self.channelwise, layer_norm(h), dt, dropout_rate, generator) + x
+        cat = skip is not None and self.skip_at == "channelwise"
+        h = x if skip is None or cat else torch.cat([x, skip.to(dt)], dim=-1)
+        h = layer_norm(grouped_depthwise_conv(h, self.depthwise.weight.to(dt), self.depthwise.bias.to(dt)))
+        if cat:
+            h = torch.cat([h, skip.to(dt)], dim=-1)
+        return _channelwise(self.channelwise, h, dt, dropout_rate, generator) + x
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         from ..quant import check_int8_state
@@ -276,21 +287,37 @@ class FeedForwardBlock(nn.Module):
 
 class TimestepBlock(nn.Module):
     """FiLM by the noise-level embedding (reference: src/modules.py:99-106);
-    zero-initialized, so the identity at init."""
+    zero-initialized, so the identity at init. With `conds` (Stable
+    Cascade's t_conds, modules/common.py::TimestepBlock) r_embed holds one
+    c_timestep slice per condition after the noise level's, each with a
+    mapper of its own (`mapper_<cond>`), and the FiLM is the sum of the
+    mappers' outputs."""
 
-    def __init__(self, c: int, c_timestep: int, dtype=torch.float32):
+    def __init__(self, c: int, c_timestep: int, dtype=torch.float32, conds: tuple = ()):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.conds = dtype, tuple(conds)
         self.mapper = nn.Linear(c_timestep, c * 2)
+        for name in self.conds:
+            setattr(self, f"mapper_{name}", nn.Linear(c_timestep, c * 2))
+
+    def mappers(self) -> list:
+        """The mappers in r_embed's slice order."""
+        return [self.mapper] + [getattr(self, f"mapper_{name}") for name in self.conds]
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        init.zeros_(self.mapper.weight)
-        init.zeros_(self.mapper.bias)
+        for m in self.mappers():
+            init.zeros_(m.weight)
+            init.zeros_(m.bias)
 
     def film(self, r_embed: torch.Tensor) -> torch.Tensor:
         """(B, 2C) [a | b], what the fused ResBlock's FiLM epilogue takes."""
         dt = self.dtype
-        return F.linear(r_embed.to(dt), self.mapper.weight.to(dt), self.mapper.bias.to(dt))
+        parts = r_embed.chunk(len(self.conds) + 1, dim=1) if self.conds else (r_embed,)
+        out = None
+        for m, r in zip(self.mappers(), parts):
+            f = F.linear(r.to(dt), m.weight.to(dt), m.bias.to(dt))
+            out = f if out is None else out + f
+        return out
 
     def forward(self, x: torch.Tensor, r_embed: torch.Tensor) -> torch.Tensor:
         a, b = self.film(r_embed)[:, None, None, :].chunk(2, dim=-1)

@@ -14,14 +14,20 @@ Weights live in the modules (`model`, `vq`); the pipeline runs on the
 model's device. Conditioning encoders are callables, as in the JAX package;
 text is padded to bucket sizes, and text conditioning is kept in an LRU.
 
-Spans (utils/tracing.py): pipeline.tokenize (ByT5 tokenization, padding and
-the host->device copy), cond.byt5 / cond.clip_text / cond.clip_image (the
-encoder callables), pipeline.decode (the clipped decode); counters
-text_cache.hit and text_cache.miss, one per LRU lookup.
+`CascadePriorPipeline` runs Stable Cascade's Stage C prior
+(models/stage_c.py) from prompts to latents over the CLIP-bigG text tower,
+with the same text LRU (`TextConditioned`, which both pipelines share).
+
+Spans (utils/tracing.py): pipeline.tokenize (ByT5 or CLIP tokenization,
+padding and the host->device copy), cond.byt5 / cond.clip_text /
+cond.clip_image (the encoders), pipeline.decode (the clipped decode);
+counters text_cache.hit and text_cache.miss, one per LRU lookup, and
+prior.calls and prior.images per `text_to_latents`.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import OrderedDict
 from typing import Any, Callable, Hashable, Optional, Sequence
 
@@ -30,38 +36,24 @@ import torch
 
 from .codec.vqgan import VQModel
 from .cond.tokenizers import byt5_batch_encode, pad_bucket
-from .config import SampleConfig
+from .config import PriorSampleConfig, SampleConfig
 from .models.denoiser import Paella
+from .sampling.prior import PriorConditioning, sample_prior
 from .sampling.sampler import Conditioning, interpolate_latents, linspace_f32, outpaint_canvas, sample
 from .utils import tracing
 
 
 @dataclasses.dataclass
-class PaellaPipeline:
-    """Bundles denoiser + codec + frozen conditioning encoders.
+class TextConditioned:
+    """The text-conditioning LRU a pipeline keeps: serving re-generates the
+    SAME prompt with other seeds or cfg, and the frozen encoders make the
+    states deterministic, so a hit skips the text towers. Entries stay on the
+    device; text_cache_size 0 disables it. The empty prompt's conditioning
+    is kept per batch size apart. A subclass gives `conditioning(prompts)`."""
 
-    byt5_encode_fn: (ids (B,S) int32, mask (B,S) bool, on the model's device)
-                    -> (B, S, byt5_embd) states
-    clip_text_fn:   (prompts list[str]) -> (B, clip_embd) or None
-    clip_image_fn:  (images (B,H,W,3) in [0,1]) -> (B, clip_embd) or None
-    """
-
-    model: Paella
-    vq: VQModel
-    byt5_encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-    clip_text_fn: Optional[Callable[[Sequence[str]], torch.Tensor]] = None
-    clip_image_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
-    byt5_max_length: int = 768
-    # text-conditioning LRU: serving re-generates the SAME prompt with other
-    # seeds or cfg, and the frozen encoders make the states deterministic, so
-    # a hit skips the text towers. Entries stay on the device. 0 disables.
-    text_cache_size: int = 128
+    text_cache_size: int = dataclasses.field(default=128, kw_only=True)
     _text_cache: OrderedDict = dataclasses.field(default_factory=OrderedDict, init=False, repr=False)
     _null_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.model.parameters()).device
 
     def _remember(self, key: Hashable, value: Any) -> None:
         if self.text_cache_size > 0:
@@ -77,6 +69,34 @@ class PaellaPipeline:
         else:
             tracing.count("text_cache.miss")
         return hit
+
+    def null_conditioning(self, batch: int):
+        """The empty prompt's conditioning, kept per batch size."""
+        if batch not in self._null_cache:
+            self._null_cache[batch] = self.conditioning([""] * batch)
+        return self._null_cache[batch]
+
+
+@dataclasses.dataclass
+class PaellaPipeline(TextConditioned):
+    """Bundles denoiser + codec + frozen conditioning encoders.
+
+    byt5_encode_fn: (ids (B,S) int32, mask (B,S) bool, on the model's device)
+                    -> (B, S, byt5_embd) states
+    clip_text_fn:   (prompts list[str]) -> (B, clip_embd) or None
+    clip_image_fn:  (images (B,H,W,3) in [0,1]) -> (B, clip_embd) or None
+    """
+
+    model: Paella
+    vq: VQModel
+    byt5_encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    clip_text_fn: Optional[Callable[[Sequence[str]], torch.Tensor]] = None
+    clip_image_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    byt5_max_length: int = 768
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     # -- conditioning ------------------------------------------------------
 
@@ -120,12 +140,6 @@ class PaellaPipeline:
         if images is None:
             self._remember(key, out)
         return out
-
-    def null_conditioning(self, batch: int) -> Conditioning:
-        """The empty prompt's conditioning, kept per batch size."""
-        if batch not in self._null_cache:
-            self._null_cache[batch] = self.conditioning([""] * batch)
-        return self._null_cache[batch]
 
     # -- codec -------------------------------------------------------------
 
@@ -272,3 +286,66 @@ class PaellaPipeline:
         alphas = torch.from_numpy(linspace_f32(0.0, 1.0, n))
         frames = interpolate_latents(ta, tb, codebook, alphas)
         return self._decode_clipped(frames) if decode else frames
+
+
+# diffusers' StableCascadePriorPipeline: the latent side is ceil(H / 42.67),
+# 24 at 1024 pixels
+RESOLUTION_MULTIPLE = 42.67
+
+
+@dataclasses.dataclass
+class CascadePriorPipeline(TextConditioned):
+    """Stable Cascade's text-to-latents: prompts -> Stage C latents (B, h, w,
+    c_in), the input of Stage B (not in this package).
+
+    text_encoder: the CLIP-bigG text tower (cond/clip.py::CLIPTextEncoder,
+                  `hidden_states` route)
+    tokenizer:    prompts -> (ids (B, 77), mask (B, 77)) numpy, as
+                  cond/tokenizers.py::CLIPTokenizer.with_mask gives them
+
+    The conditioning is diffusers' text-only path: the prompt's hidden states
+    and pooled feature, image embeddings of zeros; the unconditional side is
+    the empty prompt through the same tower, with zeros too."""
+
+    model: Any  # models/stage_c.py::StageC
+    text_encoder: Callable
+    tokenizer: Callable[[Sequence[str]], tuple]
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def conditioning(self, prompts: Sequence[str]) -> PriorConditioning:
+        key = ("prior", tuple(prompts))
+        hit = self._recall(key)
+        if hit is not None:
+            return hit
+        with tracing.span("pipeline.tokenize"):
+            ids, mask = self.tokenizer(prompts)
+            ids_t = torch.from_numpy(np.asarray(ids)).to(self.device)
+            mask_t = torch.from_numpy(np.asarray(mask)).to(self.device)
+        with tracing.span("cond.clip_text"):
+            hidden, pooled = self.text_encoder.hidden_states(ids_t, mask_t)
+        img = torch.zeros(len(prompts), 1, self.model.config.c_clip_img, dtype=hidden.dtype, device=self.device)
+        out = PriorConditioning(hidden, pooled[:, None], img)
+        self._remember(key, out)
+        return out
+
+    def latent_hw(self, image_hw: tuple[int, int]) -> tuple[int, int]:
+        return tuple(math.ceil(s / RESOLUTION_MULTIPLE) for s in image_hw)
+
+    def text_to_latents(
+        self,
+        prompts: Sequence[str],
+        seeds: torch.Tensor,
+        image_hw: tuple[int, int] = (1024, 1024),
+        config: PriorSampleConfig = PriorSampleConfig(),
+    ) -> torch.Tensor:
+        """Stage C latents (B, h, w, c_in) in the model's dtype for images of
+        image_hw; seeds (B, 2) uint32 values, one pair an image."""
+        b = len(prompts)
+        tracing.count("prior.calls")
+        tracing.count("prior.images", b)
+        h, w = self.latent_hw(image_hw)
+        return sample_prior(self.model, seeds, self.conditioning(prompts), (b, h, w, self.model.config.c_in),
+                            self.null_conditioning(b), config)

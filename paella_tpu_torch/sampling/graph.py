@@ -7,7 +7,8 @@ hundreds or thousands of launches.
 One capture-and-replay mechanism serves both. A call's inputs are tensors by
 name (None where absent); input values are never part of a graph's key: a
 call copies its inputs into the graph's static buffers, replays it and
-returns a new tensor holding its output (a clone, so a caller may keep it:
+returns a new tensor holding its output, or a tuple of them where the work
+returns a tuple (a clone, so a caller may keep it:
 the pipeline's text LRU keeps tower outputs, and the next replay of the same
 graph rewrites its output buffer). On a miss the work runs once eagerly,
 which builds the kernels, sets their shared-memory limits and makes every
@@ -55,7 +56,7 @@ copies and the replay) and graph.capture (the eager warm-up and the
 capture), counters graph.hit, graph.miss and graph.evicted, and the gauge
 graph.pool_bytes, the sum of `pool_bytes()`; for the towers, spans
 tower_graph.replay and tower_graph.capture, counters tower_graph.hit.<name>
-and tower_graph.miss.<name> per tower (byt5, clip_text) and
+and tower_graph.miss.<name> per tower (byt5, clip_text, clip_g) and
 tower_graph.evicted, and the gauge tower_graph.pool_bytes, the sum of
 `tower_pool_bytes()`.
 """
@@ -98,7 +99,7 @@ class _Graph:
     model: weakref.ref
     graph: torch.cuda.CUDAGraph
     inputs: dict  # the static input buffers (None where absent)
-    output: torch.Tensor
+    output: object  # a tensor, or a tuple of tensors
     pool_bytes: int  # device memory reserved while it was captured: its private pool
     launches: dict  # "launches.<wrapper>" -> the wrapper's calls in the capture: one replay's launches
 
@@ -223,14 +224,19 @@ def _call(family: _Family, key: tuple, fn: Callable, model, inputs: dict, tag: s
                         if t is not None:
                             entry.inputs[name].copy_(t)
                     entry.graph.replay()
-                    out = entry.output.clone()
+                    out = _outputs(entry.output, torch.Tensor.clone)
                 for name, n in entry.launches.items():
                     tracing.count(name, n)
         caller.wait_stream(stream)
-        out.record_stream(caller)
+        _outputs(out, lambda t: t.record_stream(caller))
     if missed:
         tracing.gauge(f"{family.prefix}.pool_bytes", sum(_pool_bytes(family)))
     return out
+
+
+def _outputs(out, fn: Callable):
+    """fn over a call's output: a tensor, or each tensor of a tuple."""
+    return tuple(fn(t) for t in out) if isinstance(out, tuple) else fn(out)
 
 
 def _capture(fn: Callable, model, inputs: dict, device) -> tuple[torch.Tensor, _Graph]:

@@ -425,6 +425,10 @@ def build_pipeline(
     start from the same arguments, and has no effect here: the split-skip
     layout is a TPU-only workaround. Runs on a CUDA device unless the caller
     asks for device="cpu"; without a card it raises.
+
+    With a StageCConfig as p_cfg it builds Stable Cascade's prior instead
+    (`build_prior_pipeline`: the denoiser file is Stage C's, clip_path the
+    CLIP-bigG text tower's; vqgan_path and byt5_path are not read).
     """
     from .cond.loader import load_conditional_models, load_state_dict, resolve_device
     from .cond.t5 import T5Config
@@ -432,7 +436,11 @@ def build_pipeline(
     from .convert import load_params_npz, paella_state_dict_from_jax
     from .models.denoiser import Paella
 
+    from .config import StageCConfig
+
     del optimize_layout
+    if isinstance(p_cfg, StageCConfig):
+        return build_prior_pipeline(denoiser_path, clip_path, clip_bpe_path, p_cfg, bf16=bf16, device=device)
     device = resolve_device(device)
     p_cfg = p_cfg or PaellaConfig.v1_byt5_xl_inference()
     if denoiser_path.endswith(".npz"):
@@ -465,6 +473,33 @@ def build_pipeline(
         clip_text_fn=models.clip_text_encode,
         clip_image_fn=models.clip_image_encode,
     )
+
+
+def build_prior_pipeline(prior_path: str, clip_path: str, clip_bpe_path: str, cfg=None, clip_cfg=None,
+                         bf16: bool = True, device="cuda"):
+    """Stable Cascade's prior from files: Stage C's state dict (StableCascade
+    names, `strict=True`), the CLIP-bigG text tower's (open_clip keys, or a
+    whole open_clip checkpoint, whose vision tower is left out) and its BPE
+    merges -> a CascadePriorPipeline on `device`. The PNG route of the
+    server waits for Stage B, which turns these latents into pixels."""
+    from .cond.clip import CLIPTextConfig, CLIPTextEncoder, split_open_clip
+    from .cond.loader import load_state_dict, resolve_device
+    from .cond.tokenizers import CLIPTokenizer
+    from .config import StageCConfig
+    from .models.stage_c import StageC
+    from .pipeline import CascadePriorPipeline
+
+    device = resolve_device(device)
+    cfg = cfg or StageCConfig.published()
+    clip_cfg = clip_cfg or CLIPTextConfig.vit_bigg_14()
+    with torch.device(device):
+        model = StageC(cfg)
+        clip = CLIPTextEncoder(clip_cfg, graph_tag="clip_g")
+    model.load_state_dict(load_state_dict(prior_path), strict=True)
+    model = model.to(torch.bfloat16 if bf16 else torch.float32).eval()
+    clip.load_state_dict(split_open_clip(load_state_dict(clip_path, key=None))[0], strict=True)
+    clip = clip.cast_products().eval()
+    return CascadePriorPipeline(model, clip, CLIPTokenizer(clip_bpe_path).with_mask)
 
 
 def main(argv=None):
