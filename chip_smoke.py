@@ -213,6 +213,10 @@ ATTN_LEVELS = [  # (B, N, S_cond, heads, head dim) of attention levels 1 and 2 a
     (2, 256, 72, 16, 80),  # 16x16 pixels; S_cond = ByT5 64 + CLIP 4 + CLIP-image 4
     (2, 64, 72, 16, 80),  # 8x8
 ]
+# Stage C's AttnBlock at 1024² and CFG batch 8 (B, N pixels, S_cond, heads, head dim): K5's wgmma variant
+STAGE_C_ATTN = (8, 576, 85, 32, 64)
+K5_SWEEP = [(16, 40), (64, 136), (200, 130), (576, 661)]  # (N, S) at D 64, bf16
+K5_PAIRS = [(8, 32), (4, 32), (2, 16), (1, 2)]  # (B, H): Stage C at batch 4 and 2 (CFG), Paella's pair, one item
 ATTN_FLAGS = dict(attention_impl="pallas", attn_block_kernel=True)
 # launches per flagship forward in the attention config: K5 at repetition 0
 # of levels 1 and 2 each way, K6 at the other 15 + 5 repetitions each way
@@ -1454,8 +1458,93 @@ def phase_k5(tag: str) -> dict:
     check(bool(torch.isfinite(got).all()) and ok, f"K5 streamed max abs error {err} > {limit}")
     check(same, "K5 streamed gave different outputs on two runs")
     result["streamed"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err, "device_us": dev}
+    result["stage_c"] = k5_stage_c(gen, tag)
     result.update(result["levels"][1])
     return result
+
+
+def stage_c_attention_inputs(gen, b: int, n: int, s_c: int, h: int, d: int) -> tuple:
+    """q, k, v as the three views of one (B, N, 3C) q|k|v product and k2, v2
+    as the two of a (B, S_cond, 2C) cond cache entry, as StageC._attend hands
+    them to K5; bf16, N(0, 1)."""
+    import torch
+
+    c = h * d
+    qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn(b, s_c, 2 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.reshape(b, n, h, d) for t in qkv.split(c, dim=-1))
+    k2, v2 = (t.reshape(b, s_c, h, d) for t in kv.split(c, dim=-1))
+    return q, k, v, k2, v2
+
+
+def k5_stage_c(gen, tag: str) -> dict:
+    """K5 at Stage C's AttnBlock shape (STAGE_C_ATTN), keys and values from
+    two sources: the design the policy picks there and at Paella's shapes,
+    the wgmma variant against the plain version (error, bitwise repeat, item 0
+    alone), the ring forced at the same shape, device µs of both beside the
+    bound, the plain version's ms and SDPA's (the yardstick, timed only);
+    then both designs forced over K5_SWEEP, the measurement behind the
+    policy."""
+    import torch
+    import torch.nn.functional as F
+
+    from paella_tpu_torch.kernels import attention as k5
+
+    bf16 = torch.bfloat16
+    b, n, s_c, h, d = STAGE_C_ATTN
+    s = n + s_c
+    designs = {"stage_c": k5.attention_design(b, n, s, h, d, bf16), "level1": k5.attention_design(2, 256, 328, 16, 80, bf16),
+               "level2": k5.attention_design(2, 64, 136, 16, 80, bf16),
+               "streamed": k5.attention_design(2, 256, 1036, 16, 80, bf16)}
+    print(f"[K5] design by shape (name, query tiles a block): {json.dumps(designs)} ({tag})")
+    check(designs == {"stage_c": ("wgmma", 3), "level1": ("ring", 0), "level2": ("ring", 0), "streamed": ("ring", 0)},
+          f"K5's policy picks {designs}")
+    q, k, v, k2, v2 = stage_c_attention_inputs(gen, b, n, s_c, h, d)
+    call = lambda: k5.fused_attention(q, k, v, k2=k2, v2=v2)  # noqa: E731
+    ring = lambda: k5._launch(q, k, v, None, k2, v2, 0)  # noqa: E731
+    plain = lambda: k5.attention_plain(q, k, v, None, k2, v2)  # noqa: E731
+    got, again, want, by_ring = call(), call(), plain(), ring()
+    one = k5.fused_attention(q[:1], k[:1], v[:1], k2=k2[:1], v2=v2[:1])
+    torch.cuda.synchronize()
+    err, limit, ok = attention_error(got, want)
+    ring_err, _, ring_ok = attention_error(by_ring, want)
+    same, alone = torch.equal(got, again), torch.equal(one, got[:1])
+    print(f"[K5] Stage C q ({b},{n},{h},{d}) k/v ({b},{n}+{s_c},{h},{d}) from two sources bf16: wgmma variant "
+          f"max_abs_err {err:.3e} (limit {limit:.3e}), two runs bitwise equal: {same}, item 0 alone equal: {alone}; "
+          f"the ring forced: max_abs_err {ring_err:.3e} ({tag})")
+    check(bool(torch.isfinite(got).all()) and ok, f"K5 Stage C max abs error {err} > {limit}")
+    check(ring_ok, f"K5 ring at Stage C's shape max abs error {ring_err} > {limit}")
+    check(same and alone, f"K5 Stage C: repeat equal {same}, item 0 alone equal {alone}")
+    ms, plain_ms = alternate(call, plain)
+    kt, vt = torch.cat([k, k2], dim=1).transpose(1, 2), torch.cat([v, v2], dim=1).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    lib_err, _, lib_ok = attention_error(sdpa().transpose(1, 2), want)
+    check(lib_ok, f"SDPA computes another function at Stage C's shape: error {lib_err}")
+    ms_again, library_ms = alternate(call, sdpa)
+    dev = {"kernel": device_us(call), "ring": device_us(ring), "sdpa": device_us(sdpa)}
+    flops = 4 * b * h * n * s * d
+    bnd = bound(nbytes_of(q, k, v, k2, v2, got), flops, "bf16")
+    t_ops, t_bytes = flops / PEAK_OPS_S["bf16"] * 1e6, nbytes_of(q, k, v, k2, v2, got) / HBM_BYTES_S * 1e6
+    print(f"[K5] Stage C device µs a call: wgmma variant {us_text(dev['kernel'])}, ring {us_text(dev['ring'])}, SDPA "
+          f"{us_text(dev['sdpa'])}; bound {t_ops:.1f} µs by operations ({flops / 1e9:.2f} GFLOP), {t_bytes:.1f} by bytes; "
+          f"event ms: kernel {ms:.4f} / {ms_again:.4f}, plain {plain_ms:.4f}, SDPA {library_ms:.4f} ({tag})")
+    sweep = {}
+    for b_x, h_x in K5_PAIRS:
+        for n_x, s_x in K5_SWEEP:
+            qx, kx, vx = (torch.randn(b_x, ln, h_x, d, generator=gen, device="cuda").to(bf16) for ln in (n_x, s_x, s_x))
+            tiles = -(-n_x // 192)
+            runs = {f"wgmma x{z}" if z else "ring": (lambda z=z: k5._launch(qx, kx, vx, None, None, None, z))
+                    for z in sorted({0, 1, tiles})}
+            want_x = k5.attention_plain(qx, kx, vx)
+            errs = {name: attention_error(fn(), want_x) for name, fn in runs.items()}
+            check(all(e[2] for e in errs.values()), f"K5 forced designs at N {n_x} S {s_x}: {errs}")
+            sweep[f"B{b_x}H{h_x} {n_x}x{s_x}"] = {"policy": k5.attention_design(b_x, n_x, s_x, h_x, d, bf16),
+                                                  **{name: device_us(fn) for name, fn in runs.items()}}
+    print(f"[K5] both designs forced, D 64 bf16, device µs a call by (B, H, N x S) and design (x: query tiles a block): "
+          f"{json.dumps(sweep)} ({tag})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err, "ring_max_abs_err": ring_err,
+            "device_us": dev, "designs": designs, "designs_us": sweep, **bnd}
 
 
 def kernel_sequence(fn, runs: int = 10) -> list:
@@ -3998,7 +4087,7 @@ def main() -> int:
     print(json.dumps({
         "kernels": kernels, "e2e_p50_ms": e2e["e2e_p50_ms"], "sample_p50_ms": e2e["sample_p50_ms"],
         "pipeline_p50_ms": {name: c["p50_ms"] for name, c in pipe["calls"].items()}, "build_s": build["build_s"],
-        "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k6_levels": k6["levels"],
+        "attention_config_p50_ms": attn["p50_ms"], "k5_levels": k5["levels"], "k5_streamed": k5["streamed"], "k5_stage_c": k5["stage_c"], "k6_levels": k6["levels"],
         "serve_http_p50_ms": served["http_p50_ms"], "serve_batch_pixel_share": served["batch_pixel_share"],
         "serve_batch_pixel_share_256x384": served["batch_pixel_share_256x384"],
         "entry": {k: entry_point[k] for k in ("bytes", "write_s", "load_s", "clip_text_p50_ms", "clip_image_p50_ms",

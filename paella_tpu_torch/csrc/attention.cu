@@ -59,28 +59,54 @@
 // The kernel itself (attention_ring_kernel) and its launch policy live in
 // attention.cuh, which K6's attention phase (attn_block.cu) shares; this file
 // is K5's C interface.
+//
+// Stable Cascade's Stage C attends 576 pixel queries over 576 + 85 keys, 32
+// heads of 64, at CFG batch 8: 24.9 GFLOP a call, bound by the tensor cores
+// (25.2 us at 989 TFLOP/s) and hardly less by bytes (24.2 us), where the ring
+// above took 731 us. attention.cuh's attention_wgmma_kernel takes such shapes
+// (wgmma with K and V resident in shared memory, read from the q|k|v product
+// and the conditioning cache where they lie): 136.6 us on an H100 80GB HBM3
+// at 700 W (chip_smoke.py item 9). attention_design gives it every bf16 head
+// of 64 with S <= 768: in the sweep of both designs forced it was faster or
+// within a µs of the ring at every size down to 16 x 40 (attention.cuh has
+// the readings); Paella's head dim 80, f32 and K6 keep the ring.
 #include "attention.cuh"
 
-// C interface for ctypes. q (B,N,H,D), k, v (B,S,H,D) with contiguous (H,D)
-// rows ldq, ldk, ldv elements apart (a multiple of 8 bf16 or 4 f32 values);
-// out (B,N,H,D) contiguous; mask (B,S) bytes (1 = attend) or null. Pointers
-// 16-byte aligned. D % 8 == 0, S >= 1. scale = D^-1/2 of the true head dim
-// in f32 (D may be that dim padded with zero columns). Returns
-// cudaErrorInvalidValue where even the smallest tiles of a head dim this wide
-// exceed shared memory (D over ~1100 in f32, ~2200 in bf16).
+// C interface for ctypes. q (B,N,H,D); keys [0, S1) from k, v (B,S1,H,D)
+// and keys [S1, S) from k2, v2 (B,S-S1,H,D) (null where S1 == S), each with
+// contiguous (H,D) rows ldq, ldk, ldv, ldk2, ldv2 elements apart (a multiple
+// of 8 bf16 or 4 f32 values); out (B,N,H,D) contiguous; mask (B,S) bytes (1 =
+// attend) or null. Pointers 16-byte aligned. D % 8 == 0, 1 <= S1 <= S.
+// scale = D^-1/2 of the true head dim in f32 (D may be that dim padded with
+// zero columns). design: -1 as paella_attention_design picks, 0 the ring, k
+// >= 1 the wgmma variant with k query tiles a block. Returns
+// cudaErrorInvalidValue where even the smallest tiles of a head dim this
+// wide exceed shared memory (D over ~1100 in f32, ~2200 in bf16), or the
+// wgmma variant does not fit the shapes.
 // Returns a cudaError_t.
-extern "C" int paella_attention(const void* q, const void* k, const void* v, const void* mask,
-                                void* out, int B, int N, int S, int H, int D, int ldq, int ldk,
-                                int ldv, float scale, int is_bf16, void* stream) {
+extern "C" int paella_attention(const void* q, const void* k, const void* v, const void* k2, const void* v2,
+                                const void* mask, void* out, int B, int N, int S, int S1, int H, int D, int ldq,
+                                int ldk, int ldv, int ldk2, int ldv2, float scale, int is_bf16, int design,
+                                void* stream) {
   using namespace paella;
+  if (S1 < 1 || S1 > S || (S1 < S && (k2 == nullptr || v2 == nullptr))) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t qbs = (size_t)N * ldq;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    return (int)launch_attention<T, false>((const T*)q, (const T*)k, (const T*)v, m, (T*)out, B, N, S, H, D, ldq, ldk, ldv,
-                                    qbs, 0, scale, st);
+    const KVSecond<T> two = S1 < S ? KVSecond<T>{(const T*)k2, (const T*)v2, S1, ldk2, ldv2} : KVSecond<T>{};
+    return (int)launch_attention<T, false>((const T*)q, (const T*)k, (const T*)v, m, (T*)out, B, N, S, H, D, ldq, ldk,
+                                           ldv, qbs, 0, scale, st, two, design);
   }
-  return (int)launch_attention<float, false>((const float*)q, (const float*)k, (const float*)v, m, (float*)out, B, N, S, H,
-                                      D, ldq, ldk, ldv, qbs, 0, scale, st);
+  const KVSecond<float> two =
+      S1 < S ? KVSecond<float>{(const float*)k2, (const float*)v2, S1, ldk2, ldv2} : KVSecond<float>{};
+  return (int)launch_attention<float, false>((const float*)q, (const float*)k, (const float*)v, m, (float*)out, B, N, S,
+                                             H, D, ldq, ldk, ldv, qbs, 0, scale, st, two, design);
+}
+
+// The design paella_attention's policy takes at these shapes: 0 the ring, k
+// >= 1 the wgmma variant with k query tiles a block (paella::attention_design).
+extern "C" int paella_attention_design(int B, int N, int S, int H, int D, int is_bf16) {
+  return paella::attention_design(B, N, S, H, D, is_bf16 != 0);
 }

@@ -7,10 +7,14 @@
 //   o = sum_j round_T(p) * v_j       f32 accumulation, rounded to T at the end
 //
 // the rounding points of paella_tpu/kernels/attention.py:32-53 and of the
-// attention phase of paella_tpu/kernels/attn_block.py:93-127. One block of
-// 1-8 warps takes a query tile of one (batch, head): 16 query rows a warp,
-// the key tiles split among the warps that share query rows (attention.cu's
-// header has the design and what it measured).
+// attention phase of paella_tpu/kernels/attn_block.py:93-127. Two designs,
+// picked from the shapes (attention_design): the ring, latency-bound, where
+// one block of 1-8 warps takes a query tile of one (batch, head): 16 query
+// rows a warp, the key tiles split among the warps that share query rows
+// (attention.cu's header has the design and what it measured); and K5's
+// compute-bound wgmma variant for bf16 heads of 64 (Stage C's attention),
+// whose notes are beside it below. K and V may come from two sources
+// (KVSecond).
 //
 // Keys j < prefix always attend; key j >= prefix attends where
 // mask[b][j - prefix] (mask (B, S - prefix) bytes, or null for all). K5
@@ -98,6 +102,37 @@ __device__ __forceinline__ void copy_rows(T* smem, int lds, const T* g, int ld, 
     const int r = e / vpr, d = (e % vpr) * V;
     const bool ok = r < nvalid && d < D;
     sm90::cp_async16(sm90::smem_addr(smem + r * lds + d), g + (ok ? (size_t)r * ld + d : 0), ok);
+  }
+}
+
+// The second source of keys where K and V come from two (Stage C reads its
+// pixel rows' k and v out of the q|k|v product and the conditioning's out of
+// its per-block cache, with no concatenation): keys [S1, S) of item b at k
+// and v from row b (S - S1), rows ldk and ldv elements apart. Keys [0, S1)
+// lie in the first source as one source's [0, S) do. k null: one source.
+template <typename T>
+struct KVSecond {
+  const T *k = nullptr, *v = nullptr;
+  int S1 = 0, ldk = 0, ldv = 0;
+};
+
+// copy_rows of key tile j (keys [j KT, j KT + nrows)) of one item: from g
+// (item b's row 0 of the first source, leading dimension ld) below S1, from
+// g2 (the second's, ld2) from S1 on. One source (kTwo false) is copy_rows at
+// g + j KT ld; with two, only the tile that straddles S1 goes row by row.
+template <bool kTwo, int KT, typename T>
+__device__ __forceinline__ void copy_keys(T* smem, int lds, const T* g, int ld, const T* g2, int ld2, int S1, int j,
+                                          int nvalid, int nrows, int D, int Dp) {
+  const int j0 = j * KT;
+  if (!kTwo || j0 + nvalid <= S1) return copy_rows(smem, lds, g + (size_t)j * KT * ld, ld, nvalid, nrows, D, Dp);
+  if (j0 >= S1) return copy_rows(smem, lds, g2 + (size_t)(j0 - S1) * ld2, ld2, nvalid, nrows, D, Dp);
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = Dp / V;
+  for (int e = threadIdx.x; e < nrows * vpr; e += blockDim.x) {
+    const int r = e / vpr, d = (e % vpr) * V, j = j0 + r;
+    const bool ok = r < nvalid && d < D;
+    const T* src = !ok ? g : (j < S1 ? g + (size_t)j * ld : g2 + (size_t)(j - S1) * ld2) + d;
+    sm90::cp_async16(sm90::smem_addr(smem + r * lds + d), src, ok);
   }
 }
 
@@ -244,11 +279,16 @@ __device__ __forceinline__ void add_pv(const float (&p)[KT / 8][4], const T* Vt,
 // (pass 2), ring - 1 rounds in flight. Each round is one cp.async group
 // (round 0's also holds Q). The key groups' (max, sum) are merged after pass
 // 1 and their p @ V partials summed after pass 2, both in group order.
-template <typename T, bool kWide>
+// Second: empty for one source (the kernel's arguments are then those of a
+// one-source kernel), KVSecond<T> for two.
+template <typename T, bool kWide, typename... Second>
 __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T* __restrict__ k,
                                                const T* __restrict__ v, const uint8_t* __restrict__ mask,
                                                T* __restrict__ out, int N, int S, int H, int D, int ldq, int ldk,
-                                               int ldv, size_t qbs, int prefix, float scale, int wq, int ring) {
+                                               int ldv, size_t qbs, int prefix, float scale, int wq, int ring,
+                                               Second... second) {
+  constexpr bool kTwo = sizeof...(Second) > 0;
+  const KVSecond<T> two{second...};
   constexpr int KT = tile_keys<kWide>(), kKeyTiles = KT / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -265,8 +305,11 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
   T* Qs = reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(stats) + round16(wk * rows * 8));
   T* Ks = Qs + rows * ld;
   T* Vs = Ks + slots * KT * ld;
-  const T* kg = k + (size_t)b * S * ldk + h * D;
-  const T* vg = v + (size_t)b * S * ldv + h * D + d0;
+  const int S1 = kTwo ? two.S1 : S;
+  const T* kg = k + (size_t)b * S1 * ldk + h * D;
+  const T* vg = v + (size_t)b * S1 * ldv + h * D + d0;
+  const T* kg2 = kTwo ? two.k + (size_t)b * (S - S1) * two.ldk + h * D : nullptr;
+  const T* vg2 = kTwo ? two.v + (size_t)b * (S - S1) * two.ldv + h * D + d0 : nullptr;
   const int n_rows = min(rows, N - q0);
 
   // round i < rounds: K tiles of pass 1; round rounds + r: V tiles (and K
@@ -280,8 +323,9 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
         const int j = (i % rounds) * wk + grp, slot = slot_of(i, grp);
         if (j >= nkt) break;
         const int nk = min(KT, S - j * KT);
-        if (!pass2 || !resident) copy_rows(Ks + slot * KT * ld, ld, kg + (size_t)j * KT * ldk, ldk, nk, KT, D, Dp);
-        if (pass2) copy_rows(Vs + slot * KT * ldvs, ldvs, vg + (size_t)j * KT * ldv, ldv, nk, KT, Dv, Dvp);
+        if (!pass2 || !resident)
+          copy_keys<kTwo, KT>(Ks + slot * KT * ld, ld, kg, ldk, kg2, two.ldk, S1, j, nk, KT, D, Dp);
+        if (pass2) copy_keys<kTwo, KT>(Vs + slot * KT * ldvs, ldvs, vg, ldv, vg2, two.ldv, S1, j, nk, KT, Dv, Dvp);
       }
     }
     sm90::cp_async_commit();
@@ -422,34 +466,318 @@ __device__ __forceinline__ void attention_ring(const T* __restrict__ q, const T*
 // The same kernel under two names, so that a profile tells K5's launches
 // (attention.cu) from K6's attention phase (attn_block.cu).
 #define PAELLA_ATTENTION_KERNEL(name)                                                                              \
-  template <typename T, bool kWide>                                                                                 \
+  template <typename T, bool kWide, typename... Second>                                                             \
   __global__ void __launch_bounds__(256)                                                                            \
       name(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,                               \
            const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int D, int ldq, int ldk,     \
-           int ldv, size_t qbs, int prefix, float scale, int wq, int ring) {                                        \
-    attention_ring<T, kWide>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq, ring);          \
+           int ldv, size_t qbs, int prefix, float scale, int wq, int ring, Second... two) {                         \
+    attention_ring<T, kWide>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq, ring, two...);  \
   }
 PAELLA_ATTENTION_KERNEL(attention_ring_kernel)
 PAELLA_ATTENTION_KERNEL(block_attention_kernel)
 #undef PAELLA_ATTENTION_KERNEL
 
-template <typename T, bool kBlock, bool kWide>
+template <typename T, bool kBlock, bool kWide, bool kTwo>
 constexpr auto attention_kernel() {
   if constexpr (kBlock) return &block_attention_kernel<T, kWide>;
+  else if constexpr (kTwo) return &attention_ring_kernel<T, kWide, KVSecond<T>>;
   else return &attention_ring_kernel<T, kWide>;
 }
 
-// The launch policy, shared by K5 and K6 (kBlock: under K6's kernel name):
+// ---- K5's compute-bound variant: bf16 heads of 64 on wgmma ----
+//
+// Stage C's attention (B 8, H 32, N 576 pixel queries, S 661 = 576 + 85
+// keys, D 64) is 24.9 GFLOP a call over 81 MB: 25.2 us of tensor cores at 989
+// TFLOP/s and 24.2 us of HBM, against ~1-2 us for Paella's shapes. Each (batch,
+// head) holds 576 x 661 scores, so the work is no longer latency-bound: the
+// ring design's mma.sync tiles (16-row warps, 8 warps a block) cannot reach
+// Hopper's tensor-core rate, and its two passes of exp2 over every score
+// (2 x 97 M a call through the 16-a-clock MUFU unit, ~50 us) have to overlap
+// the products. This variant:
+// - A block of three warpgroups takes query tiles of 192 rows of one (batch
+//   item, head), one after the other: one tile, or all of them where the
+//   pairs alone fill the card (attention_design); 576 = 3 x 192, so no query
+//   row is padding. Each warpgroup owns 64 query rows (wgmma's M) over every
+//   key, so no statistics are merged between warps and no partials summed.
+// - K and V of the (batch item, head) stay resident: up to 768 keys x 128
+//   bytes each (661 -> 704, 176 KB at Stage C's shape), in the 128-byte
+//   swizzle the wgmma descriptors name (16-byte chunk c of key j at c ^ j %
+//   8), copied with 16-byte cp.async straight from where they lie: the keys
+//   [0, S1) from the q|k|v product, the rest from the conditioning cache
+//   (KVSecond), one cp.async group per 64-key chunk of K, then V; the first
+//   tile's pass 1 waits for each K chunk only, so it starts while V lands,
+//   and later tiles find both in place. Keys past S are zero and score
+//   -inf. Q goes from device memory straight into registers: its 16
+//   A-fragment registers a thread are the QK^T product's A operand.
+// - Pass 1: S = Q K^T on wgmma m64n64k16 (A from registers, K from shared
+//   memory, f32 accumulators), 64 keys at a time; the rows' max and sum of
+//   exp2(s - max) with an online rescale. Pass 2 recomputes each chunk's
+//   scores with the same instructions, normalises p = exp2(s - max) / sum in
+//   f32, rounds it to bf16 into the A fragments of p V (the accumulator
+//   layout of 16 keys is the A-fragment layout) and issues p V on wgmma with
+//   V as the MN-major B operand; the next chunk's QK^T is issued behind it.
+//   The rounding points are the ring's: f32 scores, p normalised
+//   in f32 before its round, f32 accumulation of p V, one round of the
+//   output.
+// - Every sum has a fixed order (a thread's 16 scores of a row in key order,
+//   then the quad's shuffles, chunk after chunk), and nothing depends on B or
+//   timing: runs are bitwise equal, and an image's output does not depend on
+//   its batchmates.
+// Scores are in log2 units as in the ring: exp2(s scale log2 e - m2) is one
+// FFMA and one MUFU.EX2 (ftz: a p below 2^-126 is 0).
+namespace wgv {
+constexpr int kD = 64;                           // the head dim: one 128-byte row, the swizzle's width
+constexpr int kChunk = 64;                       // keys a QK^T product (wgmma N), 4 k-steps of p V
+constexpr int kGroups = 3;                       // warpgroups a block
+constexpr int kRows = 64 * kGroups;              // query rows a block
+constexpr int kBlockThreads = 128 * kGroups;
+constexpr int kMaxKeys = 768;                    // K and V resident: 2 x 768 x 128 bytes
+constexpr int kRowBytes = 2 * kD;
+constexpr int kChunkBytes = kChunk * kRowBytes;  // 8 KB
+__host__ __device__ constexpr int padded_keys(int S) { return (S + kChunk - 1) / kChunk * kChunk; }
+// K, V, the key flags, the chunks' all-attend flags, 1024 bytes of alignment slack
+__host__ __device__ constexpr size_t smem_bytes(int S) {
+  return 1024 + 2 * (size_t)padded_keys(S) * kRowBytes + padded_keys(S) + 16;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// This thread's 32 raw scores of one 64-key chunk (at shared address kchunk):
+// sc[i] is query row g + 8 ((i >> 1) & 1) of its warp's 16 against key 8 (i
+// >> 2) + 2t + (i & 1) of the chunk, the wgmma m64n64 accumulator layout.
+// Waits for every product this warpgroup issued before it too.
+__device__ __forceinline__ void scores(float (&sc)[32], const uint32_t (&qf)[4][4], uint32_t kchunk) {
+  sm90::fence_operands(sc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sm90::WgmmaRS<0>::mma(sc, qf[kk], sm90::desc_sw128(kchunk) + 2 * kk, kk);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(sc);
+}
+
+// A chunk with masked or padded keys: a masked key's raw score is -1e9 / scale
+// (-1e9 once scaled, as nn/attention.py fills it), a key past S's is -inf.
+__device__ __forceinline__ void flag_scores(float (&sc)[32], const uint8_t* flags, int t, float masked) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int f = flags[(i >> 2) * 8 + 2 * t + (i & 1)];
+    sc[i] = f == 1 ? sc[i] : (f == 0 ? masked : -INFINITY);
+  }
+}
+}  // namespace wgv
+
+template <typename T>
+__global__ void __launch_bounds__(wgv::kBlockThreads, 1)
+    attention_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                           const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int ldq,
+                           int ldk, int ldv, size_t qbs, int prefix, float scale, int qtiles, const KVSecond<T> two) {
+  static_assert(is_bf16<T>(), "wgmma variant: bf16");
+  using namespace wgv;
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  uint8_t* Ks = sm90::align1024(wg_smem);
+  const int nch = (S + kChunk - 1) / kChunk, sp = nch * kChunk;
+  uint8_t* Vs = Ks + (size_t)sp * kRowBytes;
+  uint8_t* flags = Vs + (size_t)sp * kRowBytes;  // 1 attend, 0 masked, 2 past S
+  uint8_t* full = flags + sp;                     // chunk c's keys all attend
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, col = h * kD;
+  const int S1 = two.k != nullptr ? two.S1 : S;
+
+  // cp.async group c < nch: K chunk c; group nch: all of V. Item b's key j
+  // at g + j ld below S1, at g2 + (j - S1) ld2 from S1 on.
+  auto copy = [&](uint8_t* dst, const T* g, int ld, const T* g2, int ld2, int c) {
+    for (int e = tid; e < kChunk * 8; e += kBlockThreads) {
+      const int j = c * kChunk + (e >> 3), ch = e & 7;
+      const bool ok = j < S;
+      const T* src = !ok ? g : (j < S1 ? g + (size_t)j * ld : g2 + (size_t)(j - S1) * ld2) + ch * 8;
+      sm90::cp_async16(sm90::smem_addr(dst + j * kRowBytes + ((ch ^ (j & 7)) << 4)), src, ok);
+    }
+  };
+  const T* kg = k + (size_t)b * S1 * ldk + col;
+  const T* vg = v + (size_t)b * S1 * ldv + col;
+  const T* kg2 = two.k != nullptr ? two.k + (size_t)b * (S - S1) * two.ldk + col : kg;
+  const T* vg2 = two.v != nullptr ? two.v + (size_t)b * (S - S1) * two.ldv + col : vg;
+  for (int c = 0; c < nch; ++c) {
+    copy(Ks, kg, ldk, kg2, two.ldk, c);
+    sm90::cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) copy(Vs, vg, ldv, vg2, two.ldv, c);
+  sm90::cp_async_commit();
+
+  const uint8_t* mb = mask != nullptr ? mask + (size_t)b * (S - prefix) : nullptr;
+  auto attends = [&](int j) { return j < prefix || mb == nullptr || mb[j - prefix] != 0; };
+  for (int j = tid; j < sp; j += kBlockThreads) flags[j] = j >= S ? 2 : (attends(j) ? 1 : 0);
+  if (tid < nch) {
+    bool all = (tid + 1) * kChunk <= S;
+    for (int j = tid * kChunk; all && j < (tid + 1) * kChunk; ++j) all = attends(j);
+    full[tid] = all;
+  }
+
+  const float scale2 = scale * kLog2e, masked = kMaskedScore / scale;
+  const uint32_t kb = sm90::smem_addr(Ks), vb = sm90::smem_addr(Vs);
+  const int ntiles = (N + kRows - 1) / kRows, tile_end = min(ntiles, (int)(blockIdx.x + 1) * qtiles);
+  for (int tile = blockIdx.x * qtiles; tile < tile_end; ++tile) {
+    const bool first = tile == (int)blockIdx.x * qtiles;  // K and V still landing
+    // Q's A-fragments, k-step kk: rows n0 and n0 + 8, head dims 16 kk + 2t (+1) and 16 kk + 8 + 2t (+1)
+    const int n0 = tile * kRows + wg * 64 + warp * 16 + g;
+    uint32_t qf[4][4];
+    {
+      const T* r0 = q + b * qbs + (size_t)min(n0, N - 1) * ldq + col + 2 * t;
+      const T* r1 = q + b * qbs + (size_t)min(n0 + 8, N - 1) * ldq + col + 2 * t;
+      const bool ok0 = n0 < N, ok1 = n0 + 8 < N;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        qf[kk][0] = ok0 ? ld_u32(r0 + 16 * kk) : 0u;
+        qf[kk][1] = ok1 ? ld_u32(r1 + 16 * kk) : 0u;
+        qf[kk][2] = ok0 ? ld_u32(r0 + 16 * kk + 8) : 0u;
+        qf[kk][3] = ok1 ? ld_u32(r1 + 16 * kk + 8) : 0u;
+      }
+    }
+    float sc[32], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    // pass 1: each row's max m2 (log2 units) and sum of exp2(s2 - m2)
+    for (int c = 0; c < nch; ++c) {
+      if (first) {
+        cp_async_wait_at_most(nch - c);  // K chunk c (this thread's copies)
+        sm90::fence_proxy_async();
+        __syncthreads();                 // everyone's; the flags
+      }
+      scores(sc, qf, kb + c * kChunkBytes);
+      if (!full[c]) flag_scores(sc, flags + c * kChunk, t, masked);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == r) mx = fmaxf(mx, sc[i]);
+        const float m_new = fmaxf(m2[r], quad_max(mx) * scale2);  // finite: key 64 c is real
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == r) sum += ex2(fmaf(sc[i], scale2, -m_new));
+        l[r] = l[r] * ex2(m2[r] - m_new) + quad_sum(sum);
+        m2[r] = m_new;
+      }
+    }
+
+    // pass 2: o += round(p) V, chunk after chunk
+    if (first) {
+      sm90::cp_async_wait<0>();
+      sm90::fence_proxy_async();
+      __syncthreads();  // V
+    }
+    const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    uint32_t pf[4][4];  // p's A-fragments, k-step kc: keys 16 kc + [0, 16) of the chunk
+    for (int c = 0; c < nch; ++c) {
+      scores(sc, qf, kb + c * kChunkBytes);  // also retires chunk c - 1's p V, which read pf
+      if (!full[c]) flag_scores(sc, flags + c * kChunk, t, masked);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // rows g (e even), g + 8 (e odd); keys 16 kc + 8 (e / 2) + 2t (+1)
+          const int i = 8 * kc + 2 * e, r = e & 1;
+          pf[kc][e] = pack_bf16(ex2(fmaf(sc[i], scale2, -m2[r])) * inv_l[r],
+                                ex2(fmaf(sc[i + 1], scale2, -m2[r])) * inv_l[r]);
+        }
+      fence_regs(pf);
+      sm90::fence_operands(o);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        sm90::WgmmaRS<1>::mma(o, pf[kc], sm90::desc_sw128(vb + c * kChunkBytes + kc * 16 * kRowBytes), 1);
+      sm90::wgmma_commit();
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(o);
+    fence_regs(pf);
+
+    // o[i]: row n0 + 8 ((i >> 1) & 1), head dim 8 (i >> 2) + 2t + (i & 1)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int n = n0 + 8 * ((i >> 1) & 1);
+      if (n < N)
+        *reinterpret_cast<uint32_t*>(out + ((size_t)b * N + n) * H * kD + col + (i >> 2) * 8 + 2 * t) =
+            pack_bf16(o[i], o[i + 1]);
+    }
+  }
+}
+
+// K5's choice of design from the shapes it is given (attention.cu's
+// paella_attention_design reports it): 0, the ring, or k >= 1, the wgmma
+// variant with k query tiles a block. The variant takes every bf16 head of 64
+// whose keys stay resident (S <= 768); the ring everything else: Paella's
+// shapes (D 80), f32, longer key sequences, and always K6's attention phase.
+// Measured on an H100 (chip_smoke.py item 9's sweep, device µs at D 64, each
+// design forced, three runs): the variant was faster at every N x S from 64
+// x 136 up and B x H 2, 32, 128 and 256 (19.2-19.4 vs 47.8-54.8 µs at 64 x
+// 136 and B 8 x H 32, 29.2 vs 117-122 at Stage C's 576 x 661 and B 2 x H 16);
+// at 16 x 40 it took about half the ring's time at B 1 x H 2 (4.86-4.91 vs
+// 8.07-9.49), B 2 x H 16 (4.89-4.98 vs 8.22-9.65) and B 4 x H 32 (5.08-5.11 vs
+// 8.09-9.67), and was within a µs of it at B 8 x H 32 (9.09-9.51 vs
+// 8.52-10.42). So no problem size sends a head of 64 back to the ring.
+// Query tiles a block: all of a (batch, head)'s where a block a tile would
+// take as many waves of blocks as there are tiles anyway (ceil(B H tiles /
+// SMs) >= tiles), so K and V are copied once a pair at no cost in waves; else
+// one, so that more blocks are in flight. Measured at 576 x 661: all three 130.6 vs 168.7 µs at B 8 x H 32,
+// 64.6 vs 85.2 at B 4 x H 32; one 29.2 vs 61.6 at B 2 x H 16 (and at 200 x 130,
+// two tiles: 32.1 vs 38.9, 16.7 vs 20.5, 15.5 vs 10.6). The tiles a block takes
+// change no arithmetic, so the output never depends on B.
+inline bool wgmma_fits(int N, int S, int D, bool bf16) {
+  return bf16 && D == wgv::kD && N >= 1 && S >= 1 && S <= wgv::kMaxKeys;
+}
+inline int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& n = sms[dev < 64 ? dev : 0];
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 132;
+  return n;
+}
+inline int attention_design(int B, int N, int S, int H, int D, bool bf16) {
+  if (!wgmma_fits(N, S, D, bf16)) return 0;
+  const long tiles = (N + wgv::kRows - 1) / wgv::kRows, sms = sm_count();
+  return ((long)B * H * tiles + sms - 1) / sms >= tiles ? (int)tiles : 1;
+}
+
+template <typename T>
+cudaError_t launch_attention_wgmma(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
+                                   int H, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale, int qtiles,
+                                   const KVSecond<T>& two, cudaStream_t st) {
+  const size_t bytes = wgv::smem_bytes(S);
+  cudaError_t err = sm90::reserve_smem<attention_wgmma_kernel<T>>(bytes);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (N + wgv::kRows - 1) / wgv::kRows;
+  attention_wgmma_kernel<T><<<dim3((ntiles + qtiles - 1) / qtiles, H, B), wgv::kBlockThreads, bytes, st>>>(
+      q, k, v, mask, out, N, S, H, ldq, ldk, ldv, qbs, prefix, scale, qtiles, two);
+  return cudaGetLastError();
+}
+
+// The ring's launch policy, shared by K5 and K6 (kBlock: under K6's kernel name):
 // about four query blocks per (batch, head), 16-row warps, at most 4; the
 // key tiles split among up to 8 / wq groups (one for a wide head), so that
 // every SM has more than one warp per scheduler to hide latency. K and V
 // stay resident in shared memory up to kResidentBytes, else stream through a
 // ring of 3 rounds (fewer groups, or 2 rounds, or fewer query warps, if
 // shared memory is short). Nothing here depends on B.
-template <typename T, bool kBlock, bool kWide>
+template <typename T, bool kBlock, bool kWide, bool kTwo>
 cudaError_t launch_attention_at(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
                                 int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
-                                cudaStream_t st) {
+                                const KVSecond<T>& two, cudaStream_t st) {
   constexpr int KT = tile_keys<kWide>();
   const int Dp = padded_head<T>(D), ld = ring_ld<T>(Dp), ldvs = kWide ? ring_ld<T>(kAttnMaxD) : ld;
   const int chunks = kWide ? (Dp + kAttnMaxD - 1) / kAttnMaxD : 1, nkt = (S + KT - 1) / KT;
@@ -467,26 +795,54 @@ cudaError_t launch_attention_at(const T* q, const T* k, const T* v, const uint8_
     while (bytes() > kMaxSmem && wq > 1) --wq;
   }
   if (bytes() > kMaxSmem) return cudaErrorInvalidValue;
-  constexpr auto kernel = attention_kernel<T, kBlock, kWide>();
+  constexpr auto kernel = attention_kernel<T, kBlock, kWide, kTwo>();
   cudaError_t err = sm90::reserve_smem<kernel>(bytes());
   if (err != cudaSuccess) return err;
   const int rows = 16 * wq;
-  kernel<<<dim3((N + rows - 1) / rows * chunks, H, B), 32 * wq * wk, bytes(), st>>>(q, k, v, mask, out, N, S, H, D, ldq,
-                                                                                   ldk, ldv, qbs, prefix, scale, wq,
-                                                                                   ring);
+  const dim3 grid((N + rows - 1) / rows * chunks, H, B);
+  if constexpr (kTwo)
+    kernel<<<grid, 32 * wq * wk, bytes(), st>>>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq,
+                                                ring, two);
+  else
+    kernel<<<grid, 32 * wq * wk, bytes(), st>>>(q, k, v, mask, out, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, wq,
+                                                ring);
   return cudaGetLastError();
 }
 
+// two: keys [two.S1, S) from a second source (two.k null: one source; K6
+// reads one). design: -1 as attention_design picks (K6: the ring), 0 the
+// ring, k >= 1 the wgmma variant with k query tiles a block
+// (cudaErrorInvalidValue where the shapes do not fit it).
 template <typename T, bool kBlock>
 cudaError_t launch_attention(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
                              int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
-                             cudaStream_t st) {
+                             cudaStream_t st, const KVSecond<T>& two = {}, int design = -1) {
   if (D % 8) return cudaErrorInvalidValue;
-  if (padded_head<T>(D) > kAttnMaxD)
-    return launch_attention_at<T, kBlock, true>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale,
-                                                st);
-  return launch_attention_at<T, kBlock, false>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale,
-                                               st);
+  if constexpr (is_bf16<T>() && !kBlock) {
+    if (design < 0) design = attention_design(B, N, S, H, D, true);
+    if (design > 0) {
+      if (!wgmma_fits(N, S, D, true)) return cudaErrorInvalidValue;
+      return launch_attention_wgmma<T>(q, k, v, mask, out, B, N, S, H, ldq, ldk, ldv, qbs, prefix, scale, design, two,
+                                       st);
+    }
+  } else {
+    if (design > 0) return cudaErrorInvalidValue;
+  }
+  const bool wide = padded_head<T>(D) > kAttnMaxD;
+  if constexpr (!kBlock) {
+    if (two.k != nullptr) {
+      if (wide)
+        return launch_attention_at<T, kBlock, true, true>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix,
+                                                          scale, two, st);
+      return launch_attention_at<T, kBlock, false, true>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix,
+                                                         scale, two, st);
+    }
+  }
+  if (wide)
+    return launch_attention_at<T, kBlock, true, false>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix,
+                                                       scale, two, st);
+  return launch_attention_at<T, kBlock, false, false>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix,
+                                                      scale, two, st);
 }
 
 }  // namespace paella

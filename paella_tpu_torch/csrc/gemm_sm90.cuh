@@ -164,6 +164,22 @@ struct Wgmma<128, int8_t> {
   }
 };
 
+// m64n64k16 bf16 with A from registers (four .b32 of bf16 pairs a thread, the
+// m16n8k16 A-fragment of its warp's 16 rows) and B from shared memory,
+// K-major (kTransB 0) or MN-major (kTransB 1: B's rows are its K index, its N
+// index contiguous). scale_d 0: d = A B, the old accumulators ignored. K5's
+// wgmma variant (attention.cuh): QK^T with Q in registers, p V with p there.
+template <int kTransB>
+struct WgmmaRS {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PAELLA_REGS32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+                 : PAELLA_ACC32(PAELLA_F)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+
 #undef PAELLA_ACC32
 #undef PAELLA_ACC64
 #undef PAELLA_F

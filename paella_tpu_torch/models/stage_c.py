@@ -19,9 +19,11 @@ Every ResBlock and the TimestepBlock after it run as one K1 call
 (kernels/resblock.py::fused_resblock) with the FiLM a = sum a_i, b = sum b_i
 over t, sca and crp; the up path's first ResBlock takes K1's channelwise-skip
 mode. The FiLM vectors of all TimestepBlocks come from one product a call
-(their mappers stacked as a derived weight). Attention is plain torch
-(nn/attention.py::dot_product_attention): each AttnBlock attends its pixel
-queries over [LN(x) tokens | kv_mapper(clip)].
+(their mappers stacked as a derived weight). Each AttnBlock attends its pixel
+queries over [LN(x) tokens | kv_mapper(clip)] with K5
+(kernels/attention.py::fused_attention, its wgmma variant at the published
+shape), which reads the pixel keys and values out of the q|k|v product and
+the conditioning's out of the cond cache; on the CPU its plain version.
 
 `gen_cond_cache` computes once per call what every step shares: the CLIP
 conditioning (the three mappers and `clip_norm`) and, per AttnBlock, its
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import StageCConfig
-from ..nn.attention import dot_product_attention
+from ..kernels.attention import fused_attention
 from ..nn.blocks import AttnBlock, DerivedWeights, ResBlock, TimestepBlock
 from ..nn.functional import depth_to_space, layer_norm, sinusoidal_embedding, space_to_depth
 
@@ -200,14 +202,16 @@ class StageC(DerivedWeights):
         nh = blk.nhead
         w, bias = self._qkv(blk)
         tokens = layer_norm(h).reshape(b, hh * ww, c)
-        if blk.self_attn:
+
+        def heads(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape(b, t.shape[1], nh, c // nh)
+
+        if blk.self_attn:  # keys [pixels | conditioning], read where each lies
             q, k, v = F.linear(tokens, w, bias).split(c, dim=-1)
-            k, v = torch.cat([k, kv[0]], dim=1), torch.cat([v, kv[1]], dim=1)
+            out = fused_attention(heads(q), heads(k), heads(v), k2=heads(kv[0]), v2=heads(kv[1]))
         else:
-            q, (k, v) = F.linear(tokens, w[:c], bias[:c]), kv
-        s = k.shape[1]
-        out = dot_product_attention(q.reshape(b, -1, nh, c // nh), k.reshape(b, s, nh, c // nh),
-                                    v.reshape(b, s, nh, c // nh))
+            q = F.linear(tokens, w[:c], bias[:c])
+            out = fused_attention(heads(q), heads(kv[0]), heads(kv[1]))
         o = blk.attention.attn.out_proj
         out = F.linear(out.reshape(b, hh * ww, c), o.weight.to(h.dtype), o.bias.to(h.dtype))
         return h + out.reshape(b, hh, ww, c)

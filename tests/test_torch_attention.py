@@ -116,3 +116,45 @@ def test_attention_plain_matches_jax_kernel_at_any_head_dim(dtype, d, with_mask)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert np.abs(got - want).max() <= 2**-7 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_sources_equal_the_concatenated_keys(dtype, with_mask):
+    """Keys and values from two sources (k, v then k2, v2, as Stage C hands
+    over its pixel and conditioning keys) give exactly the concatenated call,
+    through the plain version and through fused_attention on the CPU."""
+    q, k, v, mask = inputs(16, with_mask, seed=4)
+    tq, tk, tv = (to_dtype(a, dtype)[1] for a in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    s1 = 20
+    want = attention_plain(tq, tk, tv, tm)
+    two = attention_plain(tq, tk[:, :s1], tv[:, :s1], tm, tk[:, s1:], tv[:, s1:])
+    assert torch.equal(two, want)
+    assert torch.equal(fused_attention(tq, tk[:, :s1], tv[:, :s1], tm, k2=tk[:, s1:], v2=tv[:, s1:]), want)
+
+
+@pytest.mark.parametrize("case", ["k2_alone", "heads", "head_dim", "batch", "dtype", "device"])
+def test_kernel_wrapper_refuses_a_mismatched_second_source(case):
+    """k2 and v2 come together, with q's batch, heads and head dim, k's
+    dtype and q's device; anything else raises before any launch."""
+    q, k, v, _ = inputs(16, False, seed=5)
+    t = torch.from_numpy
+    q, k, v = t(q), t(k), t(v)
+    k2 = v2 = torch.zeros(B, 5, H, 16)
+    if case == "k2_alone":
+        v2 = None
+    elif case == "heads":
+        k2 = v2 = torch.zeros(B, 5, H + 1, 16)
+    elif case == "head_dim":
+        k2 = v2 = torch.zeros(B, 5, H, 8)
+    elif case == "batch":
+        k2 = v2 = torch.zeros(B + 1, 5, H, 16)
+    elif case == "dtype":
+        k2 = v2 = torch.zeros(B, 5, H, 16, dtype=torch.bfloat16)
+    else:
+        k2 = v2 = torch.zeros(B, 5, H, 16, device="meta")
+    attention_plain.launches = 0
+    with pytest.raises(ValueError, match="fused_attention"):
+        fused_attention(q, k, v, k2=k2, v2=v2)
+    assert attention_plain.launches == 0

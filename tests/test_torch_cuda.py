@@ -255,12 +255,15 @@ def test_attention_kernel_matches_plain(cuda, dtype, with_mask, shape):
 @pytest.mark.parametrize("shape", [
     (2, 256, 1036, 16, 80),  # conditioning of ~780 tokens: K and V stream through the ring
     (2, 8, 100, 4, 80),  # N < 16, S not a multiple of the 64-key tile
-    (1, 200, 130, 2, 64),  # 4 query warps, key tiles split across 2 groups, a ragged last tile
+    (1, 200, 130, 2, 64),  # 4 query warps, key tiles split across 2 groups, a ragged last tile (bf16: also wgmma)
     (2, 64, 136, 16, 80),  # the flagship's level 2: 1 query warp, 3 key groups
 ])
 def test_attention_kernel_paths(cuda, dtype, with_mask, shape):
     """K5's resident and streamed paths against the plain version, bitwise
-    repeatable, and the first image's output equal alone and in the batch."""
+    repeatable, and the first image's output equal alone and in the batch;
+    the ring forced as well, where the policy picks the wgmma variant."""
+    from paella_tpu_torch.kernels.attention import _launch
+
     b, n, s, h, d = shape
     g = torch.Generator(device=cuda).manual_seed(15)
     q, k, v = (torch.randn(b, length, h, d, generator=g, device=cuda).to(dtype) for length in (n, s, s))
@@ -268,11 +271,14 @@ def test_attention_kernel_paths(cuda, dtype, with_mask, shape):
     if with_mask:
         mask = torch.rand(b, s, generator=g, device=cuda) < 0.5
         mask[:, 0] = True
-    got = fused_attention(q, k, v, mask)
-    close_in_dtype(got, attention_plain(q, k, v, mask))
+    got, want = fused_attention(q, k, v, mask), attention_plain(q, k, v, mask)
+    close_in_dtype(got, want)
     assert torch.equal(fused_attention(q, k, v, mask), got)
     one = fused_attention(q[:1], k[:1], v[:1], None if mask is None else mask[:1])
     assert torch.equal(one, got[:1])
+    ring = _launch(q, k, v, mask, None, None, 0)
+    close_in_dtype(ring, want)
+    assert torch.equal(_launch(q, k, v, mask, None, None, 0), ring)
 
 
 def test_attention_kernel_takes_projection_halves(cuda):
@@ -283,6 +289,91 @@ def test_attention_kernel_takes_projection_halves(cuda):
     kv = torch.randn(2, 136, 2 * 1280, generator=g, device=cuda).to(torch.bfloat16)
     k, v = (t.reshape(2, 136, 16, 80) for t in kv.split(1280, dim=-1))
     close_in_dtype(fused_attention(q, k, v), attention_plain(q, k.contiguous(), v.contiguous()))
+
+
+def kv_views(g, b: int, s: int, h: int, d: int, dtype=torch.bfloat16) -> tuple:
+    """k and v (B, S, H, D) as the two halves of one (B, S, 2C) projection."""
+    kv = torch.randn(b, s, 2 * h * d, generator=g, device=g.device).to(dtype)
+    return tuple(t.reshape(b, s, h, d) for t in kv.split(h * d, dim=-1))
+
+
+def stage_c_attention(g, b: int, n: int, s_c: int, h: int, d: int, dtype=torch.bfloat16) -> tuple:
+    """q, k, v as views of one (B, N, 3C) q|k|v product and k2, v2 of one
+    (B, S_cond, 2C) cond cache entry, as StageC._attend hands them to K5."""
+    c = h * d
+    qkv = torch.randn(b, n, 3 * c, generator=g, device=g.device).to(dtype)
+    q, k, v = (t.reshape(b, n, h, d) for t in qkv.split(c, dim=-1))
+    return (q, k, v, *kv_views(g, b, s_c, h, d, dtype))
+
+
+def test_attention_wgmma_variant_at_stage_c_shape(cuda):
+    """Stage C's AttnBlock (B 8, N 576, 576 + 85 keys from two sources, H 32,
+    D 64, bf16) takes the wgmma variant: within two bf16 ulps of the largest
+    output of the plain version (close_in_dtype), bitwise equal on two runs,
+    and item 0 alone equals item 0 of the batch of 8."""
+    from paella_tpu_torch.kernels.attention import attention_design
+
+    assert attention_design(8, 576, 661, 32, 64, torch.bfloat16) == ("wgmma", 3)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v, k2, v2 = stage_c_attention(g, 8, 576, 85, 32, 64)
+    got = fused_attention(q, k, v, k2=k2, v2=v2)
+    close_in_dtype(got, attention_plain(q, k, v, None, k2, v2))
+    assert torch.equal(fused_attention(q, k, v, k2=k2, v2=v2), got)
+    assert torch.equal(fused_attention(q[:1], k[:1], v[:1], k2=k2[:1], v2=v2[:1]), got[:1])
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("shape", [(2, 100, 64, 37, 2), (1, 200, 150, 70, 2), (2, 576, 576, 85, 4)])
+def test_attention_designs_match_plain_with_two_sources(cuda, with_mask, shape):
+    """(B, N, S1, S2, H) at D 64 bf16, keys from two sources (S1 and S2 not
+    multiples of the 64-key chunk): the ring and the wgmma variant, each
+    forced, against the plain version, with and without a key mask."""
+    from paella_tpu_torch.kernels.attention import _launch
+
+    b, n, s1, s2, h = shape
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q = torch.randn(b, n, h, 64, generator=g, device=cuda).to(torch.bfloat16)
+    (k, v), (k2, v2) = kv_views(g, b, s1, h, 64), kv_views(g, b, s2, h, 64)
+    mask = None
+    if with_mask:
+        mask = torch.rand(b, s1 + s2, generator=g, device=cuda) < 0.6
+        mask[:, 0] = True
+    want = attention_plain(q, k, v, mask, k2, v2)
+    for design in (0, 1, 3):  # the ring; the wgmma variant with 1 and 3 query tiles a block
+        got = _launch(q, k, v, mask, k2, v2, design)
+        close_in_dtype(got, want)
+        assert torch.equal(_launch(q, k, v, mask, k2, v2, design), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 80])
+def test_attention_ring_with_two_sources(cuda, dtype, d):
+    """The ring (f32, and bf16 at head dims the variant does not take) reads
+    k2 and v2 as keys past S1, as the plain version's concatenation does."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q, k, v, k2, v2 = stage_c_attention(g, 2, 50, 21, 4, d, dtype)
+    got = fused_attention(q, k, v, k2=k2, v2=v2)
+    close_in_dtype(got, attention_plain(q, torch.cat([k, k2], 1), torch.cat([v, v2], 1)))
+    assert torch.equal(fused_attention(q, k, v, k2=k2, v2=v2), got)
+
+
+def test_attention_policy_keeps_paella_shapes_on_the_ring(cuda):
+    """Paella's attention-config shapes (D 80: N 256 / S 328, N 64 / S 136 at
+    B 2, H 16, and the streamed S 1036) take the ring: the policy says so,
+    and their outputs are bit for bit the ring's forced."""
+    from paella_tpu_torch.kernels.attention import _launch, attention_design
+
+    g = torch.Generator(device=cuda).manual_seed(25)
+    for n, s in ((256, 328), (64, 136), (256, 1036)):
+        assert attention_design(2, n, s, 16, 80, torch.bfloat16) == ("ring", 0)
+        q, k, v = (torch.randn(2, ln, 16, 80, generator=g, device=cuda).to(torch.bfloat16) for ln in (n, s, s))
+        assert torch.equal(fused_attention(q, k, v), _launch(q, k, v, None, None, None, 0))
+    assert attention_design(8, 576, 661, 32, 64, torch.float32) == ("ring", 0)
+    assert attention_design(2, 576, 661, 16, 64, torch.bfloat16) == ("wgmma", 1)  # 32 pairs: a block a tile
+    assert attention_design(8, 16, 40, 32, 64, torch.bfloat16) == ("wgmma", 1)  # every bf16 head of 64 that fits
+    assert attention_design(2, 256, 1036, 16, 64, torch.bfloat16) == ("ring", 0)  # K and V too long to stay resident
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch(q, k, v, None, None, None, 1)  # D 80: the variant refuses
 
 
 @pytest.mark.parametrize("with_mask", [False, True])

@@ -344,3 +344,50 @@ def test_prior_graph_replay_equals_eager(cuda, published):
     assert torch.equal(first, eager) and torch.equal(replay, eager)
     assert math.isfinite(float(replay.float().abs().max()))
     graph.clear()
+
+
+@pytest.mark.cuda
+def test_prior_replay_runs_every_attention_on_k5(cuda, published):
+    """One replay of the 20-step prior graph adds 64 AttnBlocks x 20 steps =
+    1,280 to `launches.fused_attention` (what GET /stats shows), and K5's
+    plain version never runs on the card."""
+    from paella_tpu_torch.kernels.attention import attention_plain
+    from paella_tpu_torch.sampling import graph
+    from paella_tpu_torch.utils import tracing
+
+    m = published.to(torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cond = prior.PriorConditioning(torch.randn(1, 77, 1280, generator=g, device=cuda).bfloat16(),
+                                   torch.randn(1, 1, 1280, generator=g, device=cuda).bfloat16(),
+                                   torch.zeros(1, 1, 768, device=cuda).bfloat16())
+    uncond = prior.PriorConditioning(*(torch.zeros_like(t) for t in cond.tensors().values()))
+    seeds, cfg = torch.tensor([[0, 7]]), PriorSampleConfig(steps=20)
+    plain = attention_plain.launches
+    prior.sample_prior(m, seeds, cond, (1, 24, 24, 16), uncond, cfg)  # captures
+    before = tracing.snapshot()["counters"].get("launches.fused_attention", 0)
+    prior.sample_prior(m, seeds, cond, (1, 24, 24, 16), uncond, cfg)  # one replay
+    assert tracing.snapshot()["counters"].get("launches.fused_attention", 0) - before == 64 * 20
+    assert attention_plain.launches == plain
+    graph.clear()
+
+
+@pytest.mark.parametrize("self_attn", [True, False])
+def test_stage_c_attention_goes_through_k5(self_attn):
+    """Every AttnBlock of a forward calls K5's wrapper (kernels/attention.py::
+    fused_attention: on the CPU its plain version, one call a block), with
+    the pixel and conditioning keys as two sources where it attends to both;
+    the forward still matches the reference."""
+    from paella_tpu_torch.kernels.attention import attention_plain
+    from paella_tpu_torch.nn.blocks import AttnBlock
+
+    m = tiny_model(self_attn=self_attn)
+    cfg = m.config
+    g = torch.Generator().manual_seed(7)
+    x, r = torch.randn(2, 4, 3, cfg.c_in, generator=g), torch.rand(2, generator=g)
+    cond = conditioning(2, cfg)
+    blocks = sum(isinstance(mod, AttnBlock) for mod in m.modules())
+    assert blocks == 6  # blocks ((1, 2), (2, 1)): one AttnBlock a C-T-A triplet
+    before = attention_plain.launches
+    got = m(x, r, *cond)
+    assert attention_plain.launches - before == blocks
+    assert rel(got, ref.stage_c(state(m), sizes(cfg), x, r, *cond)) < 1e-5
