@@ -42,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import PaellaConfig
 from ..nn import init
-from ..nn.blocks import AttnBlock, DerivedWeights, Downsample, FeedForwardBlock, ResBlock, TimestepBlock, Upsample
+from ..nn.blocks import (AttnBlock, DerivedWeights, Downsample, DropoutMasks, FeedForwardBlock, ResBlock, TimestepBlock,
+                         Upsample)
 from ..nn.functional import depth_to_space, exact_f32, layer_norm, sinusoidal_embedding, space_to_depth
 
 
@@ -362,15 +363,19 @@ class Paella(DerivedWeights):
         clip_mask: Optional[torch.Tensor] = None,
         clip_image_mask: Optional[torch.Tensor] = None,
         dropout_seed: Optional[int] = None,
+        dropout_masks: Optional[DropoutMasks] = None,
     ) -> torch.Tensor:
         """Logits (B, H, W, num_labels) of the JAX forward at fused_blocks=False
         (paella_tpu/models/denoiser.py:344-506, 740-828), differentiable:
         every ResBlock and TimestepBlock as JAX's XLA modules, plain attention,
         the parameters cast to the compute dtype per call. dropout_seed None
         is JAX's deterministic=True; an int turns on dropout at
-        `config.dropout[i]`, each block drawing its mask from a generator
-        seeded by (dropout_seed, the block's place), so a recomputation draws
-        the same mask. With `config.remat` (or `remat_levels[i]`) every
+        `config.dropout[i]`, each block's mask drawn from a generator seeded
+        by (dropout_seed, the block's place) at its first use and read again
+        by a recomputation (nn/blocks.py::DropoutMasks). `dropout_masks`, a
+        DropoutMasks, takes the place of dropout_seed: its masks, drawn
+        before the call, are read (the training graph's route,
+        train/trainer.py). With `config.remat` (or `remat_levels[i]`) every
         repetition >= 1 of a level is recomputed in the backward
         (torch.utils.checkpoint), where JAX puts nn.remat(BlockGroup). A
         float32 forward rounds as IEEE float32 (exact_f32); its backward runs
@@ -398,7 +403,9 @@ class Paella(DerivedWeights):
             h = layer_norm(self.in_mapper[0].weight[x.long()]).to(dt)
             h = layer_norm(F.linear(space_to_depth(h, p), emb.weight[:, :, 0, 0].to(dt), emb.bias.to(dt)))
 
-            ctx = (r_embed, c_embed, cond_mask, dropout_seed)
+            if dropout_masks is None and dropout_seed is not None:
+                dropout_masks = DropoutMasks(dropout_seed)
+            ctx = (r_embed, c_embed, cond_mask, dropout_masks)
             level_outputs = []
             for i in range(n):
                 blocks = self.down_blocks[i]
@@ -423,29 +430,28 @@ class Paella(DerivedWeights):
             h = layer_norm(depth_to_space(h, p))
             return F.linear(h, self.out_mapper[1].weight[:, :, 0, 0].to(dt))
 
-    def _run_level_train(self, place, i, blocks, start, stop, h, skip, r_embed, c_embed, cond_mask, dropout_seed):
+    def _run_level_train(self, place, i, blocks, start, stop, h, skip, r_embed, c_embed, cond_mask, masks):
         """Level i's blocks[start:stop], one repetition (len(level_config[i])
         blocks) at a time; repetition 0 takes the skip. `place` numbers the
-        level's pass (down 0..n-1, up n..2n-1) for the dropout seeds."""
+        level's pass (down 0..n-1, up n..2n-1) for the dropout masks."""
         cfg = self.config
-        rate = cfg.dropout[i] if dropout_seed is not None else 0.0
+        rate = cfg.dropout[i] if masks is not None else 0.0
         period = len(cfg.level_config[i])
 
         def run(h, j0, skip):
             for j in range(j0, j0 + period):
                 blk = blocks[j]
-                gen = None
+                keep = None
                 if rate > 0.0 and isinstance(blk, (ResBlock, AttnBlock, FeedForwardBlock)):
-                    seed = (dropout_seed * 1_000_003 + place * 4096 + j) % 2**63
-                    gen = torch.Generator(device=h.device).manual_seed(seed)
+                    keep = masks.site(place, j, rate)
                 if isinstance(blk, ResBlock):
-                    h = blk.forward_train(h, skip if j == j0 else None, rate, gen)
+                    h = blk.forward_train(h, skip if j == j0 else None, rate, keep)
                 elif isinstance(blk, TimestepBlock):
                     h = blk(h, r_embed)
                 elif isinstance(blk, AttnBlock):
-                    h = blk.forward_train(h, c_embed, cond_mask, rate, gen)
+                    h = blk.forward_train(h, c_embed, cond_mask, rate, keep)
                 else:
-                    h = blk(h, rate, gen)
+                    h = blk(h, rate, keep)
             return h
 
         h = run(h, start, skip)

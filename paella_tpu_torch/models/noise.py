@@ -10,6 +10,30 @@ from typing import Optional, Tuple
 import torch
 
 
+def draw_noise(
+    shape,
+    t: torch.Tensor,
+    num_labels: int,
+    generator: Optional[torch.Generator] = None,
+    mask: Optional[torch.Tensor] = None,
+    random_x: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.int32,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mask, random_x) of `add_noise` over a token grid of `shape` on
+    `device` (t's by default): those given are kept, the others drawn in
+    this order. mask
+    int32, 1 where u <= t, u ~ U[0, 1) float32; random_x of `dtype`,
+    uniform in [0, num_labels)."""
+    device = t.device if device is None else device
+    if mask is None:
+        u = torch.rand(shape, generator=generator, device=device)
+        mask = (u <= t.reshape(t.shape + (1,) * (len(shape) - t.dim()))).to(torch.int32)
+    if random_x is None:
+        random_x = torch.randint(0, num_labels, shape, generator=generator, device=device, dtype=dtype)
+    return mask, random_x
+
+
 def add_noise(
     x: torch.Tensor,
     t: torch.Tensor,
@@ -20,15 +44,11 @@ def add_noise(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replace a Bernoulli(t) share of the tokens with uniform codebook ids.
 
-    x (B, H, W) integer tokens, t (B,) noise levels. A token is replaced
-    where u <= t, u ~ U[0, 1) float32; the ids are uniform in
-    [0, num_labels). Returns (noised, mask), mask int32 with 1 at replaced
-    positions."""
-    if mask is None:
-        u = torch.rand(x.shape, generator=generator, device=x.device)
-        mask = (u <= t.reshape(t.shape + (1,) * (x.dim() - t.dim()))).to(torch.int32)
-    if random_x is None:
-        random_x = torch.randint(0, num_labels, x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    x (B, H, W) integer tokens, t (B,) noise levels. A token
+    is replaced where u <= t, u ~ U[0, 1) float32; the ids are uniform in
+    [0, num_labels) (`draw_noise`). Returns (noised, mask), mask int32 with
+    1 at replaced positions."""
+    mask, random_x = draw_noise(x.shape, t, num_labels, generator, mask, random_x, x.dtype, x.device)
     noised = x * (1 - mask) + random_x * mask
     return noised.to(x.dtype), mask
 

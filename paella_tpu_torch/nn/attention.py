@@ -19,17 +19,19 @@ def dot_product_attention(
     kv_mask: Optional[torch.Tensor] = None,
     reweight: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_keep: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Attention over (B, N, H, D) queries and (B, S, H, D) keys/values.
 
     Scores are float32. kv_mask (B, S) bool, True = attend: a masked key gets
     -1e9, so a zero-padded conditioning token acts exactly like an absent one.
     reweight, broadcastable to (B, H, N, S), multiplies the post-softmax
-    probabilities (reference: utils/alter_attention.py:34). With a generator
-    and dropout_rate > 0 (training), each probability is then kept with
-    probability 1 - dropout_rate and scaled by 1 / (1 - dropout_rate), in
-    float32 before the cast to v's dtype, as the JAX package orders it.
+    probabilities (reference: utils/alter_attention.py:34). With a mask source
+    `dropout_keep` ((shape, device) -> a bool keep-mask, nn/blocks.py::
+    DropoutMasks.site) and dropout_rate > 0 (training), each probability is
+    then kept where its mask is true, with probability 1 - dropout_rate, and
+    scaled by 1 / (1 - dropout_rate), in float32 before the cast to v's
+    dtype, as the JAX package orders it.
     """
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bnhd,bshd->bhns", q.float(), k.float()) * scale
@@ -38,9 +40,8 @@ def dot_product_attention(
     probs = torch.softmax(logits, dim=-1)
     if reweight is not None:
         probs = probs * reweight
-    if dropout_rate > 0.0 and generator is not None:
-        keep = torch.rand(probs.shape, generator=generator, device=probs.device) < 1.0 - dropout_rate
-        probs = probs * keep / (1.0 - dropout_rate)
+    if dropout_rate > 0.0 and dropout_keep is not None:
+        probs = probs * dropout_keep(probs.shape, probs.device) / (1.0 - dropout_rate)
     probs = probs.to(v.dtype)
     return torch.einsum("bhns,bshd->bnhd", probs, v)
 

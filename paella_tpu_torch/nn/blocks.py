@@ -95,22 +95,70 @@ class GlobalResponseNorm(nn.Module):
         return (self.gamma.float() * (x32 * nx) + self.beta.float() + x32).to(x.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax nn.Dropout when training: each element kept with probability
-    1 - rate and scaled by 1 / (1 - rate), else 0; the identity at rate 0 or
-    without a generator."""
-    if rate == 0.0 or generator is None:
+def keep_mask(shape, rate: float, seed: int, device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dropout's keep-mask: True with probability 1 - rate, from U[0, 1)
+    float32 draws of a fresh generator seeded `seed` on `device`; written
+    into `out` where given."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.lt(torch.rand(shape, generator=gen, device=device), 1.0 - rate, out=out)
+
+
+class DropoutMasks:
+    """The keep-masks of one training forward's dropout, one a block. Block
+    j of a level's pass `place` draws its mask with `keep_mask` from the seed
+    (seed * 1_000_003 + place * 4096 + j) mod 2^63 at its first use; every
+    later use (remat's recompute) reads the same tensor. `redraw(seed)`
+    draws every mask held anew for another seed, in place, which is how the
+    training graph's static masks get a step's values before its replay
+    (sampling/graph.py::train). No mask is drawn inside a CUDA graph
+    capture: a draw there would be replayed with the capture's numbers."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.masks: dict = {}  # (place, j) -> (rate, mask)
+
+    def site(self, place: int, j: int, rate: float) -> Callable:
+        """Block j of pass `place`'s mask source for `dropout`: (shape, device) -> its mask."""
+        return functools.partial(self.mask, (place, j), rate)
+
+    def mask(self, key: tuple, rate: float, shape, device) -> torch.Tensor:
+        held = self.masks.get(key)
+        if held is None:
+            if capturing():
+                raise RuntimeError(f"DropoutMasks: block {key}'s mask is not drawn, and no draw may run in a capture")
+            held = self.masks[key] = (rate, keep_mask(shape, rate, self.block_seed(self.seed, key), device))
+        if held[1].shape != shape:
+            raise ValueError(f"DropoutMasks: block {key} holds a mask of shape {tuple(held[1].shape)}, "
+                             f"asked for {tuple(shape)}")
+        return held[1]
+
+    def redraw(self, seed: int) -> None:
+        self.seed = seed
+        for key, (rate, m) in self.masks.items():
+            keep_mask(m.shape, rate, self.block_seed(seed, key), m.device, out=m)
+
+    @staticmethod
+    def block_seed(seed: int, key: tuple) -> int:
+        place, j = key
+        return (seed * 1_000_003 + place * 4096 + j) % 2**63
+
+
+def dropout(x: torch.Tensor, rate: float, keep: Optional[Callable]) -> torch.Tensor:
+    """flax nn.Dropout when training: each element kept where the mask of
+    `keep` (a mask source, `DropoutMasks.site`: (shape, device) -> a bool
+    mask true with probability 1 - rate) is true and scaled by
+    1 / (1 - rate), else 0; the identity at rate 0 or without a source."""
+    if rate == 0.0 or keep is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return torch.where(keep(x.shape, x.device), x / (1.0 - rate), torch.zeros_like(x))
 
 
-def _channelwise(mlp: nn.Sequential, h: torch.Tensor, dt, rate: float = 0.0, generator=None) -> torch.Tensor:
+def _channelwise(mlp: nn.Sequential, h: torch.Tensor, dt, rate: float = 0.0, keep=None) -> torch.Tensor:
     """The c -> 4c -> c MLP (the JAX ChannelwiseMLP) in dtype dt, weights cast
     per call: fc1, exact GELU, GRN, dropout, fc2."""
     fc1, grn, fc2 = mlp[0], mlp[2], mlp[4]
     h = F.gelu(F.linear(h.to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
-    return F.linear(dropout(grn(h), rate, generator), fc2.weight.to(dt), fc2.bias.to(dt))
+    return F.linear(dropout(grn(h), rate, keep), fc2.weight.to(dt), fc2.bias.to(dt))
 
 
 def grouped_depthwise_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -235,7 +283,7 @@ class ResBlock(DerivedWeights):
         x: torch.Tensor,
         skip: Optional[torch.Tensor] = None,
         dropout_rate: float = 0.0,
-        generator: Optional[torch.Generator] = None,
+        keep: Optional[Callable] = None,
     ) -> torch.Tensor:
         """The JAX XLA ResBlock (no FiLM: the TimestepBlock after it runs
         apart): grouped depthwise conv, LN (eps 1e-6), the channelwise MLP
@@ -253,7 +301,7 @@ class ResBlock(DerivedWeights):
         h = layer_norm(grouped_depthwise_conv(h, self.depthwise.weight.to(dt), self.depthwise.bias.to(dt)))
         if cat:
             h = torch.cat([h, skip.to(dt)], dim=-1)
-        return _channelwise(self.channelwise, h, dt, dropout_rate, generator) + x
+        return _channelwise(self.channelwise, h, dt, dropout_rate, keep) + x
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         from ..quant import check_int8_state
@@ -281,8 +329,8 @@ class FeedForwardBlock(nn.Module):
     def reset_parameters(self, gen: torch.Generator, out_init_scale: float = 1.0) -> None:
         _reset_channelwise(self.channelwise, gen, out_init_scale)
 
-    def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return x + _channelwise(self.channelwise, layer_norm(x), self.dtype, dropout_rate, generator)
+    def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, keep: Optional[Callable] = None) -> torch.Tensor:
+        return x + _channelwise(self.channelwise, layer_norm(x), self.dtype, dropout_rate, keep)
 
 
 class TimestepBlock(nn.Module):
@@ -410,11 +458,12 @@ class AttnBlock(DerivedWeights):
         cond: torch.Tensor,
         cond_mask: Optional[torch.Tensor] = None,
         dropout_rate: float = 0.0,
-        generator: Optional[torch.Generator] = None,
+        keep: Optional[Callable] = None,
     ) -> torch.Tensor:
         """The JAX AttnBlock on its XLA attention, differentiable: kv mapped
-        per call, dropout on the attention probabilities."""
-        attention_fn = functools.partial(dot_product_attention, dropout_rate=dropout_rate, generator=generator)
+        per call, dropout on the attention probabilities (`keep`, a mask
+        source as `dropout` takes)."""
+        attention_fn = functools.partial(dot_product_attention, dropout_rate=dropout_rate, dropout_keep=keep)
         return self._attend(x, self.map_cond(cond), cond_mask, None, attention_fn)
 
     def _attend(self, x, kv, cond_mask, cond_reweight, attention_fn: Callable) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Captured CUDA graphs: the sampler's step loop, the counterpart of the JAX
-package's single jit `paella_tpu/sampling/sampler.py::_sample_jit`, and the
+package's single jit `paella_tpu/sampling/sampler.py::_sample_jit`, the
 forwards of the frozen text towers (cond/t5.py::T5Encoder,
-cond/clip.py::CLIPTextEncoder). A call costs the host one replay instead of
-hundreds or thousands of launches.
+cond/clip.py::CLIPTextEncoder), and a training step's loss and backward
+(train/trainer.py). A call costs the host one replay instead of hundreds or
+thousands of launches.
 
-One capture-and-replay mechanism serves both. A call's inputs are tensors by
+One capture-and-replay mechanism serves all three. A call's inputs are tensors by
 name (None where absent); input values are never part of a graph's key: a
 call copies its inputs into the graph's static buffers, replays it and
 returns a new tensor holding its output, or a tuple of them where the work
@@ -42,6 +43,26 @@ belongs to the outer graph). The tower graphs have their own LRU budget,
 MAX_TOWER_GRAPHS, so a tower graph never evicts a sampler graph. A replay
 keeps the matmul precision flags in force at its capture.
 
+`train(model, extra, step, inputs, seed, params)` runs `step(inputs,
+masks)`, a microbatch's loss and its backward, which sets each parameter's
+.grad and returns (loss, acc), through a graph keyed by the model's
+identity and config, the device, the shape and dtype of every input (the
+batch, the null conditioning and every draw), `reads(model)` (so a restore
+that replaces tensors captures anew, while the optimizer's updates in place
+are read as they are), the matmul and cuDNN precision flags in force, and
+`extra` (the codec and the TrainConfig the step was made with); not the
+derived-weight generation, which moves after every update. Unlike the other
+two families it runs with autograd on. On a miss `step` runs once eagerly on
+static copies of the inputs with fresh dropout masks (nn/blocks.py::
+DropoutMasks), whose loss, acc and gradients are the call's answer; then the
+graph is captured on the same buffers and masks, and the capture's
+gradients, the graph's static ones, are kept aside. On a hit the inputs are
+copied in, the masks drawn anew from `seed` into their static buffers, the
+graph replayed, each parameter's .grad pointed at its static gradient (a
+later replay rewrites it), and clones of loss and acc returned. No draw runs
+inside the capture. At most MAX_TRAIN_GRAPHS (one) is kept: its private pool
+holds about a step's activations.
+
 Every capture and replay on a device runs on one stream of that process,
 ordered after the caller's current stream and before it again, under one
 lock: so a graph never replays on two streams at once, and the scratch a
@@ -58,7 +79,10 @@ graph.pool_bytes, the sum of `pool_bytes()`; for the towers, spans
 tower_graph.replay and tower_graph.capture, counters tower_graph.hit.<name>
 and tower_graph.miss.<name> per tower (byt5, clip_text, clip_g) and
 tower_graph.evicted, and the gauge tower_graph.pool_bytes, the sum of
-`tower_pool_bytes()`.
+`tower_pool_bytes()`; for training, spans train_graph.replay (the input
+copies, the mask draws and the replay) and train_graph.capture (the eager
+step and the capture), counters train_graph.hit, train_graph.miss and
+train_graph.evicted, and the gauge train_graph.pool_bytes.
 """
 from __future__ import annotations
 
@@ -73,7 +97,7 @@ import torch
 from torch.nn.modules import module as _module
 
 from ..kernels import launch_counts
-from ..nn.blocks import DerivedWeights
+from ..nn.blocks import DerivedWeights, DropoutMasks
 from ..utils import tracing
 
 # Sampler graphs kept, least recently used dropped first. The structures a
@@ -86,10 +110,15 @@ MAX_GRAPHS = 16
 # Tower graphs kept, apart from the sampler's: a server at max_batch 8 runs
 # ByT5 at 4 batch sizes over 5 buckets (pad_bucket) and CLIP at 4.
 MAX_TOWER_GRAPHS = 24
+# Training graphs kept: one. Its private pool is about a step's activations
+# (~20 GB for the 1b denoiser at 16 images of 256x256), so a second
+# signature evicts the first rather than holding another pool.
+MAX_TRAIN_GRAPHS = 1
 
 _LOCK = threading.Lock()
 _GRAPHS: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()  # the sampler's
 _TOWER_GRAPHS: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
+_TRAIN_GRAPHS: "collections.OrderedDict[tuple, _TrainGraph]" = collections.OrderedDict()
 _STREAMS: dict = {}  # device -> the stream its captures and replays run on
 captures = 0  # graphs captured in this process
 
@@ -102,6 +131,12 @@ class _Graph:
     output: object  # a tensor, or a tuple of tensors
     pool_bytes: int  # device memory reserved while it was captured: its private pool
     launches: dict  # "launches.<wrapper>" -> the wrapper's calls in the capture: one replay's launches
+
+
+@dataclasses.dataclass
+class _TrainGraph(_Graph):
+    masks: DropoutMasks  # the static dropout masks, drawn anew before each replay
+    grads: dict  # id(parameter) -> its static gradient
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +161,13 @@ def _tower_stale(k: tuple, g: _Graph, key: tuple) -> bool:
     return g.model() is None or (k[0] == key[0] and k[4] != key[4])
 
 
+def _train_stale(k: tuple, g: _Graph, key: tuple) -> bool:
+    return g.model() is None
+
+
 _SAMPLER = _Family("graph", _GRAPHS, lambda: MAX_GRAPHS, _sampler_stale)
 _TOWERS = _Family("tower_graph", _TOWER_GRAPHS, lambda: MAX_TOWER_GRAPHS, _tower_stale)
+_TRAIN = _Family("train_graph", _TRAIN_GRAPHS, lambda: MAX_TRAIN_GRAPHS, _train_stale)
 
 
 def graph_key(model, structure, inputs: dict) -> tuple:
@@ -138,6 +178,14 @@ def graph_key(model, structure, inputs: dict) -> tuple:
 def tower_key(module, inputs: dict) -> tuple:
     """The key a tower call's graph is kept under (see the module docstring)."""
     return id(module), module.config, str(_device(inputs)), _shapes(inputs), reads(module)
+
+
+def train_key(model, extra, inputs: dict) -> tuple:
+    """The key a training step's graph is kept under (see the module docstring)."""
+    matmul = torch.backends.cuda.matmul
+    flags = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction,
+             matmul.allow_fp16_reduced_precision_reduction, torch.backends.cudnn.allow_tf32)
+    return id(model), model.config, str(_device(inputs)), _shapes(inputs), reads(model), flags, extra
 
 
 def _shapes(inputs: dict) -> tuple:
@@ -199,13 +247,19 @@ def tower(module, name: str, forward: Callable, inputs: dict) -> torch.Tensor:
     return _call(_TOWERS, tower_key(module, inputs), lambda static: forward(**static), module, inputs, f".{name}")
 
 
+def _stream(device) -> torch.cuda.Stream:
+    """The device's capture-and-replay stream; under _LOCK."""
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 def _call(family: _Family, key: tuple, fn: Callable, model, inputs: dict, tag: str = "") -> torch.Tensor:
     """fn(inputs) through the graph kept under `key`, captured on a miss."""
     device = _device(inputs)
     with _LOCK, torch.no_grad(), torch.cuda.device(device):
-        stream = _STREAMS.get(device)
-        if stream is None:
-            stream = _STREAMS[device] = torch.cuda.Stream(device)
+        stream = _stream(device)
         caller = torch.cuda.current_stream(device)
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
@@ -261,6 +315,82 @@ def _capture(fn: Callable, model, inputs: dict, device) -> tuple[torch.Tensor, _
                        launches)
 
 
+def train(model, extra, step: Callable, inputs: dict, seed: int, params: list) -> tuple:
+    """step(inputs, masks) -> (loss, acc), a microbatch's loss and its
+    backward, through its captured graph on the CUDA device of the inputs,
+    with every parameter of `params` given its .grad (see the module
+    docstring); `seed` draws the dropout masks."""
+    device = _device(inputs)
+    key = train_key(model, extra, inputs)
+    with _LOCK, torch.cuda.device(device):
+        stream = _stream(device)
+        caller = torch.cuda.current_stream(device)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            entry = _TRAIN_GRAPHS.get(key)
+            missed = entry is None or entry.model() is not model
+            if missed:
+                tracing.count("train_graph.miss")
+                _drop_stale(_TRAIN, key)
+                with tracing.span("train_graph.capture"):
+                    out, grads, _TRAIN_GRAPHS[key] = _capture_train(step, model, inputs, seed, params, device)
+            else:
+                tracing.count("train_graph.hit")
+                _TRAIN_GRAPHS.move_to_end(key)
+                with tracing.span("train_graph.replay"):
+                    for name, t in inputs.items():
+                        entry.inputs[name].copy_(t)
+                    entry.masks.redraw(seed)
+                    entry.graph.replay()
+                    out = tuple(t.clone() for t in entry.output)
+                grads = [entry.grads.get(id(p)) for p in params]
+                for name, n in entry.launches.items():
+                    tracing.count(name, n)
+        caller.wait_stream(stream)
+        # the eager step's gradients, like the outputs, were made on the
+        # graph's stream (the static ones live as long as their graph)
+        for t in (*out, *(grads if missed else ())):
+            if t is not None:
+                t.record_stream(caller)
+    for p, g in zip(params, grads):
+        p.grad = g
+    if missed:
+        tracing.gauge("train_graph.pool_bytes", sum(_pool_bytes(_TRAIN)))
+    return out
+
+
+def _capture_train(step: Callable, model, inputs: dict, seed: int, params: list, device) -> tuple:
+    """The eager step's (loss, acc) and gradients (the call's answer), and
+    the graph captured after it."""
+    global captures
+    static = {name: t.clone() for name, t in inputs.items()}
+    masks = DropoutMasks(seed)
+    out = step(static, masks)  # the warm-up, eager, on the capture stream; draws every mask
+    eager = [p.grad for p in params]
+    for p in params:
+        p.grad = None  # so the captured backward allocates the static gradients in the graph's pool
+    # the warm-up's activations go back to the device: the capture's pool
+    # needs as much again, and no cached block can be freed during a capture
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    graph = torch.cuda.CUDAGraph()
+    before = torch.cuda.memory_reserved(device)
+    calls = launch_counts()
+    graph.capture_begin(capture_error_mode="thread_local")
+    try:
+        output = step(static, masks)
+    except BaseException:
+        with contextlib.suppress(Exception):
+            graph.capture_end()
+        raise
+    graph.capture_end()
+    captures += 1
+    grads = {id(p): p.grad for p in params if p.grad is not None}
+    launches = {f"launches.{k}": n - calls[k] for k, n in launch_counts().items() if n != calls[k]}
+    return out, eager, _TrainGraph(weakref.ref(model), graph, static, output,
+                                   torch.cuda.memory_reserved(device) - before, launches, masks, grads)
+
+
 def _drop_stale(family: _Family, key: tuple) -> None:
     """Drop from `family` the graph under `key` (its model is gone), the
     graphs `family.stale` finds, and the least recently used past its limit
@@ -292,9 +422,10 @@ def tower_pool_bytes() -> list:
 
 
 def clear() -> None:
-    """Drop every graph kept, the sampler's and the towers' (their pools
-    return to the allocator's cache)."""
+    """Drop every graph kept, the sampler's, the towers' and the training
+    step's (their pools return to the allocator's cache once no tensor of
+    theirs is held)."""
     with _LOCK:
-        for family in (_SAMPLER, _TOWERS):
+        for family in (_SAMPLER, _TOWERS, _TRAIN):
             family.graphs.clear()
             tracing.gauge(f"{family.prefix}.pool_bytes", 0)

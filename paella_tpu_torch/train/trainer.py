@@ -11,13 +11,21 @@ takes a key and splits it; here every draw of a microbatch (`Draws`) can be
 pinned from outside, and what is not pinned comes from the state's
 `torch.Generator`, so a test can feed the JAX package's draws to this step.
 
+On a CUDA device with one microbatch and no DDP or mesh, the loss and its
+backward replay as one captured CUDA graph (`make_train_step`,
+sampling/graph.py::train); the draws, the dropout masks and the optimizer
+stay outside it.
+
 Spans (utils/tracing.py): train.step, and under it per microbatch
 train.encode (the frozen codec's encode), train.noise (conditioning
 dropout, t, the noising and the loss weights), train.forward, train.loss
 and train.backward, then train.allreduce (loss and acc over the ranks) and
 train.optimizer (`AdamW.step` and the derived weights' drop); train.sync
 covers each host read that waits for the device (the dropout seed drawn
-when not pinned, AdamW's non-finite test and its clipping test).
+when not pinned, AdamW's non-finite test and its clipping test). On the
+graph's route a replay (train_graph.replay) takes the place of the
+microbatch's spans, and its first step records them under
+train_graph.capture.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import TrainConfig
-from ..models.noise import add_noise, get_loss_weight
+from ..models.noise import add_noise, draw_noise, get_loss_weight
+from ..nn.blocks import DropoutMasks
+from ..sampling import graph
 from ..utils import tracing
 
 
@@ -51,6 +61,9 @@ class Batch:
         return [Batch(*parts) for parts in zip(*(t.chunk(n) for t in fields))]
 
 
+BATCH_FIELDS = tuple(f.name for f in dataclasses.fields(Batch))
+
+
 @dataclasses.dataclass
 class NullCond:
     """The frozen encoders' embeddings of "" that conditioning dropout swaps
@@ -59,6 +72,9 @@ class NullCond:
     byt5: torch.Tensor
     byt5_mask: torch.Tensor
     clip: torch.Tensor
+
+
+NULL_FIELDS = tuple(f.name for f in dataclasses.fields(NullCond))
 
 
 @dataclasses.dataclass
@@ -74,6 +90,9 @@ class Draws:
     noise_mask: Optional[torch.Tensor] = None  # (B, h, w) int, 1 = token replaced
     random_x: Optional[torch.Tensor] = None  # (B, h, w) replacement ids
     dropout_seed: Optional[int] = None  # Paella.forward_train's dropout seed
+
+
+DRAW_TENSORS = ("drop_byt5", "drop_clip", "drop_image", "u", "noise_mask", "random_x")
 
 
 class _SmoothedWeightedCE(torch.autograd.Function):
@@ -122,19 +141,48 @@ def _coin(p: float, b: int, generator, device) -> torch.Tensor:
     return torch.rand(b, generator=generator, device=device) < p
 
 
+def _draw_coins(cfg: TrainConfig, draws: Draws, b: int, generator, device) -> None:
+    if draws.drop_byt5 is None:
+        draws.drop_byt5 = _coin(cfg.byt5_drop_prob, b, generator, device)
+    if draws.drop_clip is None:
+        draws.drop_clip = _coin(cfg.clip_text_drop_prob, b, generator, device)
+    if draws.drop_image is None:
+        draws.drop_image = _coin(cfg.clip_image_drop_prob, b, generator, device)
+
+
+def noise_level(cfg: TrainConfig, u: torch.Tensor) -> torch.Tensor:
+    """t = clip(1 - u + t_min, t_min, 1) (reference: src_distributed/train.py:99)."""
+    return torch.clamp(1.0 - u + cfg.t_min, cfg.t_min, 1.0)
+
+
+def draw_missing(cfg: TrainConfig, draws: Draws, latent_shape, num_labels: int, generator, device,
+                 dtype: torch.dtype = torch.int32) -> None:
+    """Fill every field of `draws` left None but the dropout seed from
+    `generator`, in `Draws`' order: the three coins, u, the noise mask, the
+    noise ids (over latents of `latent_shape`, ids of `dtype`). Both routes
+    of a step draw through here, so they consume the same draws in the same
+    order; the frozen encode between draws none."""
+    _draw_coins(cfg, draws, latent_shape[0], generator, device)
+    if draws.u is None:
+        draws.u = torch.rand(latent_shape[0], generator=generator, device=device)
+    if draws.noise_mask is None or draws.random_x is None:
+        draws.noise_mask, draws.random_x = draw_noise(latent_shape, noise_level(cfg, draws.u), num_labels, generator,
+                                                      draws.noise_mask, draws.random_x, dtype, device)
+
+
+def _draw_dropout_seed(generator, device) -> int:
+    """The last draw of `Draws`' order, read by the host."""
+    with tracing.span("train.sync"):
+        return int(torch.randint(0, 2**62, (1,), generator=generator, device=device).item())
+
+
 def apply_cond_dropout(cfg: TrainConfig, batch: Batch, null: NullCond, draws: Draws, generator=None):
     """Per-example conditioning dropout (reference: src_distributed/train.py:79-97):
     the null ByT5 states (padded or cut to S) at byt5_drop_prob, the null
     CLIP text embedding at clip_text_drop_prob, the CLIP image tokens masked
     off at clip_image_drop_prob. Fills the coins of `draws` that are None.
     Returns (byt5, byt5_mask, clip, clip_image, clip_image_mask)."""
-    b, dev = batch.images.shape[0], batch.images.device
-    if draws.drop_byt5 is None:
-        draws.drop_byt5 = _coin(cfg.byt5_drop_prob, b, generator, dev)
-    if draws.drop_clip is None:
-        draws.drop_clip = _coin(cfg.clip_text_drop_prob, b, generator, dev)
-    if draws.drop_image is None:
-        draws.drop_image = _coin(cfg.clip_image_drop_prob, b, generator, dev)
+    _draw_coins(cfg, draws, batch.images.shape[0], generator, batch.images.device)
     s, s0 = batch.byt5.shape[1], null.byt5.shape[1]
     pad = max(0, s - s0)
     null_byt5 = F.pad(null.byt5, (0, 0, 0, pad))[:, :s].to(batch.byt5.dtype)
@@ -146,33 +194,70 @@ def apply_cond_dropout(cfg: TrainConfig, batch: Batch, null: NullCond, draws: Dr
 
 
 def loss_fn(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, draws: Optional[Draws] = None,
-            generator: Optional[torch.Generator] = None, forward: Optional[Callable] = None):
+            generator: Optional[torch.Generator] = None, forward: Optional[Callable] = None,
+            dropout_masks: Optional[DropoutMasks] = None):
     """(loss, acc) of one microbatch, differentiable in the denoiser's
-    parameters. The coins, u and the dropout seed that `draws` did not pin
-    are drawn and written into it. `forward` runs the training forward in
-    place of `model.forward_train` (a DDP wrapper of it, parallel/mesh.py)."""
+    parameters. The draws that `draws` did not pin are drawn
+    (`draw_missing`, then the dropout seed) and written into it. `forward`
+    runs the training forward in place of `model.forward_train` (a DDP
+    wrapper of it, parallel/mesh.py). `dropout_masks` (the training graph's)
+    supplies the dropout masks in place of the seed's."""
     draws = Draws() if draws is None else draws
-    b, dev = batch.images.shape[0], batch.images.device
+    dev = batch.images.device
     with tracing.span("train.encode"):
         latents = vq_model.encode(batch.images)[2]  # frozen: encode runs under no_grad
     with tracing.span("train.noise"):
-        byt5, byt5_mask, clip, clip_image, clip_image_mask = apply_cond_dropout(cfg, batch, null, draws, generator)
-        if draws.u is None:
-            draws.u = torch.rand(b, generator=generator, device=dev)
-        t = torch.clamp(1.0 - draws.u + cfg.t_min, cfg.t_min, 1.0)  # reference: src_distributed/train.py:99
-        noised, mask = add_noise(latents, t, model.config.num_labels, generator, draws.noise_mask, draws.random_x)
+        draw_missing(cfg, draws, latents.shape, model.config.num_labels, generator, dev, latents.dtype)
+        byt5, byt5_mask, clip, clip_image, clip_image_mask = apply_cond_dropout(cfg, batch, null, draws)
+        t = noise_level(cfg, draws.u)
+        noised, mask = add_noise(latents, t, model.config.num_labels, None, draws.noise_mask, draws.random_x)
         weight = get_loss_weight(t, mask, cfg.loss_weight_min)
     if draws.dropout_seed is None:
-        with tracing.span("train.sync"):
-            draws.dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
+        draws.dropout_seed = _draw_dropout_seed(generator, dev)
     forward = model.forward_train if forward is None else forward
     with tracing.span("train.forward"):
-        logits = forward(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask,
-                         clip_image_mask=clip_image_mask, dropout_seed=draws.dropout_seed)
+        logits = forward(noised, t, byt5, clip, clip_image, byt5_mask=byt5_mask, clip_image_mask=clip_image_mask,
+                         dropout_seed=draws.dropout_seed, dropout_masks=dropout_masks)
     with tracing.span("train.loss"):
         loss = smoothed_weighted_ce(logits, latents, weight, cfg.label_smoothing)
         acc = (logits.argmax(dim=-1) == latents).float().mean()
     return loss, acc
+
+
+def graph_route(images: torch.Tensor, ddp=None, mesh=None, microbatches: int = 1) -> bool:
+    """Whether a step takes the training graph (`make_train_step`): its
+    batch on a CUDA device, no DDP wrapper, no mesh, one microbatch, and no
+    capture under way on the current stream."""
+    return (images.is_cuda and ddp is None and mesh is None and microbatches == 1
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _graph_step(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, draws: Draws, generator,
+                params: list) -> tuple:
+    """(loss, acc) of one microbatch with every parameter's .grad set,
+    through the training graph (sampling/graph.py::train). Every unpinned
+    draw is made here first, in `Draws`' order, the latents' shape from the
+    codec's downscale; the graph reads them, and the dropout masks drawn
+    from the seed before its replay, from its static buffers."""
+    b, h, w = batch.images.shape[:3]
+    f, dev = vq_model.config.downscale, batch.images.device
+    draw_missing(cfg, draws, (b, h // f, w // f), model.config.num_labels, generator, dev)
+    if draws.dropout_seed is None:
+        draws.dropout_seed = _draw_dropout_seed(generator, dev)
+    inputs = {**{f"batch.{k}": getattr(batch, k) for k in BATCH_FIELDS},
+              **{f"null.{k}": getattr(null, k) for k in NULL_FIELDS}, **{k: getattr(draws, k) for k in DRAW_TENSORS}}
+
+    def step(x: dict, masks: DropoutMasks) -> tuple:
+        mb = Batch(*(x[f"batch.{k}"] for k in BATCH_FIELDS))
+        nl = NullCond(*(x[f"null.{k}"] for k in NULL_FIELDS))
+        d = Draws(*(x[k] for k in DRAW_TENSORS), dropout_seed=masks.seed)
+        loss, acc = loss_fn(model, vq_model, cfg, mb, nl, d, dropout_masks=masks)
+        with tracing.span("train.backward"):
+            loss.backward()
+        return loss.detach(), acc
+
+    return graph.train(model, (id(vq_model), vq_model.config, graph.reads(vq_model), cfg), step, inputs,
+                       draws.dropout_seed, params)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -371,6 +456,22 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None, mesh=None):
     gradients' global norm before clipping) and, under
     skip_nonfinite_updates, nonfinite_skips.
 
+    Two routes, chosen per step from what it can observe (`graph_route`):
+    a batch on a CUDA device, with no ddp, no mesh, grad_accum_steps 1 and
+    no capture under way, runs its loss and backward as one captured CUDA
+    graph (sampling/graph.py::train): the benchmark's training cell,
+    train/driver.py at world size 1 and examples/train_minimal.py take it.
+    Every other step runs eagerly, op by op: the CPU, DDP, FSDP2 and
+    gradient accumulation, whose hooks, reduce-scatters and per-microbatch
+    buffers a graph's static buffers do not share. The graph's route draws
+    every unpinned draw before its replay from the state's generator, in
+    `Draws`' order (the numbers the eager route draws), and each dropout
+    mask from the seed as the eager route does (nn/blocks.py::DropoutMasks);
+    its first step for a signature runs eagerly, which is that step's
+    answer, and captures the graph after. The update, the derived weights'
+    drop and the metrics are eager on both routes; the metrics returned are
+    the step's own tensors (clones of the graph's on a replay).
+
     After an update the model's derived weights are dropped
     (`DerivedWeights.drop_derived`), so an inference forward or a sampler
     graph that follows reads the new parameters; a skipped update changes
@@ -399,24 +500,10 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None, mesh=None):
             params = [p for g in state.optimizer.param_groups for p in g["params"]]
             for p in params:
                 p.grad = None
-            loss = acc = 0.0
-            for i, (mb, d) in enumerate(zip(batch.split(n) if n > 1 else [batch], draws)):
-                if mesh is not None:
-                    model.set_requires_all_reduce(i == n - 1)
-                with ddp.no_sync() if ddp is not None and i < n - 1 else contextlib.nullcontext():
-                    mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, state.generator, forward=ddp)
-                    with tracing.span("train.backward"):
-                        mb_loss.backward()
-                loss, acc = loss + mb_loss.detach(), acc + mb_acc
-            if n > 1:
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.div_(n)
-                loss, acc = loss / n, acc / n
-            if ddp is not None or mesh is not None:
-                group = ddp.process_group if ddp is not None else None
-                with tracing.span("train.allreduce"):
-                    loss, acc = _mean_over_ranks(torch.stack([loss, acc]), group, mesh)
+            if graph_route(batch.images, ddp, mesh, n):
+                loss, acc = _graph_step(model, vq_model, cfg, batch, null, draws[0], state.generator, params)
+            else:
+                loss, acc = _eager_step(model, vq_model, cfg, batch, null, draws, state.generator, params, ddp, mesh)
             with tracing.span("train.optimizer"):
                 out = state.optimizer.step()
                 if not out["skipped"]:
@@ -428,3 +515,29 @@ def make_train_step(model, vq_model, cfg: TrainConfig, ddp=None, mesh=None):
         return metrics
 
     return train_step
+
+
+def _eager_step(model, vq_model, cfg: TrainConfig, batch: Batch, null: NullCond, draws: list, generator, params: list,
+                ddp, mesh) -> tuple:
+    """(loss, acc) over the microbatches with every parameter's .grad their
+    mean gradient, op by op (see make_train_step)."""
+    n = len(draws)
+    loss = acc = 0.0
+    for i, (mb, d) in enumerate(zip(batch.split(n) if n > 1 else [batch], draws)):
+        if mesh is not None:
+            model.set_requires_all_reduce(i == n - 1)
+        with ddp.no_sync() if ddp is not None and i < n - 1 else contextlib.nullcontext():
+            mb_loss, mb_acc = loss_fn(model, vq_model, cfg, mb, null, d, generator, forward=ddp)
+            with tracing.span("train.backward"):
+                mb_loss.backward()
+        loss, acc = loss + mb_loss.detach(), acc + mb_acc
+    if n > 1:
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(n)
+        loss, acc = loss / n, acc / n
+    if ddp is not None or mesh is not None:
+        group = ddp.process_group if ddp is not None else None
+        with tracing.span("train.allreduce"):
+            loss, acc = _mean_over_ranks(torch.stack([loss, acc]), group, mesh)
+    return loss, acc

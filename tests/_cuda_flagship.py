@@ -18,18 +18,21 @@ K1_PER_FORWARD, K5_PER_FORWARD, K6_PER_FORWARD = 56, 4, 40
 GRAPH_PASSES = 2  # wrapper calls a generation makes when its graph is captured: the warm-up and the capture
 
 
-def counted(fn):
+def counted(fn, keep_graphs: bool = False):
     """fn() with every launch count set to 0 just before, and the counts read
     just after (synchronized); fused_resblock's also per mode, as
     `fused_resblock[float]` (K1), `fused_resblock[int8]` and
-    `fused_resblock[w8a8]` (K1b). The sampler's kept CUDA graphs are dropped
-    first, so a generation inside fn captures its graph: its warm-up and its
-    capture each go through every wrapper once (GRAPH_PASSES), a replay
-    through none. No plain version may run on the card."""
+    `fused_resblock[w8a8]` (K1b). The kept CUDA graphs (the sampler's, the
+    towers' and the training step's) are dropped first unless keep_graphs,
+    so a generation or a training step inside fn captures its graph: its
+    warm-up and its capture each go through every wrapper once
+    (GRAPH_PASSES), a replay through none. No plain version may run on the
+    card."""
     from paella_tpu_torch import kernels
     from paella_tpu_torch.sampling import graph
 
-    graph.clear()
+    if not keep_graphs:
+        graph.clear()
     for f in kernels.WRAPPERS:
         f.launches = 0
     by_mode = kernels.fused_resblock.launches_by_mode

@@ -890,18 +890,25 @@ def train_1b(gen):
 # a train step's launches: K4 once a microbatch, nothing else of the port's kernels
 STEP_LAUNCHES = {"fused_codebook_lookup": 1, "fused_resblock": 0, "fused_head_categorical": 0, "gumbel_categorical": 0,
                  "fused_attention": 0, "fused_attn_block": 0}
+# on the training graph's route: K4 in the first step's eager run and in its capture, none in a replay
+GRAPH_STEP_LAUNCHES = {**STEP_LAUNCHES, "fused_codebook_lookup": GRAPH_PASSES}
+REPLAY_LAUNCHES = {**STEP_LAUNCHES, "fused_codebook_lookup": 0}
 
 
 def test_train_step_at_the_1b_configuration(cuda):
     """The training step at the "1b" configuration, full width and depth,
-    TrainConfig(warmup_updates=1), batch 8 at 256x256: seven steps, each
-    launching K4 once, with finite metrics and no skipped update; the first
-    update (lr 0) moves no parameter and the second moves 90% of the
-    tensors; two steps at grad_accum_steps=2 launch K4 twice each; K4 on a
-    step's latents gives its plain version's indices."""
+    TrainConfig(warmup_updates=1), batch 8 at 256x256: seven steps on the
+    training graph's route (K4 in the first one's eager run and capture,
+    then six replays, each adding K4's one launch to the recorder's
+    `launches.fused_codebook_lookup`), with finite metrics and no skipped
+    update; the first update (lr 0) moves no parameter and the second moves
+    90% of the tensors; two steps at grad_accum_steps=2 take the eager
+    route and launch K4 twice each; K4 on a step's latents gives its plain
+    version's indices."""
     from paella_tpu_torch.config import TrainConfig
     from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
     from paella_tpu_torch.train import create_train_state, make_train_step
+    from paella_tpu_torch.utils import tracing
 
     gen = torch.Generator(device=cuda).manual_seed(45)
     model, vq, p_cfg = train_1b(gen)
@@ -911,9 +918,10 @@ def test_train_step_at_the_1b_configuration(cuda):
     step = make_train_step(model, vq, cfg)
     batch, null = train_inputs(p_cfg, TRAIN_BATCH, TRAIN_HW, gen, "cuda")
     before = [p.detach().clone() for p in model.parameters()]
+    start = tracing.snapshot()["counters"]
     for i in range(7):
-        m, launches = counted(lambda: step(state, batch, null))
-        check_launches(f"train step {i + 1}", launches, STEP_LAUNCHES)
+        m, launches = counted(lambda: step(state, batch, null), keep_graphs=i > 0)
+        check_launches(f"train step {i + 1}", launches, GRAPH_STEP_LAUNCHES if i == 0 else REPLAY_LAUNCHES)
         m = {k: float(v) for k, v in m.items()}
         assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and m["nonfinite_skips"] == 0, (i + 1, m)
         if i == 0:
@@ -923,6 +931,8 @@ def test_train_step_at_the_1b_configuration(cuda):
             moved = sum(not torch.equal(p.detach(), q) for p, q in zip(model.parameters(), before))
             assert moved >= 0.9 * len(before), f"the second update moved {moved} of {len(before)} parameter tensors"
             del before
+    grew = counter_growth(start, "train_graph.miss", "train_graph.hit", "launches.fused_codebook_lookup")
+    assert grew == {"train_graph.miss": 1, "train_graph.hit": 6, "launches.fused_codebook_lookup": 6}, grew
     accum = make_train_step(model, vq, dataclasses.replace(cfg, grad_accum_steps=2))
     for _ in range(2):
         m, launches = counted(lambda: accum(state, batch, null))
@@ -988,6 +998,158 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
     assert p99 <= 0.05 and worst <= 2.1, (p99, worst)
 
 
+def counter_growth(start: dict, *names) -> dict:
+    """How far each of the recorder's counters `names` grew since `start`
+    (a snapshot's counters)."""
+    from paella_tpu_torch.utils import tracing
+
+    now = tracing.snapshot()["counters"]
+    return {k: now.get(k, 0) - start.get(k, 0) for k in names}
+
+
+def tiny_train_models(gen):
+    """PaellaConfig.tiny() with dropout 0.1 at every level and remat (f32),
+    and VQConfig.tiny(), seeded and perturbed on the card."""
+    from paella_tpu_torch.codec import VQModel
+    from paella_tpu_torch.config import PaellaConfig, VQConfig
+    from paella_tpu_torch.models import Paella
+
+    p_cfg = PaellaConfig.tiny()
+    p_cfg = dataclasses.replace(p_cfg, dropout=(0.1,) * len(p_cfg.c_hidden), remat=True)
+    with torch.device("cuda"):
+        model, vq = Paella(p_cfg), VQModel(VQConfig.tiny())
+    model.reset_parameters(gen)
+    perturb_(model, gen, scale=0.05)
+    vq.reset_parameters(gen)
+    return model, vq, p_cfg
+
+
+def test_train_graph_matches_the_eager_route(cuda, monkeypatch):
+    """Three steps of the tiny denoiser (dropout 0.1, remat, f32) on three
+    batches, every draw left to the state's generator, on the training
+    graph's route against three on the eager route (`graph_route` patched
+    off) from the same weights and generator seed, under cuDNN's
+    deterministic algorithms. Two eager runs first give the footing: the
+    graph's losses, first gradients and parameters after step 3 lie no
+    farther from the first eager run's than the second eager run's do. The
+    graph's counters read one miss, then hits."""
+    from paella_tpu_torch.config import TrainConfig
+    from paella_tpu_torch.sampling import graph
+    from paella_tpu_torch.train import create_train_state, make_train_step, trainer
+    from paella_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    base, vq, p_cfg = tiny_train_models(gen)
+    inputs = [train_inputs(p_cfg, 2, 64, gen, "cuda") for _ in range(3)]
+    cfg = TrainConfig(warmup_updates=1)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def run(route: str) -> tuple:
+        m = copy_module(base)
+        with monkeypatch.context() as mp:
+            if route == "eager":
+                mp.setattr(trainer, "graph_route", lambda *args: False)
+            state = create_train_state(m, cfg, torch.Generator(device="cuda").manual_seed(48))
+            step = make_train_step(m, vq, cfg)
+            start = tracing.snapshot()["counters"]
+            losses, grads = [], None
+            for i, (batch, null) in enumerate(inputs):
+                losses.append(float(step(state, batch, null)["loss"]))
+                if i == 0:
+                    grads = [p.grad.clone() for p in m.parameters()]
+            grew = counter_growth(start, "train_graph.miss", "train_graph.hit")
+        return losses, grads, [p.detach().clone() for p in m.parameters()], grew
+
+    try:
+        graph.clear()
+        eager, again, graphed = run("eager"), run("eager"), run("graph")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    assert eager[3] == again[3] == {"train_graph.miss": 0, "train_graph.hit": 0}, (eager[3], again[3])
+    assert graphed[3] == {"train_graph.miss": 1, "train_graph.hit": 2}, graphed[3]
+
+    def gaps(run) -> tuple:
+        loss = max(abs(a - b) for a, b in zip(run[0], eager[0]))
+        grad = max((a - b).abs().max().item() for a, b in zip(run[1], eager[1]))
+        param = max((a - b).abs().max().item() for a, b in zip(run[2], eager[2]))
+        return loss, grad, param
+
+    footing, got = gaps(again), gaps(graphed)
+    assert all(g <= f for g, f in zip(got, footing)), f"graph {got} against two eager runs' {footing}"
+
+
+def copy_module(module):
+    """A new module of the same class and config on the card holding `module`'s state."""
+    with torch.device("cuda"):
+        m = type(module)(module.config)
+    m.load_state_dict(module.state_dict())
+    return m
+
+
+def test_train_graph_counts_evicts_recaptures_and_keeps_returned_losses(cuda):
+    """The tiny step on the training graph's route (dropout 0.1, remat):
+    one miss, then hits, a replay calling no kernel wrapper and adding K4's
+    one launch to the recorder's `launches.fused_codebook_lookup`; the loss
+    tensors earlier steps returned unchanged after later replays; a replay
+    recorded as train_graph.replay under train.step, after the unpinned
+    dropout seed's read and with no train.forward span; a batch of another shape evicts the kept graph (one pool kept,
+    the pool gauge its size); flipping the TF32 flag captures anew, and
+    flipping it back again."""
+    from paella_tpu_torch.config import TrainConfig
+    from paella_tpu_torch.kernels import launch_counts
+    from paella_tpu_torch.sampling import graph
+    from paella_tpu_torch.train import create_train_state, make_train_step
+    from paella_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device=cuda).manual_seed(49)
+    model, vq, p_cfg = tiny_train_models(gen)
+    cfg = TrainConfig(warmup_updates=1)
+    state, step = create_train_state(model, cfg), make_train_step(model, vq, cfg)
+    batches = [train_inputs(p_cfg, 2, 64, gen, "cuda") for _ in range(3)]
+    names = ("train_graph.miss", "train_graph.hit", "train_graph.evicted", "launches.fused_codebook_lookup")
+    graph.clear()
+    start = tracing.snapshot()["counters"]
+    kept = []
+    for i, (batch, null) in enumerate(batches):
+        wrappers = launch_counts()
+        out = step(state, batch, null)
+        kept.append((out["loss"], float(out["loss"])))
+        if i:
+            assert launch_counts() == wrappers, "a replay called a kernel wrapper"
+    assert counter_growth(start, *names) == dict(zip(names, (1, 2, 0, 2))), counter_growth(start, *names)
+    assert all(float(t) == v for t, v in kept), f"a replay rewrote a returned loss: {kept}"
+    assert len({v for _, v in kept}) == 3, kept
+
+    tracing.enable()
+    try:
+        first = len(tracing.snapshot()["spans"])
+        step(state, *batches[0])
+        spans = tracing.snapshot()["spans"][first:]
+    finally:
+        tracing.disable()
+    top = [i for i, s in enumerate(spans) if s.name == "train.step"]
+    assert len(top) == 1 and [s.name for s in spans if s.parent == first + top[0]] == [
+        "train.sync", "train_graph.replay", "train.optimizer"], [(s.name, s.parent) for s in spans]
+    assert not any(s.name == "train.forward" for s in spans)
+
+    start = tracing.snapshot()["counters"]
+    other, null = train_inputs(p_cfg, 3, 64, gen, "cuda")
+    step(state, other, null)
+    assert counter_growth(start, *names[:3]) == dict(zip(names[:3], (1, 0, 1)))
+    (entry,) = graph._TRAIN_GRAPHS.values()  # one pool kept
+    assert tracing.snapshot()["gauges"]["train_graph.pool_bytes"] == entry.pool_bytes > 0
+    start = tracing.snapshot()["counters"]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        step(state, other, null)
+        step(state, other, null)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    step(state, other, null)
+    assert counter_growth(start, *names[:3]) == dict(zip(names[:3], (2, 1, 2))), counter_growth(start, *names[:3])
+
+
 DRIVER_STEPS, DRIVER_EVAL_EVERY, DRIVER_SHARDS, DRIVER_PER_SHARD = 4, 2, 2, 16
 
 
@@ -1026,12 +1188,14 @@ def driver_data(d: Path):
 
 def driver_launches(steps: int, grids: int) -> dict:
     """The kernel launches of a run_training call at the flagship's depth:
-    K4 once a train step and twice an eval grid (the diagnostic encode and
-    the reconstruction's lookup); per grid K1 in the diagnostic forward and,
-    with K3, in two 8-step CFG generations, each captured as a graph
-    (GRAPH_PASSES passes through the wrappers); nothing else."""
+    K4 in the first train step's eager run and capture (the training
+    graph's route at world size 1: later steps replay, calling no wrapper)
+    and twice an eval grid (the diagnostic encode and the reconstruction's
+    lookup); per grid K1 in the diagnostic forward and, with K3, in two
+    8-step CFG generations, each captured as a graph (GRAPH_PASSES passes
+    through the wrappers); nothing else."""
     generations = grids * 2 * GRAPH_PASSES * STEPS
-    return {"fused_codebook_lookup": steps + 2 * grids, "fused_resblock": grids * K1_PER_FORWARD + generations * K1_PER_FORWARD,
+    return {"fused_codebook_lookup": (GRAPH_PASSES if steps else 0) + 2 * grids, "fused_resblock": grids * K1_PER_FORWARD + generations * K1_PER_FORWARD,
             "gumbel_categorical": generations, "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0}
 
 
@@ -1215,7 +1379,9 @@ def test_fsdp_at_world_size_one_matches_plain_and_restores(cuda, tmp_path):
     256x256, every draw pinned: steps 1 and 2 in turns with the plain model
     from the same weights (metrics within 1e-5 relative; after step 2 at most
     0.1% of the parameters more than 0.02 lr and none more than 2.1 lr from
-    the plain ones), K4 once a step; the whole-state gather a checkpoint
+    the plain ones), K4 once a sharded step (the plain step takes the
+    training graph's route: K4 in its eager run and capture, the kept graph
+    dropped before each); the whole-state gather a checkpoint
     makes lands on the CPU; rank 0's eval grid from a plain copy loaded from
     it (run_training at fsdp > 1) launches a grid's kernels and gives the
     plain model's grid tokens; a freshly built and sharded model restored
@@ -1258,7 +1424,7 @@ def test_fsdp_at_world_size_one_matches_plain_and_restores(cuda, tmp_path):
         def run(name: str, i: int) -> None:
             _, state, step = routes[name]
             out, launches = counted(lambda: step(state, batch, null, [dataclasses.replace(draws[i])]))
-            check_launches(f"{name} step {i + 1}", launches, STEP_LAUNCHES)
+            check_launches(f"{name} step {i + 1}", launches, GRAPH_STEP_LAUNCHES if name == "plain" else STEP_LAUNCHES)
             m = metrics[name] = {k: float(v) for k, v in out.items()}
             assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and m["nonfinite_skips"] == 0, (name, i + 1, m)
 
@@ -1523,7 +1689,8 @@ def test_train_minimal_example_at_full_width(cuda, example_files, tmp_path):
     """examples/train_minimal.py's main at the released v1_byt5_xl() (f32,
     dropout 0.1) with the frozen ByT5-XL and the codec from the files, batch
     8 at 256x256, 4 steps: it ends at step 4 with four finite losses,
-    checkpoints at steps 2 and 4, and K4 once a step and nothing else."""
+    checkpoints at steps 2 and 4, and K4 in the first step's eager run and
+    capture (the later steps replay the training graph) and nothing else."""
     from paella_tpu_torch.examples import train_minimal
 
     workdir = tmp_path / "train"
@@ -1535,7 +1702,7 @@ def test_train_minimal_example_at_full_width(cuda, example_files, tmp_path):
     assert len(losses) == EXAMPLE_TRAIN_STEPS and all(math.isfinite(v) for v in losses), losses
     assert sorted(int(s) for s in os.listdir(workdir / "checkpoints")) == [2, 4]
     check_launches("train_minimal", launches, {
-        "fused_codebook_lookup": EXAMPLE_TRAIN_STEPS, "fused_resblock": 0, "gumbel_categorical": 0,
+        "fused_codebook_lookup": GRAPH_PASSES, "fused_resblock": 0, "gumbel_categorical": 0,
         "fused_head_categorical": 0, "fused_attention": 0, "fused_attn_block": 0})
     del state
     shutil.rmtree(workdir)

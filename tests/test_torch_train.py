@@ -30,7 +30,7 @@ from paella_tpu_torch.config import PaellaConfig, TrainConfig
 from paella_tpu_torch.convert import paella_state_dict_from_jax
 from paella_tpu_torch.models import Paella, add_noise, get_loss_weight
 from paella_tpu_torch.nn.attention import dot_product_attention
-from paella_tpu_torch.nn.blocks import dropout
+from paella_tpu_torch.nn.blocks import DropoutMasks, dropout
 from paella_tpu_torch.quant import quantize_paella_int8
 from paella_tpu_torch.train import (
     AdamW,
@@ -135,25 +135,26 @@ def test_inference_forward_is_unchanged_by_the_training_route(forward_refs):
 def test_dropout_rate_scale_and_repeat():
     """Kept with probability 1 - p (within 4 sigma over 2^18 draws), kept
     values scaled by 1 / (1 - p), the same mask for the same seed, and the
-    identity at p = 0 or without a generator; attention's dropout likewise
+    identity at p = 0 or without a mask source; attention's dropout likewise
     on the probabilities."""
     x = torch.ones(1 << 18)
+    site = lambda seed, p: DropoutMasks(seed).site(0, 0, p)  # noqa: E731
     for p in (0.1, 0.5):
-        y = dropout(x, p, torch.Generator().manual_seed(3))
+        y = dropout(x, p, site(3, p))
         kept = y != 0
         share = kept.float().mean().item()
         assert abs(share - (1 - p)) <= 4 * (p * (1 - p) / x.numel()) ** 0.5, (p, share)
         assert torch.equal(y[kept], torch.full_like(y[kept], 1 / (1 - p)))
-        assert torch.equal(y, dropout(x, p, torch.Generator().manual_seed(3)))
-        assert not torch.equal(y, dropout(x, p, torch.Generator().manual_seed(4)))
-    assert dropout(x, 0.0, torch.Generator()) is x and dropout(x, 0.3, None) is x
+        assert torch.equal(y, dropout(x, p, site(3, p)))
+        assert not torch.equal(y, dropout(x, p, site(4, p)))
+    assert dropout(x, 0.0, site(3, 0.1)) is x and dropout(x, 0.3, None) is x
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 8, 2, 16)).astype(np.float32)) for _ in range(3))
     plain = dot_product_attention(q, k, v)
     assert torch.equal(dot_product_attention(q, k, v, dropout_rate=0.5), plain)
-    assert torch.equal(dot_product_attention(q, k, v, dropout_rate=0.0, generator=torch.Generator()), plain)
-    dropped = dot_product_attention(q, k, v, dropout_rate=0.5, generator=torch.Generator().manual_seed(1))
-    again = dot_product_attention(q, k, v, dropout_rate=0.5, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(dot_product_attention(q, k, v, dropout_rate=0.0, dropout_keep=site(1, 0.5)), plain)
+    dropped = dot_product_attention(q, k, v, dropout_rate=0.5, dropout_keep=site(1, 0.5))
+    again = dot_product_attention(q, k, v, dropout_rate=0.5, dropout_keep=site(1, 0.5))
     assert torch.equal(dropped, again) and not torch.allclose(dropped, plain)
 
 
