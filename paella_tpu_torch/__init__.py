@@ -9,10 +9,12 @@ The port imports torch and numpy only; its CUDA kernels (csrc/) are built
 from source on first use on a CUDA tensor.
 """
 
-from .config import PaellaConfig, PriorSampleConfig, SampleConfig, StageCConfig, TrainConfig, VQConfig
-from .pipeline import CascadePriorPipeline, PaellaPipeline
+from .config import (DecoderSampleConfig, PaellaConfig, PriorSampleConfig, SampleConfig, StageBConfig, StageCConfig,
+                     TrainConfig, VQConfig)
+from .pipeline import CascadeDecoderPipeline, CascadePipeline, CascadePriorPipeline, PaellaPipeline
 
 __version__ = "0.1.0"
 
-__all__ = ["CascadePriorPipeline", "PaellaConfig", "PaellaPipeline", "PriorSampleConfig", "SampleConfig",
-           "StageCConfig", "TrainConfig", "VQConfig", "__version__"]
+__all__ = ["CascadeDecoderPipeline", "CascadePipeline", "CascadePriorPipeline", "DecoderSampleConfig", "PaellaConfig",
+           "PaellaPipeline", "PriorSampleConfig", "SampleConfig", "StageBConfig", "StageCConfig", "TrainConfig",
+           "VQConfig", "__version__"]

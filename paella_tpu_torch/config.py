@@ -253,3 +253,67 @@ class PriorSampleConfig:
 
     steps: int = 20
     cfg: float = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
+class StageBConfig:
+    """Stable Cascade's Stage B, the large decoder (Würstchen v3,
+    arXiv:2306.00637; StableCascade `modules/stage_b.py` defaults, which are
+    `stabilityai/stable-cascade`'s `decoder/config.json`): Stage A's
+    c_in-channel latents in, the noise estimate out, conditioned on Stage C's
+    latents (`c_effnet` channels), the pooled CLIP-bigG text feature and a
+    pixel map. Levels of any widths, entered by LN and a stride-2 2x2 conv and
+    left by LN and a stride-2 2x2 transposed conv; `block_repeat[d][i]` runs
+    a level's blocks that many times (down d = 0, up d = 1, the up row read
+    deepest level first, as StableCascade reads it), a 1x1 conv between
+    runs."""
+
+    c_in: int = 4
+    c_out: int = 4
+    c_r: int = 64
+    patch_size: int = 2
+    c_cond: int = 1280
+    c_hidden: Tuple[int, ...] = (320, 640, 1280, 1280)
+    nhead: Tuple[int, ...] = (-1, -1, 20, 20)
+    blocks: Tuple[Tuple[int, ...], ...] = ((2, 6, 28, 6), (6, 28, 6, 2))
+    block_repeat: Tuple[Tuple[int, ...], ...] = ((1, 1, 1, 1), (3, 3, 2, 2))
+    level_config: Tuple[str, ...] = ("CT", "CT", "CTA", "CTA")
+    c_clip: int = 1280
+    c_clip_seq: int = 4
+    c_effnet: int = 16
+    c_pixels: int = 3
+    kernel_size: int = 3
+    dropout: Tuple[float, ...] = (0.0, 0.0, 0.1, 0.1)  # inert: inference only
+    self_attn: bool = True
+    t_conds: Tuple[str, ...] = ("sca",)
+    dtype: str = "float32"  # compute dtype
+    act_quant: bool = False  # W8A8 for int8 ResBlocks (quant.quantize_paella_int8)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @classmethod
+    def published(cls) -> "StageBConfig":
+        """The 1.5 B decoder as served: bf16 compute."""
+        return cls(dtype="bfloat16")
+
+    @classmethod
+    def tiny(cls) -> "StageBConfig":
+        """Small config for tests: three levels of three widths, attention at
+        the two lower ones, a repeated level on the way down and every level
+        repeated on the way up."""
+        return cls(c_r=16, c_cond=32, c_hidden=(16, 24, 32), nhead=(-1, 4, 4), blocks=((1, 1, 1), (1, 2, 1)),
+                   block_repeat=((1, 2, 1), (3, 2, 2)), level_config=("CT", "CTA", "CTA"), c_clip=24, c_effnet=8,
+                   dropout=(0.0, 0.0, 0.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderSampleConfig:
+    """Stage B's sampling, as diffusers' StableCascadeDecoderPipeline runs it
+    by default: DDPMWuerstchenScheduler (s 0.008, scaler 1) over t =
+    linspace(1, 0, steps + 1)[:-1] at guidance 0 (no unconditional side: one
+    forward of the batch a step), latents (B, H / 4, W / 4, c_in) for images
+    of H x W."""
+
+    steps: int = 10

@@ -38,9 +38,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import StageCConfig
-from ..kernels.attention import fused_attention
-from ..nn.blocks import AttnBlock, DerivedWeights, ResBlock, TimestepBlock
-from ..nn.functional import depth_to_space, layer_norm, sinusoidal_embedding, space_to_depth
+from ..nn.blocks import AttnBlock, ResBlock, TimestepBlock
+from ..nn.functional import depth_to_space, layer_norm, space_to_depth
+from .cascade import CascadeUNet
 
 
 class _Switch(nn.Module):
@@ -59,7 +59,7 @@ class _Switch(nn.Module):
         return self.blocks[1 if self.up else 0]
 
 
-class StageC(DerivedWeights):
+class StageC(CascadeUNet):
     """forward(x, r, clip_text, clip_text_pooled, clip_img, cond_cache=None):
 
       x                 (B, H, W, c_in) latents
@@ -118,25 +118,9 @@ class StageC(DerivedWeights):
             nn.Identity(),  # LayerNorm2d
             nn.Conv2d(cfg.c_hidden[0], cfg.c_out * cfg.patch_size**2, kernel_size=1),
         )
-
-    @torch.no_grad()
-    def reset_parameters(self, gen: torch.Generator, std: float = 0.02) -> None:
-        """Seeded N(0, std) matrices and small random vectors for tests: no
-        layer is the identity (StableCascade zero-initializes the FiLM
-        mappers and GRN, which would hide them)."""
-        for name, p in self.named_parameters():
-            scale = 0.1 if p.dim() == 1 or "gamma" in name or "beta" in name else std
-            p.copy_(torch.randn(p.shape, generator=gen, device=gen.device).to(p.device, p.dtype) * scale)
-        self.drop_derived()
+        self.number_films()
 
     # -- conditioning --
-
-    def gen_r_embedding(self, r: torch.Tensor) -> torch.Tensor:
-        """[emb(r) | emb(0) per t_cond] (B, c_r * (1 + len(t_conds))), f32."""
-        c_r = self.config.c_r
-        emb = sinusoidal_embedding(r, c_r)
-        zero = sinusoidal_embedding(torch.zeros_like(r, dtype=torch.float32), c_r)
-        return torch.cat([emb] + [zero] * len(self.config.t_conds), dim=1)
 
     def gen_c_embeddings(self, clip_text, clip_text_pooled, clip_img) -> torch.Tensor:
         """clip_norm([txt_mapper(text) | pooled_mapper(pooled) | img_mapper(img)])
@@ -153,87 +137,13 @@ class StageC(DerivedWeights):
         img = lin(self.clip_img_mapper, clip_img).reshape(b, -1, cfg.c_cond)
         return layer_norm(torch.cat([txt, pooled, img], dim=1))
 
-    def _attn_blocks(self) -> list:
-        return [(name, m) for name, m in self.named_modules() if isinstance(m, AttnBlock)]
-
     @torch.no_grad()
     def gen_cond_cache(self, clip_text, clip_text_pooled, clip_img) -> dict:
         """The conditioning every step shares: the CLIP sequence and each
         AttnBlock's conditioning keys and values (B, S_cond, C), keyed by the
         block's module name."""
         clip = self.gen_c_embeddings(clip_text, clip_text_pooled, clip_img)
-        kv = {}
-        for name, blk in self._attn_blocks():
-            w, b = self._qkv(blk)
-            c = w.shape[1]
-            kv[name] = F.linear(blk.map_cond(clip), w[c:], b[c:]).split(c, dim=-1)
-        return {"clip": clip, "kv": kv}
-
-    # -- forward --
-
-    def _qkv(self, blk: AttnBlock) -> tuple:
-        a = blk.attention.attn
-        dt = self.config.compute_dtype
-        return blk.derived("qkv", lambda: (a.in_proj_weight.to(dt), a.in_proj_bias.to(dt)))
-
-    def _film_weights(self) -> tuple:
-        """Every TimestepBlock's mappers stacked: W (n_T * 2C, c_r * (1 +
-        len(t_conds))) over the whole r-embedding, b the mappers' biases
-        summed, so one product gives each block's sum of the mappers."""
-        dt = self.config.compute_dtype
-
-        def make():
-            ws, bs = [], []
-            for blk in self.modules():
-                if isinstance(blk, TimestepBlock):
-                    maps = blk.mappers()
-                    ws.append(torch.cat([m.weight for m in maps], dim=1))
-                    bs.append(sum(m.bias.float() for m in maps))
-            return torch.cat(ws).to(dt), torch.cat(bs).to(dt)
-
-        return self.derived("film", make)
-
-    def _linear(self, key: str, conv: nn.Conv2d) -> tuple:
-        dt = self.config.compute_dtype
-        return self.derived(key, lambda: (conv.weight[:, :, 0, 0].to(dt), conv.bias.to(dt)))
-
-    def _attend(self, blk: AttnBlock, h: torch.Tensor, kv: tuple) -> torch.Tensor:
-        b, hh, ww, c = h.shape
-        nh = blk.nhead
-        w, bias = self._qkv(blk)
-        tokens = layer_norm(h).reshape(b, hh * ww, c)
-
-        def heads(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(b, t.shape[1], nh, c // nh)
-
-        if blk.self_attn:  # keys [pixels | conditioning], read where each lies
-            q, k, v = F.linear(tokens, w, bias).split(c, dim=-1)
-            out = fused_attention(heads(q), heads(k), heads(v), k2=heads(kv[0]), v2=heads(kv[1]))
-        else:
-            q = F.linear(tokens, w[:c], bias[:c])
-            out = fused_attention(heads(q), heads(kv[0]), heads(kv[1]))
-        o = blk.attention.attn.out_proj
-        out = F.linear(out.reshape(b, hh * ww, c), o.weight.to(h.dtype), o.bias.to(h.dtype))
-        return h + out.reshape(b, hh, ww, c)
-
-    def _run_level(self, prefix: str, blocks, h, skip, films, cache, t_index: int) -> tuple:
-        j = 0
-        while j < len(blocks):
-            blk = blocks[j]
-            if isinstance(blk, ResBlock):
-                film = None
-                if j + 1 < len(blocks) and isinstance(blocks[j + 1], TimestepBlock):
-                    film, t_index = films[t_index], t_index + 1
-                h = blk(h, film, skip if j == 0 else None, act_quant=self.config.act_quant)
-                j += 1 if film is None else 2
-                continue
-            if isinstance(blk, TimestepBlock):
-                a, b = films[t_index][:, None, None, :].chunk(2, dim=-1)
-                h, t_index = h * (1 + a) + b, t_index + 1
-            else:
-                h = self._attend(blk, h, cache["kv"][f"{prefix}.{j}"])
-            j += 1
-        return h, t_index
+        return {"clip": clip, "kv": self.cond_kv(clip)}
 
     @torch.no_grad()
     def forward(
@@ -250,26 +160,22 @@ class StageC(DerivedWeights):
         p = cfg.patch_size
         if cond_cache is None:
             cond_cache = self.gen_cond_cache(clip_text, clip_text_pooled, clip_img)
-        b = x.shape[0]
-        w_film, b_film = self._film_weights()
-        # (n_T, B, 2C): each block's FiLM rows contiguous
-        films = F.linear(self.gen_r_embedding(r).to(dt), w_film, b_film)
-        films = films.reshape(b, -1, 2 * cfg.c_hidden[0]).transpose(0, 1).contiguous()
+        films = self.films(r)
 
         emb_w, emb_b = self._linear("embedding", self.embedding[1])
         h = layer_norm(F.linear(space_to_depth(x.to(dt), p), emb_w, emb_b))
-        level_outputs, t_index = [], 0
+        level_outputs = []
         for i, blocks in enumerate(self.down_blocks):
             if i > 0:
                 w, bias = self._linear(f"down{i}", self.down_downscalers[i][1].conv)
                 h = F.linear(layer_norm(h), w, bias)
-            h, t_index = self._run_level(f"down_blocks.{i}", blocks, h, None, films, cond_cache, t_index)
+            h = self._run_level(f"down_blocks.{i}", blocks, h, None, films, cond_cache)
             level_outputs.insert(0, h)
 
         h = level_outputs[0]
         for iu, blocks in enumerate(self.up_blocks):
             skip = level_outputs[iu] if iu > 0 else None
-            h, t_index = self._run_level(f"up_blocks.{iu}", blocks, h, skip, films, cond_cache, t_index)
+            h = self._run_level(f"up_blocks.{iu}", blocks, h, skip, films, cond_cache)
             if iu < len(self.up_blocks) - 1:
                 w, bias = self._linear(f"up{iu}", self.up_upscalers[iu][1].conv)
                 h = F.linear(layer_norm(h), w, bias)

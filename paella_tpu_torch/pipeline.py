@@ -16,13 +16,17 @@ text is padded to bucket sizes, and text conditioning is kept in an LRU.
 
 `CascadePriorPipeline` runs Stable Cascade's Stage C prior
 (models/stage_c.py) from prompts to latents over the CLIP-bigG text tower,
-with the same text LRU (`TextConditioned`, which both pipelines share).
+with the same text LRU (`TextConditioned`, which the pipelines share);
+`CascadeDecoderPipeline` its Stage B decoder (models/stage_b.py) and Stage
+A's decode (the f4 codec) from those latents to pixels; `CascadePipeline`
+chains the two over one bigG tower.
 
 Spans (utils/tracing.py): pipeline.tokenize (ByT5 or CLIP tokenization,
 padding and the host->device copy), cond.byt5 / cond.clip_text /
 cond.clip_image (the encoders), pipeline.decode (the clipped decode);
-counters text_cache.hit and text_cache.miss, one per LRU lookup, and
-prior.calls and prior.images per `text_to_latents`.
+counters text_cache.hit and text_cache.miss, one per LRU lookup,
+prior.calls and prior.images per `text_to_latents`; decoder.stage_a (Stage
+A's decode) and decoder.calls and decoder.images per `latents_to_images`.
 """
 from __future__ import annotations
 
@@ -36,8 +40,9 @@ import torch
 
 from .codec.vqgan import VQModel
 from .cond.tokenizers import byt5_batch_encode, pad_bucket
-from .config import PriorSampleConfig, SampleConfig
+from .config import DecoderSampleConfig, PriorSampleConfig, SampleConfig
 from .models.denoiser import Paella
+from .sampling.decoder import DecoderConditioning, sample_decoder
 from .sampling.prior import PriorConditioning, sample_prior
 from .sampling.sampler import Conditioning, interpolate_latents, linspace_f32, outpaint_canvas, sample
 from .utils import tracing
@@ -296,7 +301,7 @@ RESOLUTION_MULTIPLE = 42.67
 @dataclasses.dataclass
 class CascadePriorPipeline(TextConditioned):
     """Stable Cascade's text-to-latents: prompts -> Stage C latents (B, h, w,
-    c_in), the input of Stage B (not in this package).
+    c_in), the input of Stage B (CascadeDecoderPipeline).
 
     text_encoder: the CLIP-bigG text tower (cond/clip.py::CLIPTextEncoder,
                   `hidden_states` route)
@@ -349,3 +354,98 @@ class CascadePriorPipeline(TextConditioned):
         h, w = self.latent_hw(image_hw)
         return sample_prior(self.model, seeds, self.conditioning(prompts), (b, h, w, self.model.config.c_in),
                             self.null_conditioning(b), config)
+
+
+@dataclasses.dataclass
+class CascadeDecoderPipeline(TextConditioned):
+    """Stable Cascade's latents-to-images: Stage C latents -> Stage B's
+    latents -> Stage A's decode, images (B, H, W, 3) in [0, 1], float32.
+
+    model:        models/stage_b.py::StageB
+    vq:           the f4 codec (codec/vqgan.py::VQModel at VQConfig()'s
+                  widths, Stage A), float32
+    text_encoder: the CLIP-bigG text tower (`hidden_states` route), whose
+                  pooled feature conditions Stage B
+    tokenizer:    prompts -> (ids (B, 77), mask (B, 77)) numpy
+
+    As diffusers' StableCascadeDecoderPipeline at its defaults: the
+    prompts' pooled feature encoded here (kept in the text LRU), guidance 0,
+    images = clamp(vq.decode(x), 0, 1), the decode scaling x by Stage A's
+    scale_factor."""
+
+    model: Any  # models/stage_b.py::StageB
+    vq: VQModel
+    text_encoder: Callable
+    tokenizer: Callable[[Sequence[str]], tuple]
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def conditioning(self, prompts: Sequence[str]) -> torch.Tensor:
+        """The prompts' pooled CLIP-bigG feature (B, 1, c_clip)."""
+        key = ("decoder", tuple(prompts))
+        hit = self._recall(key)
+        if hit is not None:
+            return hit
+        with tracing.span("pipeline.tokenize"):
+            ids, mask = self.tokenizer(prompts)
+            ids_t = torch.from_numpy(np.asarray(ids)).to(self.device)
+            mask_t = torch.from_numpy(np.asarray(mask)).to(self.device)
+        with tracing.span("cond.clip_text"):
+            _, pooled = self.text_encoder.hidden_states(ids_t, mask_t)
+        out = pooled[:, None]
+        self._remember(key, out)
+        return out
+
+    def latent_hw(self, image_hw: tuple[int, int]) -> tuple[int, int]:
+        f = self.vq.config.downscale
+        return image_hw[0] // f, image_hw[1] // f
+
+    def latents_to_images(
+        self,
+        prompts: Sequence[str],
+        latents_c: torch.Tensor,
+        seeds: torch.Tensor,
+        image_hw: tuple[int, int] = (1024, 1024),
+        config: DecoderSampleConfig = DecoderSampleConfig(),
+    ) -> torch.Tensor:
+        """Images (B, H, W, 3) in [0, 1] on the model's device from Stage C
+        latents (B, h, w, c_effnet); seeds (B, 2) uint32 values, one pair an
+        image (the prior's seeds may be given again: the decoder draws under
+        tags of its own)."""
+        b = len(prompts)
+        tracing.count("decoder.calls")
+        tracing.count("decoder.images", b)
+        h, w = self.latent_hw(image_hw)
+        cond = DecoderConditioning(self.conditioning(prompts), latents_c)
+        x = sample_decoder(self.model, seeds, cond, (b, h, w, self.model.config.c_in), config)
+        with tracing.span("decoder.stage_a"):
+            return self.vq.decode(x.float()).clamp(0.0, 1.0)
+
+
+@dataclasses.dataclass
+class CascadePipeline:
+    """Stable Cascade's text-to-image: the prior's latents, then the
+    decoder's images, both conditioned through one CLIP-bigG tower."""
+
+    prior: CascadePriorPipeline
+    decoder: CascadeDecoderPipeline
+
+    @classmethod
+    def build(cls, stage_c: Any, stage_b: Any, vq: VQModel, text_encoder: Callable,
+              tokenizer: Callable[[Sequence[str]], tuple]) -> "CascadePipeline":
+        return cls(CascadePriorPipeline(stage_c, text_encoder, tokenizer),
+                   CascadeDecoderPipeline(stage_b, vq, text_encoder, tokenizer))
+
+    def text_to_image(
+        self,
+        prompts: Sequence[str],
+        seeds: torch.Tensor,
+        image_hw: tuple[int, int] = (1024, 1024),
+        prior_config: PriorSampleConfig = PriorSampleConfig(),
+        decoder_config: DecoderSampleConfig = DecoderSampleConfig(),
+    ) -> torch.Tensor:
+        """Images (B, H, W, 3) in [0, 1]; seeds (B, 2), one pair an image."""
+        latents = self.prior.text_to_latents(prompts, seeds, image_hw, prior_config)
+        return self.decoder.latents_to_images(prompts, latents, seeds, image_hw, decoder_config)

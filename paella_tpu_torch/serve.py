@@ -480,8 +480,9 @@ def build_prior_pipeline(prior_path: str, clip_path: str, clip_bpe_path: str, cf
     """Stable Cascade's prior from files: Stage C's state dict (StableCascade
     names, `strict=True`), the CLIP-bigG text tower's (open_clip keys, or a
     whole open_clip checkpoint, whose vision tower is left out) and its BPE
-    merges -> a CascadePriorPipeline on `device`. The PNG route of the
-    server waits for Stage B, which turns these latents into pixels."""
+    merges -> a CascadePriorPipeline on `device`. Stage B and Stage A turn
+    its latents into pixels (build_decoder_pipeline); the server has no PNG
+    route for them."""
     from .cond.clip import CLIPTextConfig, CLIPTextEncoder, split_open_clip
     from .cond.loader import load_state_dict, resolve_device
     from .cond.tokenizers import CLIPTokenizer
@@ -500,6 +501,36 @@ def build_prior_pipeline(prior_path: str, clip_path: str, clip_bpe_path: str, cf
     clip.load_state_dict(split_open_clip(load_state_dict(clip_path, key=None))[0], strict=True)
     clip = clip.cast_products().eval()
     return CascadePriorPipeline(model, clip, CLIPTokenizer(clip_bpe_path).with_mask)
+
+
+def build_decoder_pipeline(decoder_path: str, vqgan_path: str, clip_path: str, clip_bpe_path: str, cfg=None,
+                           vq_cfg=None, clip_cfg=None, bf16: bool = True, device="cuda"):
+    """Stable Cascade's decoder from files: Stage B's state dict
+    (StableCascade names, `strict=True`), Stage A's (the f4 codec's layout,
+    kept in float32), the CLIP-bigG text tower's (open_clip keys, or a whole
+    open_clip checkpoint) and its BPE merges -> a CascadeDecoderPipeline on
+    `device`. A CascadePipeline takes it beside build_prior_pipeline's over
+    one tower (`CascadePipeline(prior, CascadeDecoderPipeline(decoder.model,
+    decoder.vq, prior.text_encoder, prior.tokenizer))`)."""
+    from .cond.clip import CLIPTextConfig, CLIPTextEncoder, split_open_clip
+    from .cond.loader import load_state_dict, load_vqgan, resolve_device
+    from .cond.tokenizers import CLIPTokenizer
+    from .config import StageBConfig, VQConfig
+    from .models.stage_b import StageB
+    from .pipeline import CascadeDecoderPipeline
+
+    device = resolve_device(device)
+    cfg = cfg or StageBConfig.published()
+    clip_cfg = clip_cfg or CLIPTextConfig.vit_bigg_14()
+    with torch.device(device):
+        model = StageB(cfg)
+        clip = CLIPTextEncoder(clip_cfg, graph_tag="clip_g")
+    model.load_state_dict(load_state_dict(decoder_path), strict=True)
+    model = model.to(torch.bfloat16 if bf16 else torch.float32).eval()
+    vq = load_vqgan(vqgan_path, vq_cfg or VQConfig(), device)
+    clip.load_state_dict(split_open_clip(load_state_dict(clip_path, key=None))[0], strict=True)
+    clip = clip.cast_products().eval()
+    return CascadeDecoderPipeline(model, vq, clip, CLIPTokenizer(clip_bpe_path).with_mask)
 
 
 def main(argv=None):
