@@ -51,7 +51,12 @@ seeded inputs, every line beside the card's name and power limit:
              both; at Stage C's shape (keys from two sources) the design the
              policy picks, the ring forced there and SDPA, device µs beside
              the bound, and both designs forced over K5's sweep (the
-             measurement behind the policy); K6 at levels 1 and 2 and a
+             measurement behind the policy); Stage B's levels 2 and 3 (and
+             Stage C's shape) with keys from two sources: the policy's
+             pick, every design forced in turn (the ring, the resident form
+             where K and V fit, the streamed form where K does, each with
+             one query tile a block, two, and all of a pair's), each held to
+             the plain version, and SDPA; K6 at levels 1 and 2 and a
              ragged case, f32 and bf16, in turns with the plain version, and
              in bf16 the device µs per sub-kernel and its products' rate
              beside torch.matmul's
@@ -104,6 +109,9 @@ ATTN_LEVELS = [  # (B, N, S_cond, heads, head dim) of attention levels 1 and 2 a
 ]
 # Stage C's AttnBlock at 1024² and CFG batch 8 (B, N pixels, S_cond, heads, head dim): K5's wgmma variant
 STAGE_C_ATTN = (8, 576, 85, 32, 64)
+# Stage B's AttnBlocks at 1024² and batch 4 (B, N pixels, S_cond, heads): level 2 (K5's streamed form) and
+# level 3 (its resident form); and Stage C's shape, where both forms fit
+STAGE_B_ATTN = {"Stage B level 2": (4, 1024, 4, 20), "Stage B level 3": (4, 256, 4, 20), "Stage C": (8, 576, 85, 32)}
 K5_SWEEP = [(16, 40), (64, 136), (200, 130), (576, 661)]  # (N, S) at D 64, bf16
 K5_PAIRS = [(8, 32), (4, 32), (2, 16), (1, 2)]  # (B, H): Stage C at batch 4 and 2 (CFG), Paella's pair, one item
 TILING_SHAPES = [  # (name, B, H, W, S_cond, heads, head dim): K6 at CFG batch 2
@@ -823,7 +831,53 @@ def k5_timings(gen, tag: str) -> tuple[list, dict, dict]:
     out["stage_c"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "ring_max_abs_err": ring_err,
                       "library_ms": library_ms, "device_us": dev, "designs": designs,
                       "designs_us": sweep, **bd}
+    r, out["stage_b"] = k5_stage_b(gen, tag)
+    readings.update(r)
     return entries, readings, out
+
+
+def k5_stage_b(gen, tag: str) -> tuple[dict, dict]:
+    """K5 at STAGE_B_ATTN, q|k|v of one product and the cond's k|v of
+    another as the model hands them over: the policy's pick and every design
+    forced, device µs a call, each output held to the plain version; SDPA
+    on the concatenated keys. A tree without the streamed form (a --parent
+    turn) times the rest."""
+    import torch
+
+    from paella_tpu_torch.kernels import attention as k5
+
+    bf16, readings, out = torch.bfloat16, {}, {}
+    streamed = hasattr(k5, "design_code")
+    for label, (b, n, s_c, h) in STAGE_B_ATTN.items():
+        s, c = n + s_c, h * 64
+        qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(bf16)
+        kv = torch.randn(b, s_c, 2 * c, generator=gen, device="cuda").to(bf16)
+        q, k, v = (t.reshape(b, n, h, 64) for t in qkv.split(c, dim=-1))
+        k2, v2 = (t.reshape(b, s_c, h, 64) for t in kv.split(c, dim=-1))
+        want = k5.attention_plain(q, k, v, None, k2, v2)
+        tiles = -(-n // 192)
+        codes = {"policy": -1, "ring": 0}
+        if s <= 768:
+            codes.update({f"wgmma x{z}": z for z in sorted({1, 2, tiles})})
+        if streamed and s <= 1536:
+            codes.update({f"streamed x{z}": k5.design_code("streamed", z) for z in sorted({1, 2, tiles})})
+        times = {}
+        for name, code in codes.items():
+            fn = lambda code=code: k5._launch(q, k, v, None, k2, v2, code)  # noqa: E731
+            held_in_dtype(f"K5 {label} {name}", fn(), want)
+            times[name] = device_us(fn)
+        kt, vt = torch.cat([k, k2], dim=1), torch.cat([v, v2], dim=1)
+        times["SDPA"] = device_us(sdpa_call(q, kt, vt, None))
+        flops = 4 * b * h * n * s * 64
+        bd = roofline_bound(nbytes_of(q, k, v, k2, v2) + nbytes_of(q), flops, "bf16")
+        policy = k5.attention_design(b, n, s, h, 64, bf16)
+        print(f"[K5] {label} q ({b},{n},{h},64) k/v ({b},{n}+{s_c},{h},64) from two sources bf16: the policy "
+              f"takes {policy}; device µs a call {json.dumps({key: us for key, us in times.items()})}; bound "
+              f"{bd['bound_ms'] * 1e3:.1f} µs ({bd['bound_by']}) ({tag})", flush=True)
+        readings.update({f"K5 {label} {name}": us for name, us in times.items()})
+        out[label] = {"policy": policy, "device_us": times, **bd}
+        del qkv, kv, q, k, v, k2, v2, want, kt, vt
+    return readings, out
 
 
 def kernel_sequence(fn, runs: int = 10) -> list:

@@ -70,6 +70,15 @@
 // of 64 with S <= 768: in the sweep of both designs forced it was faster or
 // within a µs of the ring at every size down to 16 x 40 (attention.cuh has
 // the readings); Paella's head dim 80, f32 and K6 keep the ring.
+//
+// Stable Cascade's Stage B attends 1024 pixel queries over 1024 + 4 keys at
+// its level 2 (20 heads of 64, batch 4: 21.8 us of tensor cores), where K and
+// V no longer fit a block together and the ring took ~550 us a call, 37% of
+// a decoder call. The variant's streamed form keeps K resident and streams V
+// through a ring of 8 KB slots filled by a warp of its own: 142 us on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py's Stage B timings), in the same bits as
+// the resident form. attention_design gives it bf16 heads of 64 with 768 < S
+// <= 1536; longer keys keep the ring.
 #include "attention.cuh"
 
 // C interface for ctypes. q (B,N,H,D); keys [0, S1) from k, v (B,S1,H,D)
@@ -78,8 +87,9 @@
 // of 8 bf16 or 4 f32 values); out (B,N,H,D) contiguous; mask (B,S) bytes (1 =
 // attend) or null. Pointers 16-byte aligned. D % 8 == 0, 1 <= S1 <= S.
 // scale = D^-1/2 of the true head dim in f32 (D may be that dim padded with
-// zero columns). design: -1 as paella_attention_design picks, 0 the ring, k
-// >= 1 the wgmma variant with k query tiles a block. Returns
+// zero columns). design: -1 as paella_attention_design picks, 0 the ring,
+// else the wgmma variant with k >= 1 query tiles a block: k with K and V
+// resident, 256 + k with V streamed (attention.cuh's wgv codes). Returns
 // cudaErrorInvalidValue where even the smallest tiles of a head dim this
 // wide exceed shared memory (D over ~1100 in f32, ~2200 in bf16), or the
 // wgmma variant does not fit the shapes.
@@ -105,8 +115,8 @@ extern "C" int paella_attention(const void* q, const void* k, const void* v, con
                                              H, D, ldq, ldk, ldv, qbs, 0, scale, st, two, design);
 }
 
-// The design paella_attention's policy takes at these shapes: 0 the ring, k
-// >= 1 the wgmma variant with k query tiles a block (paella::attention_design).
+// The design paella_attention's policy takes at these shapes, as
+// paella_attention's `design` codes it (paella::attention_design).
 extern "C" int paella_attention_design(int B, int N, int S, int H, int D, int is_bf16) {
   return paella::attention_design(B, N, S, H, D, is_bf16 != 0);
 }

@@ -12,8 +12,10 @@
 // one block of 1-8 warps takes a query tile of one (batch, head): 16 query
 // rows a warp, the key tiles split among the warps that share query rows
 // (attention.cu's header has the design and what it measured); and K5's
-// compute-bound wgmma variant for bf16 heads of 64 (Stage C's attention),
-// whose notes are beside it below. K and V may come from two sources
+// compute-bound wgmma variant for bf16 heads of 64, in two forms: K and V
+// resident in shared memory up to 768 keys (Stage C's attention), K resident
+// and V streamed through a ring of slots up to 1536 keys (Stage B's level
+// 2), whose notes are beside them below. K and V may come from two sources
 // (KVSecond).
 //
 // Keys j < prefix always attend; key j >= prefix attends where
@@ -38,6 +40,8 @@
 #pragma once
 
 #include <math.h>
+
+#include <algorithm>
 
 #include "gemm_sm90.cuh"
 
@@ -525,6 +529,26 @@ constexpr auto attention_kernel() {
 //   its batchmates.
 // Scores are in log2 units as in the ring: exp2(s scale log2 e - m2) is one
 // FFMA and one MUFU.EX2 (ftz: a p below 2^-126 is 0).
+//
+// Past 768 keys K and V no longer fit a block's 227 KB together (Stage B's
+// level 2: 1024 queries over 1024 + 4 keys, 1088 padded, 2 x 136 KB). The
+// streamed form (attention_streamed_kernel) keeps K resident as above and
+// streams V through a ring of 8 KB chunk slots, as many as fit beside K up to
+// kMaxRing (8 at 1028 keys; 4 at the form's longest K, 1536 keys). A 13th
+// warp fills the ring: V chunk after chunk, over every query tile of the
+// block, into the next slot once each of the 12 consumer warps has retired
+// its p V on the slot's last chunk (the slot's `freed` mbarrier, one arrival
+// a warp), with cp.async whose landing arrives on the slot's `landed`
+// mbarrier (cp.async.mbarrier.arrive); a consumer waits there, then fences
+// the async proxy before its wgmma reads the slot. So the first slots fill
+// during pass 1, the copies stay ring - 1 chunks ahead of the slowest
+// warpgroup, and no block-wide barrier is taken past the first tile's pass 1
+// (a named barrier over the consumers while K lands). The ring's warp copies
+// a chunk of one source as 16 strided cp.async a lane (the general per-piece
+// copy, whose address arithmetic took issue slots from the consumer warps
+// on its scheduler and cost ~14% of the call, only for a chunk that straddles
+// S1 or S). The arithmetic is the resident form's instruction for
+// instruction, so both give the same bits.
 namespace wgv {
 constexpr int kD = 64;                           // the head dim: one 128-byte row, the swizzle's width
 constexpr int kChunk = 64;                       // keys a QK^T product (wgmma N), 4 k-steps of p V
@@ -532,13 +556,29 @@ constexpr int kGroups = 3;                       // warpgroups a block
 constexpr int kRows = 64 * kGroups;              // query rows a block
 constexpr int kBlockThreads = 128 * kGroups;
 constexpr int kMaxKeys = 768;                    // K and V resident: 2 x 768 x 128 bytes
+constexpr int kMaxRing = 8;                      // the streamed form's V chunk slots, at most
+constexpr int kMaxStreamKeys = 1536;             // K resident beside a ring of 4 slots
 constexpr int kRowBytes = 2 * kD;
 constexpr int kChunkBytes = kChunk * kRowBytes;  // 8 KB
+// attention_design's codes past the ring (0): the resident form with k query
+// tiles a block (k), the streamed form with k (kStreamed + k)
+constexpr int kStreamed = 256, kMaxQtiles = 255;
 __host__ __device__ constexpr int padded_keys(int S) { return (S + kChunk - 1) / kChunk * kChunk; }
 // K, V, the key flags, the chunks' all-attend flags, 1024 bytes of alignment slack
 __host__ __device__ constexpr size_t smem_bytes(int S) {
   return 1024 + 2 * (size_t)padded_keys(S) * kRowBytes + padded_keys(S) + 16;
 }
+// The streamed form: K, the ring of `ring` slots, its 2 kMaxRing mbarriers,
+// the key flags, the chunks' flags (up to 24), the slack; as many slots as fit
+// beside K, up to kMaxRing (8 at Stage B's 1028 keys, 4 at 1536).
+__host__ __device__ constexpr size_t stream_smem_bytes(int S, int ring) {
+  return 1024 + (size_t)padded_keys(S) * kRowBytes + (size_t)ring * kChunkBytes + 16 * kMaxRing + padded_keys(S) + 32;
+}
+__host__ __device__ constexpr int ring_slots(int S) {
+  const int fit = (int)((kMaxSmem - stream_smem_bytes(S, 0)) / kChunkBytes);
+  return fit < kMaxRing ? fit : kMaxRing;
+}
+static_assert(ring_slots(kMaxStreamKeys) >= 4, "the streamed form's longest K beside 4 slots");
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -552,6 +592,38 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// Shared-memory barriers of the streamed form's ring (release on arrive,
+// acquire on a successful wait).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(sm90::smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(sm90::smem_addr(bar))
+               : "memory");
+}
+// Whether the phase of `parity` has completed; the thread is suspended until
+// it does (up to 10 ms a try), so a waiting warp takes no issue slots from the
+// warps that share its scheduler.
+__device__ __forceinline__ bool mbar_done(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(sm90::smem_addr(bar)), "r"(parity), "r"(10000000)
+      : "memory");
+  return done != 0;
+}
+// An arrival on `bar` once every cp.async this thread issued has landed
+// (the barrier counts it among the arrivals it was initialised to expect).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(sm90::smem_addr(bar)) : "memory");
+}
+// A barrier over the streamed form's consumer warps only (the ring's warp
+// takes no part).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
 // This thread's 32 raw scores of one 64-key chunk (at shared address kchunk):
@@ -579,43 +651,97 @@ __device__ __forceinline__ void flag_scores(float (&sc)[32], const uint8_t* flag
 }
 }  // namespace wgv
 
-template <typename T>
-__global__ void __launch_bounds__(wgv::kBlockThreads, 1)
-    attention_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                           const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int ldq,
-                           int ldk, int ldv, size_t qbs, int prefix, float scale, int qtiles, const KVSecond<T> two) {
+// The variant's body. kStream false: K and V resident
+// (attention_wgmma_kernel); true: K resident, V through the ring, whose warp
+// is threads kBlockThreads on (attention_streamed_kernel).
+template <typename T, bool kStream>
+__device__ __forceinline__ void attention_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                                                const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                                                T* __restrict__ out, int N, int S, int H, int ldq, int ldk, int ldv,
+                                                size_t qbs, int prefix, float scale, int qtiles,
+                                                const KVSecond<T>& two) {
   static_assert(is_bf16<T>(), "wgmma variant: bf16");
   using namespace wgv;
   extern __shared__ __align__(16) uint8_t wg_smem[];
   uint8_t* Ks = sm90::align1024(wg_smem);
   const int nch = (S + kChunk - 1) / kChunk, sp = nch * kChunk;
-  uint8_t* Vs = Ks + (size_t)sp * kRowBytes;
-  uint8_t* flags = Vs + (size_t)sp * kRowBytes;  // 1 attend, 0 masked, 2 past S
-  uint8_t* full = flags + sp;                     // chunk c's keys all attend
+  const int ring = kStream ? ring_slots(S) : 0;
+  uint8_t* Vs = Ks + (size_t)sp * kRowBytes;                                // all of V, or the ring's slots
+  uint64_t* landed = reinterpret_cast<uint64_t*>(Vs + ring * kChunkBytes);  // streamed: a slot's chunk in place
+  uint64_t* freed = landed + kMaxRing;                                      // streamed: a slot read by every warp
+  uint8_t* flags = kStream ? reinterpret_cast<uint8_t*>(freed + kMaxRing)   // 1 attend, 0 masked, 2 past S
+                           : Vs + (size_t)sp * kRowBytes;
+  uint8_t* full = flags + sp;                                               // chunk c's keys all attend
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z, col = h * kD;
   const int S1 = two.k != nullptr ? two.S1 : S;
+  const int ntiles = (N + kRows - 1) / kRows, tile0 = blockIdx.x * qtiles, tile_end = min(ntiles, tile0 + qtiles);
 
-  // cp.async group c < nch: K chunk c; group nch: all of V. Item b's key j
-  // at g + j ld below S1, at g2 + (j - S1) ld2 from S1 on.
-  auto copy = [&](uint8_t* dst, const T* g, int ld, const T* g2, int ld2, int c) {
-    for (int e = tid; e < kChunk * 8; e += kBlockThreads) {
-      const int j = c * kChunk + (e >> 3), ch = e & 7;
+  // 64-key chunk c of item b's keys into the 8 KB at shared address dst, the
+  // 16-byte pieces e = first, first + stride, ...; key j at g + j ld below
+  // S1, at g2 + (j - S1) ld2 from S1 on (rows of a chunk are 8-aligned keys,
+  // so the swizzle of row r is the key's)
+  auto copy = [&](uint32_t dst, const T* g, int ld, const T* g2, int ld2, int c, int first, int stride) {
+    for (int e = first; e < kChunk * 8; e += stride) {
+      const int r = e >> 3, j = c * kChunk + r, ch = e & 7;
       const bool ok = j < S;
       const T* src = !ok ? g : (j < S1 ? g + (size_t)j * ld : g2 + (size_t)(j - S1) * ld2) + ch * 8;
-      sm90::cp_async16(sm90::smem_addr(dst + j * kRowBytes + ((ch ^ (j & 7)) << 4)), src, ok);
+      sm90::cp_async16(dst + r * kRowBytes + ((ch ^ (r & 7)) << 4), src, ok);
     }
+  };
+  // the same for a chunk of 64 rows at g (ld apart) by one warp: lane takes
+  // the 16-byte piece lane % 8 of rows lane / 8 + 4 i
+  auto copy_rows = [&](uint32_t dst, const T* g, int ld) {
+    const int r0 = lane >> 3, ch = lane & 7;
+    const uint32_t d0 = dst + r0 * kRowBytes + ((ch ^ r0) << 4);
+    const uint32_t d1 = dst + (r0 + 4) * kRowBytes + ((ch ^ (r0 + 4)) << 4);  // rows r0 + 4 (i odd)
+    g += (size_t)r0 * ld + ch * 8;
+#pragma unroll
+    for (int i = 0; i < 16; ++i, g += 4 * (size_t)ld)
+      sm90::cp_async16((i & 1 ? d1 : d0) + (i >> 1) * 8 * kRowBytes, g, true);
   };
   const T* kg = k + (size_t)b * S1 * ldk + col;
   const T* vg = v + (size_t)b * S1 * ldv + col;
   const T* kg2 = two.k != nullptr ? two.k + (size_t)b * (S - S1) * two.ldk + col : kg;
   const T* vg2 = two.v != nullptr ? two.v + (size_t)b * (S - S1) * two.ldv + col : vg;
+  const uint32_t kb = sm90::smem_addr(Ks), vb = sm90::smem_addr(Vs);
+
+  if constexpr (kStream) {
+    if (tid < ring) {
+      mbar_init(landed + tid, 32);
+      mbar_init(freed + tid, 4 * kGroups);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
+    if (tid >= kBlockThreads) {  // the ring's warp: the V chunks of the block's tiles, slot after slot
+      for (int tile = tile0, slot = 0, round = 0; tile < tile_end; ++tile)
+        for (int c = 0; c < nch; ++c) {
+          if (round > 0)  // every consumer warp has retired the p V of the slot's last chunk
+            while (!__all_sync(0xffffffffu, mbar_done(freed + slot, (round - 1) & 1))) {
+            }
+          const int j0 = c * kChunk;
+          if (j0 + kChunk <= S1 || (j0 >= S1 && j0 + kChunk <= S))  // 64 keys of one source
+            copy_rows(vb + slot * kChunkBytes, j0 < S1 ? vg + (size_t)j0 * ldv : vg2 + (size_t)(j0 - S1) * two.ldv,
+                      j0 < S1 ? ldv : two.ldv);
+          else
+            copy(vb + slot * kChunkBytes, vg, ldv, vg2, two.ldv, c, lane, 32);
+          cp_async_arrive(landed + slot);  // once this lane's copies have landed
+          sm90::cp_async_commit();
+          if (++slot == ring) slot = 0, ++round;
+        }
+      sm90::cp_async_wait<0>();
+      return;
+    }
+  }
+  // cp.async group c < nch: K chunk c; resident, group nch: all of V
   for (int c = 0; c < nch; ++c) {
-    copy(Ks, kg, ldk, kg2, two.ldk, c);
+    copy(kb + c * kChunkBytes, kg, ldk, kg2, two.ldk, c, tid, kBlockThreads);
     sm90::cp_async_commit();
   }
-  for (int c = 0; c < nch; ++c) copy(Vs, vg, ldv, vg2, two.ldv, c);
-  sm90::cp_async_commit();
+  if constexpr (!kStream) {
+    for (int c = 0; c < nch; ++c) copy(vb + c * kChunkBytes, vg, ldv, vg2, two.ldv, c, tid, kBlockThreads);
+    sm90::cp_async_commit();
+  }
 
   const uint8_t* mb = mask != nullptr ? mask + (size_t)b * (S - prefix) : nullptr;
   auto attends = [&](int j) { return j < prefix || mb == nullptr || mb[j - prefix] != 0; };
@@ -627,10 +753,9 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
   }
 
   const float scale2 = scale * kLog2e, masked = kMaskedScore / scale;
-  const uint32_t kb = sm90::smem_addr(Ks), vb = sm90::smem_addr(Vs);
-  const int ntiles = (N + kRows - 1) / kRows, tile_end = min(ntiles, (int)(blockIdx.x + 1) * qtiles);
-  for (int tile = blockIdx.x * qtiles; tile < tile_end; ++tile) {
-    const bool first = tile == (int)blockIdx.x * qtiles;  // K and V still landing
+  int slot = 0, round = 0, last = 0;  // streamed: the ring slot of the next V chunk, its fill, the last chunk's slot
+  for (int tile = tile0; tile < tile_end; ++tile) {
+    const bool first = tile == tile0;  // K (and V) still landing
     // Q's A-fragments, k-step kk: rows n0 and n0 + 8, head dims 16 kk + 2t (+1) and 16 kk + 8 + 2t (+1)
     const int n0 = tile * kRows + wg * 64 + warp * 16 + g;
     uint32_t qf[4][4];
@@ -650,9 +775,10 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
     // pass 1: each row's max m2 (log2 units) and sum of exp2(s2 - m2)
     for (int c = 0; c < nch; ++c) {
       if (first) {
-        cp_async_wait_at_most(nch - c);  // K chunk c (this thread's copies)
+        cp_async_wait_at_most(nch - c - (kStream ? 1 : 0));  // K chunk c (this thread's copies)
         sm90::fence_proxy_async();
-        __syncthreads();                 // everyone's; the flags
+        if constexpr (kStream) consumers_sync(kBlockThreads);  // everyone's; the flags
+        else __syncthreads();
       }
       scores(sc, qf, kb + c * kChunkBytes);
       if (!full[c]) flag_scores(sc, flags + c * kChunk, t, masked);
@@ -673,7 +799,7 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
     }
 
     // pass 2: o += round(p) V, chunk after chunk
-    if (first) {
+    if (!kStream && first) {
       sm90::cp_async_wait<0>();
       sm90::fence_proxy_async();
       __syncthreads();  // V
@@ -685,6 +811,8 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
     uint32_t pf[4][4];  // p's A-fragments, k-step kc: keys 16 kc + [0, 16) of the chunk
     for (int c = 0; c < nch; ++c) {
       scores(sc, qf, kb + c * kChunkBytes);  // also retires chunk c - 1's p V, which read pf
+      if constexpr (kStream)
+        if (c > 0 && lane == 0) mbar_arrive(freed + last);
       if (!full[c]) flag_scores(sc, flags + c * kChunk, t, masked);
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc)
@@ -694,17 +822,28 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
           pf[kc][e] = pack_bf16(ex2(fmaf(sc[i], scale2, -m2[r])) * inv_l[r],
                                 ex2(fmaf(sc[i + 1], scale2, -m2[r])) * inv_l[r]);
         }
+      uint32_t vchunk = vb + c * kChunkBytes;
+      if constexpr (kStream) {
+        while (!mbar_done(landed + slot, round & 1)) {
+        }
+        sm90::fence_proxy_async();  // the ring warp's copies, seen here, to wgmma
+        vchunk = vb + slot * kChunkBytes;
+        last = slot;
+        if (++slot == ring) slot = 0, ++round;
+      }
       fence_regs(pf);
       sm90::fence_operands(o);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc)
-        sm90::WgmmaRS<1>::mma(o, pf[kc], sm90::desc_sw128(vb + c * kChunkBytes + kc * 16 * kRowBytes), 1);
+        sm90::WgmmaRS<1>::mma(o, pf[kc], sm90::desc_sw128(vchunk + kc * 16 * kRowBytes), 1);
       sm90::wgmma_commit();
     }
     sm90::wgmma_wait<0>();
     sm90::fence_operands(o);
     fence_regs(pf);
+    if constexpr (kStream)
+      if (lane == 0) mbar_arrive(freed + last);
 
     // o[i]: row n0 + 8 ((i >> 1) & 1), head dim 8 (i >> 2) + 2t + (i & 1)
 #pragma unroll
@@ -717,11 +856,28 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(wgv::kBlockThreads, 1)
+    attention_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                           const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int ldq,
+                           int ldk, int ldv, size_t qbs, int prefix, float scale, int qtiles, const KVSecond<T> two) {
+  attention_wgmma<T, false>(q, k, v, mask, out, N, S, H, ldq, ldk, ldv, qbs, prefix, scale, qtiles, two);
+}
+template <typename T>
+__global__ void __launch_bounds__(wgv::kBlockThreads + 32, 1)
+    attention_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                              const uint8_t* __restrict__ mask, T* __restrict__ out, int N, int S, int H, int ldq,
+                              int ldk, int ldv, size_t qbs, int prefix, float scale, int qtiles,
+                              const KVSecond<T> two) {
+  attention_wgmma<T, true>(q, k, v, mask, out, N, S, H, ldq, ldk, ldv, qbs, prefix, scale, qtiles, two);
+}
+
 // K5's choice of design from the shapes it is given (attention.cu's
-// paella_attention_design reports it): 0, the ring, or k >= 1, the wgmma
-// variant with k query tiles a block. The variant takes every bf16 head of 64
-// whose keys stay resident (S <= 768); the ring everything else: Paella's
-// shapes (D 80), f32, longer key sequences, and always K6's attention phase.
+// paella_attention_design reports it): 0, the ring, or the wgmma variant
+// (wgv's codes): the resident form for every bf16 head of 64 whose K and V
+// stay resident (S <= 768), the streamed form for those whose K alone does
+// (S <= 1536); the ring everything else: Paella's shapes (D 80), f32, longer
+// key sequences, and always K6's attention phase.
 // Measured on an H100 (chip_smoke.py item 9's sweep, device µs at D 64, each
 // design forced, three runs): the variant was faster at every N x S from 64
 // x 136 up and B x H 2, 32, 128 and 256 (19.2-19.4 vs 47.8-54.8 µs at 64 x
@@ -730,15 +886,26 @@ __global__ void __launch_bounds__(wgv::kBlockThreads, 1)
 // 8.07-9.49), B 2 x H 16 (4.89-4.98 vs 8.22-9.65) and B 4 x H 32 (5.08-5.11 vs
 // 8.09-9.67), and was within a µs of it at B 8 x H 32 (9.09-9.51 vs
 // 8.52-10.42). So no problem size sends a head of 64 back to the ring.
-// Query tiles a block: all of a (batch, head)'s where a block a tile would
-// take as many waves of blocks as there are tiles anyway (ceil(B H tiles /
-// SMs) >= tiles), so K and V are copied once a pair at no cost in waves; else
-// one, so that more blocks are in flight. Measured at 576 x 661: all three 130.6 vs 168.7 µs at B 8 x H 32,
-// 64.6 vs 85.2 at B 4 x H 32; one 29.2 vs 61.6 at B 2 x H 16 (and at 200 x 130,
-// two tiles: 32.1 vs 38.9, 16.7 vs 20.5, 15.5 vs 10.6). The tiles a block takes
-// change no arithmetic, so the output never depends on B.
+// At Stage B's level 2 (B 4 x H 20, 1024 x 1028) the streamed form took
+// 148-172 µs against the ring's 552, and 49 against 164 at B 1 (CUDA events).
+// Query tiles a block, resident form: all of a (batch, head)'s where a block
+// a tile would take as many waves of blocks as there are tiles anyway
+// (ceil(B H tiles / SMs) >= tiles), so K and V are copied once a pair at no
+// cost in waves; else one, so that more blocks are in flight. Measured at 576
+// x 661: all three 130.6 vs 168.7 µs at B 8 x H 32, 64.6 vs 85.2 at B 4 x H
+// 32; one 29.2 vs 61.6 at B 2 x H 16 (and at 200 x 130, two tiles: 32.1 vs
+// 38.9, 16.7 vs 20.5, 15.5 vs 10.6). Streamed form: the k that takes the
+// fewest tile times (waves of blocks x k), the largest such k, so K is copied
+// fewest times: at level 2, B 4, k 2 (2 waves x 2 tiles) took 148 µs, k 1 (4
+// x 1) 172, k 3 201 and k 6 186; at B 1, k 1 49 and k 2 72. The tiles a
+// block takes change no arithmetic, so the output never depends on B.
+// Two warpgroups a block (128 query rows) were timed too and lost at every
+// shape (level 2, B 4: 173-206 µs; B 1: 59-192), so both forms take three.
 inline bool wgmma_fits(int N, int S, int D, bool bf16) {
   return bf16 && D == wgv::kD && N >= 1 && S >= 1 && S <= wgv::kMaxKeys;
+}
+inline bool streamed_fits(int N, int S, int D, bool bf16) {
+  return bf16 && D == wgv::kD && N >= 1 && S >= 1 && S <= wgv::kMaxStreamKeys;
 }
 inline int sm_count() {
   static int sms[64] = {};
@@ -749,21 +916,38 @@ inline int sm_count() {
   return n;
 }
 inline int attention_design(int B, int N, int S, int H, int D, bool bf16) {
-  if (!wgmma_fits(N, S, D, bf16)) return 0;
-  const long tiles = (N + wgv::kRows - 1) / wgv::kRows, sms = sm_count();
-  return ((long)B * H * tiles + sms - 1) / sms >= tiles ? (int)tiles : 1;
+  const long pairs = (long)B * H, tiles = (N + wgv::kRows - 1) / wgv::kRows, sms = sm_count();
+  auto waves = [&](long k) { return (pairs * ((tiles + k - 1) / k) + sms - 1) / sms; };
+  if (wgmma_fits(N, S, D, bf16)) return waves(1) >= tiles ? (int)std::min(tiles, (long)wgv::kMaxQtiles) : 1;
+  if (!streamed_fits(N, S, D, bf16)) return 0;
+  long best = 1;
+  for (long k = 2; k <= std::min(tiles, (long)wgv::kMaxQtiles); ++k)
+    if (waves(k) * k <= waves(best) * best) best = k;
+  return wgv::kStreamed + (int)best;
 }
 
+// design: a wgv code (the form and its query tiles a block); invalid where
+// the shapes do not fit the form.
 template <typename T>
 cudaError_t launch_attention_wgmma(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
-                                   int H, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale, int qtiles,
-                                   const KVSecond<T>& two, cudaStream_t st) {
-  const size_t bytes = wgv::smem_bytes(S);
-  cudaError_t err = sm90::reserve_smem<attention_wgmma_kernel<T>>(bytes);
+                                   int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
+                                   int design, const KVSecond<T>& two, cudaStream_t st) {
+  using namespace wgv;
+  const bool stream = design >= kStreamed;
+  const int qtiles = design - (stream ? kStreamed : 0);
+  if (qtiles < 1 || qtiles > kMaxQtiles || !(stream ? streamed_fits(N, S, D, true) : wgmma_fits(N, S, D, true)))
+    return cudaErrorInvalidValue;
+  const size_t bytes = stream ? stream_smem_bytes(S, ring_slots(S)) : smem_bytes(S);
+  cudaError_t err = stream ? sm90::reserve_smem<attention_streamed_kernel<T>>(bytes)
+                           : sm90::reserve_smem<attention_wgmma_kernel<T>>(bytes);
   if (err != cudaSuccess) return err;
-  const int ntiles = (N + wgv::kRows - 1) / wgv::kRows;
-  attention_wgmma_kernel<T><<<dim3((ntiles + qtiles - 1) / qtiles, H, B), wgv::kBlockThreads, bytes, st>>>(
-      q, k, v, mask, out, N, S, H, ldq, ldk, ldv, qbs, prefix, scale, qtiles, two);
+  const dim3 grid(((N + kRows - 1) / kRows + qtiles - 1) / qtiles, H, B);
+  if (stream)
+    attention_streamed_kernel<T><<<grid, kBlockThreads + 32, bytes, st>>>(q, k, v, mask, out, N, S, H, ldq, ldk, ldv,
+                                                                          qbs, prefix, scale, qtiles, two);
+  else
+    attention_wgmma_kernel<T><<<grid, kBlockThreads, bytes, st>>>(q, k, v, mask, out, N, S, H, ldq, ldk, ldv, qbs,
+                                                                  prefix, scale, qtiles, two);
   return cudaGetLastError();
 }
 
@@ -811,8 +995,8 @@ cudaError_t launch_attention_at(const T* q, const T* k, const T* v, const uint8_
 
 // two: keys [two.S1, S) from a second source (two.k null: one source; K6
 // reads one). design: -1 as attention_design picks (K6: the ring), 0 the
-// ring, k >= 1 the wgmma variant with k query tiles a block
-// (cudaErrorInvalidValue where the shapes do not fit it).
+// ring, else the wgmma variant's form and query tiles a block as wgv codes
+// them (cudaErrorInvalidValue where the shapes do not fit it).
 template <typename T, bool kBlock>
 cudaError_t launch_attention(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, int B, int N, int S,
                              int H, int D, int ldq, int ldk, int ldv, size_t qbs, int prefix, float scale,
@@ -820,11 +1004,9 @@ cudaError_t launch_attention(const T* q, const T* k, const T* v, const uint8_t* 
   if (D % 8) return cudaErrorInvalidValue;
   if constexpr (is_bf16<T>() && !kBlock) {
     if (design < 0) design = attention_design(B, N, S, H, D, true);
-    if (design > 0) {
-      if (!wgmma_fits(N, S, D, true)) return cudaErrorInvalidValue;
-      return launch_attention_wgmma<T>(q, k, v, mask, out, B, N, S, H, ldq, ldk, ldv, qbs, prefix, scale, design, two,
-                                       st);
-    }
+    if (design > 0)
+      return launch_attention_wgmma<T>(q, k, v, mask, out, B, N, S, H, D, ldq, ldk, ldv, qbs, prefix, scale, design,
+                                       two, st);
   } else {
     if (design > 0) return cudaErrorInvalidValue;
   }

@@ -13,8 +13,11 @@ WRAPPERS = (fused_resblock, fused_head_categorical, gumbel_categorical, fused_co
 
 def launch_counts() -> dict:
     """{wrapper name: its `launches`}: the calls each made in this process,
-    eagerly or while a CUDA graph was captured (a replay calls no wrapper)."""
-    return {f.__name__: f.launches for f in WRAPPERS}
+    eagerly or while a CUDA graph was captured (a replay calls no wrapper);
+    and "fused_attention_streamed": those of fused_attention's on the wgmma
+    variant's streamed form."""
+    return {**{f.__name__: f.launches for f in WRAPPERS},
+            "fused_attention_streamed": fused_attention.streamed_launches}
 
 
 __all__ = [

@@ -18,11 +18,13 @@ dim that is not a multiple of 8 is padded with zeros (see `fused_attention`).
 The keys and values may come from two sources, `k`, `v` then `k2`, `v2`
 (Stage C's pixel keys out of its q|k|v product and its conditioning's out of
 the per-block cache): the kernel reads each where it lies, the plain version
-concatenates them. The kernel picks one of two designs from the shapes
+concatenates them. The kernel picks its design from the shapes
 (`attention_design`): the latency-bound ring (Paella's shapes, every f32
-call, K6) or, for bf16 heads of 64 whose keys stay in shared memory (S <=
-768), the compute-bound wgmma variant (Stage C's); both keep the rounding
-points above.
+call, K6) or, for bf16 heads of 64, the compute-bound wgmma variant: with K
+and V resident in shared memory up to 768 keys ("wgmma", Stage C's), with K
+resident and V streamed through a ring of slots up to 1536 keys
+("streamed", Stage B's level 2). All keep the rounding points above, and the
+wgmma variant's two forms give the same bits.
 """
 from __future__ import annotations
 
@@ -138,12 +140,21 @@ def fused_attention(
 
 
 fused_attention.launches = 0
+fused_attention.streamed_launches = 0  # the launches on the wgmma variant's streamed form
+
+STREAMED = 256  # the C interface's code of the streamed form, plus its query tiles a block (csrc/attention.cuh::wgv)
+
+
+def design_code(name: str, qtiles: int = 0) -> int:
+    """The C interface's code of a design as `attention_design` names it:
+    "ring", or the wgmma variant's form "wgmma" or "streamed" with `qtiles`
+    query tiles a block."""
+    return {"ring": 0, "wgmma": qtiles, "streamed": STREAMED + qtiles}[name]
 
 
 def _launch(q, k, v, kv_mask, k2, v2, design: int) -> torch.Tensor:
-    """The kernel on CUDA tensors; design -1 as `attention_design` picks, 0
-    the ring, k >= 1 the wgmma variant with k query tiles a block (a
-    measurement's or a test's choice)."""
+    """The kernel on CUDA tensors; design -1 as `attention_design` picks,
+    else a `design_code` (a measurement's or a test's choice)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     dt = q.dtype
@@ -172,8 +183,11 @@ def _launch(q, k, v, kv_mask, k2, v2, design: int) -> torch.Tensor:
     if k2 is not None:
         ldk2, ldv2 = _row_stride(k2, "k2"), _row_stride(v2, "v2")
 
+    lib = _library()
+    if design < 0:
+        design = lib.paella_attention_design(b, n, s, h, d8, int(dt == torch.bfloat16))
     out = torch.empty((b, n, h, d8), dtype=dt, device=q.device)
-    rc = _library().paella_attention(
+    rc = lib.paella_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if k2 is None else k2.data_ptr(),
         None if v2 is None else v2.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
         b, n, s, s1, h, d8, ldq, ldk, ldv, ldk2, ldv2, score_scale(d), int(dt == torch.bfloat16), design,
@@ -181,17 +195,21 @@ def _launch(q, k, v, kv_mask, k2, v2, design: int) -> torch.Tensor:
     )
     check_rc(rc, "fused_attention")
     fused_attention.launches += 1
+    fused_attention.streamed_launches += design >= STREAMED
     return out if d8 == d else out[..., :d].contiguous()
 
 
 def attention_design(b: int, n: int, s: int, h: int, d: int, dtype: torch.dtype) -> tuple[str, int]:
     """The design the kernel's policy takes for B x H heads of N queries over
     S keys at head dim d (padded to a multiple of 8, as the wrapper pads it):
-    ("ring", 0) or ("wgmma", query tiles a block); csrc/attention.cuh::
-    attention_design. Builds the library."""
+    ("ring", 0), or the wgmma variant's form ("wgmma": K and V resident;
+    "streamed": K resident, V streamed) and its query tiles a block;
+    csrc/attention.cuh::attention_design. Builds the library."""
     d8 = -(-d // 8) * 8
-    k = _library().paella_attention_design(b, n, s, h, d8, int(dtype == torch.bfloat16))
-    return ("wgmma", k) if k > 0 else ("ring", 0)
+    code = _library().paella_attention_design(b, n, s, h, d8, int(dtype == torch.bfloat16))
+    if code >= STREAMED:
+        return ("streamed", code - STREAMED)
+    return ("wgmma", code) if code > 0 else ("ring", 0)
 
 
 def _library() -> ctypes.CDLL:

@@ -158,3 +158,28 @@ def test_kernel_wrapper_refuses_a_mismatched_second_source(case):
     with pytest.raises(ValueError, match="fused_attention"):
         fused_attention(q, k, v, k2=k2, v2=v2)
     assert attention_plain.launches == 0
+
+
+@pytest.mark.parametrize("name,qtiles,code", [("ring", 0, 0), ("wgmma", 3, 3), ("streamed", 1, 257), ("streamed", 2, 258)])
+def test_design_codes_are_the_c_interfaces(name, qtiles, code):
+    """design_code gives csrc/attention.cu's `design` argument for a design as
+    attention_design names it: 0 the ring, k the resident form, 256 + k the
+    streamed form, k query tiles a block."""
+    from paella_tpu_torch.kernels.attention import design_code
+
+    assert design_code(name, qtiles) == code
+
+
+def test_launch_counts_report_the_streamed_form():
+    """kernels.launch_counts() carries the streamed form's launches beside
+    every wrapper's (a graph's capture turns them into /stats counters), and
+    a CPU call of fused_attention counts a plain version's call only."""
+    from paella_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()
+    assert before["fused_attention_streamed"] == fused_attention.streamed_launches
+    q, k, v, _ = inputs(16, False)
+    fused_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    after = launch_counts()
+    assert after["attention_plain"] == before["attention_plain"] + 1
+    assert after["fused_attention_streamed"] == before["fused_attention_streamed"]

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from paella_tpu_torch.kernels.attention import attention_plain, fused_attention
+from paella_tpu_torch.kernels.attention import attention_plain, design_code, fused_attention
 from paella_tpu_torch.kernels.attn_block import attn_block_plain, fused_attn_block, prepare_attn_block_weights
 from paella_tpu_torch.kernels.quantize import codebook_lookup_plain, fused_codebook_lookup
 from paella_tpu_torch.kernels.resblock import (
@@ -415,7 +415,8 @@ def test_attention_policy_keeps_paella_shapes_on_the_ring(cuda):
     assert attention_design(8, 576, 661, 32, 64, torch.float32) == ("ring", 0)
     assert attention_design(2, 576, 661, 16, 64, torch.bfloat16) == ("wgmma", 1)  # 32 pairs: a block a tile
     assert attention_design(8, 16, 40, 32, 64, torch.bfloat16) == ("wgmma", 1)  # every bf16 head of 64 that fits
-    assert attention_design(2, 256, 1036, 16, 64, torch.bfloat16) == ("ring", 0)  # K and V too long to stay resident
+    # K and V too long to stay resident together: K stays, V streams (2 x 16 pairs of 2 tiles: a block a tile)
+    assert attention_design(2, 256, 1036, 16, 64, torch.bfloat16) == ("streamed", 1)
     with pytest.raises(RuntimeError, match="CUDA error"):
         _launch(q, k, v, None, None, None, 1)  # D 80: the variant refuses
 
@@ -430,6 +431,97 @@ def test_attention_ring_at_stage_c_shape(cuda):
     g = torch.Generator(device=cuda).manual_seed(15)
     q, k, v, k2, v2 = stage_c_attention(g, 8, 576, 85, 32, 64)
     close_in_dtype(_launch(q, k, v, None, k2, v2, 0), attention_plain(q, k, v, None, k2, v2))
+
+
+# K5 by the policy, and the wgmma variant's streamed form forced with one and
+# with two query tiles a block
+STREAMED_FORMS = [-1, design_code("streamed", 1), design_code("streamed", 2)]
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_attention_streamed_form_at_stage_b_level2(cuda, with_mask):
+    """Stage B's level 2 (B 4, N 1024, 1024 + 4 keys from two sources, H 20,
+    D 64, bf16) takes the streamed form, two query tiles a block: by the
+    policy and forced with one and two, within two bf16 ulps of the largest
+    output of the plain version, all the same bits, bitwise equal on two
+    runs, and item 0 alone (one tile a block) equal to item 0 of the batch."""
+    from paella_tpu_torch.kernels.attention import _launch, attention_design
+
+    assert attention_design(4, 1024, 1028, 20, 64, torch.bfloat16) == ("streamed", 2)
+    assert attention_design(1, 1024, 1028, 20, 64, torch.bfloat16) == ("streamed", 1)
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v, k2, v2 = stage_c_attention(g, 4, 1024, 4, 20, 64)
+    mask = None
+    if with_mask:
+        mask = torch.rand(4, 1028, generator=g, device=cuda) < 0.6
+        mask[:, 0] = True
+    want = attention_plain(q, k, v, mask, k2, v2)
+    got = [_launch(q, k, v, mask, k2, v2, design) for design in STREAMED_FORMS]
+    close_in_dtype(got[0], want)
+    for other in got[1:]:
+        assert torch.equal(other, got[0])
+    assert torch.equal(fused_attention(q, k, v, mask, k2=k2, v2=v2), got[0])
+    one = fused_attention(q[:1], k[:1], v[:1], None if mask is None else mask[:1], k2=k2[:1], v2=v2[:1])
+    assert torch.equal(one, got[0][:1])
+
+
+@pytest.mark.parametrize("s", [769, 937, 1536])
+def test_attention_streamed_form_past_768_keys(cuda, s):
+    """Key counts just past the resident form's 768, one not a multiple of
+    the 64-key chunk, and the longest K that stays resident beside the V ring
+    (1536): the policy takes the streamed form, which matches the plain
+    version under a key mask with one and two query tiles a block, in the
+    same bits."""
+    from paella_tpu_torch.kernels.attention import _launch, attention_design
+
+    b, n, h = 2, 300, 8
+    assert attention_design(b, n, s, h, 64, torch.bfloat16) == ("streamed", 1)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(b, ln, h, 64, generator=g, device=cuda).to(torch.bfloat16) for ln in (n, s, s))
+    mask = torch.rand(b, s, generator=g, device=cuda) < 0.8
+    mask[:, 0] = True
+    want = attention_plain(q, k, v, mask)
+    got = [_launch(q, k, v, mask, None, None, design) for design in STREAMED_FORMS]
+    close_in_dtype(got[0], want)
+    for other in got[1:]:
+        assert torch.equal(other, got[0])
+    assert torch.equal(_launch(q, k, v, mask, None, None, -1), got[0])
+
+
+def test_attention_past_the_resident_k_limit_takes_the_ring(cuda):
+    """1537 keys: K no longer stays resident beside the V ring, so the
+    policy returns to the ring, the streamed form refuses the shape, and the
+    output is the ring's, within two bf16 ulps of the plain version."""
+    from paella_tpu_torch.kernels.attention import _launch, attention_design
+
+    assert attention_design(2, 256, 1537, 8, 64, torch.bfloat16) == ("ring", 0)
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v = (torch.randn(2, ln, 8, 64, generator=g, device=cuda).to(torch.bfloat16) for ln in (256, 1537, 1537))
+    got = fused_attention(q, k, v)
+    assert torch.equal(got, _launch(q, k, v, None, None, None, 0))
+    close_in_dtype(got, attention_plain(q, k, v))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch(q, k, v, None, None, None, design_code("streamed", 1))
+
+
+@pytest.mark.parametrize("shape", [(8, 576, 576, 85, 32), (1, 200, 150, 70, 2)])
+def test_attention_streamed_form_gives_the_resident_bits(cuda, shape):
+    """(B, N, S1, S2, H) at D 64 where K and V stay resident (Stage C's
+    shape, and a ragged one with S1 off the 64-key chunk under a key mask):
+    the streamed form forced, with one or every query tile a block, gives
+    the resident form's bits."""
+    from paella_tpu_torch.kernels.attention import _launch
+
+    b, n, s1, s2, h = shape
+    g = torch.Generator(device=cuda).manual_seed(28)
+    q = torch.randn(b, n, h, 64, generator=g, device=cuda).to(torch.bfloat16)
+    (k, v), (k2, v2) = kv_views(g, b, s1, h, 64), kv_views(g, b, s2, h, 64)
+    mask = torch.rand(b, s1 + s2, generator=g, device=cuda) < 0.7
+    mask[:, 0] = True
+    resident = _launch(q, k, v, mask, k2, v2, design_code("wgmma", 1))
+    close_in_dtype(resident, attention_plain(q, k, v, mask, k2, v2))
+    for qtiles in (1, -(-n // 192)):
+        assert torch.equal(_launch(q, k, v, mask, k2, v2, design_code("streamed", qtiles)), resident), qtiles
 
 
 # (N, S) at D 64 bf16 and (B, H) over which chip_smoke.py times both K5 designs

@@ -410,9 +410,11 @@ def test_decoder_graph_replay_equals_eager(cuda, published):
 @pytest.mark.cuda
 def test_every_attention_goes_through_k5_and_the_designs_per_level(cuda, published):
     """One replay of a 2-step decoder graph adds (28 + 28 x 3 + 6 + 6 x 3)
-    AttnBlocks x 2 steps to `launches.fused_attention`, K5's plain version
-    never runs on the card, and the policy gives level 2 (1024 queries over
-    1028 keys) the ring and level 3 (256 over 260) the wgmma variant."""
+    AttnBlocks x 2 steps to `launches.fused_attention`, of which level 2's
+    (28 + 28 x 3) x 2 to `launches.fused_attention_streamed`, K5's plain
+    version never runs on the card, and the policy gives level 2 (1024
+    queries over 1028 keys) the wgmma variant's streamed form and level 3
+    (256 over 260) its resident form."""
     from paella_tpu_torch.kernels.attention import attention_design, attention_plain
     from paella_tpu_torch.sampling import graph
     from paella_tpu_torch.utils import tracing
@@ -422,13 +424,15 @@ def test_every_attention_goes_through_k5_and_the_designs_per_level(cuda, publish
     cond, seeds, cfg = decoder.DecoderConditioning(clip, eff), torch.tensor([[0, 7]]), DecoderSampleConfig(steps=2)
     plain = attention_plain.launches
     decoder.sample_decoder(m, seeds, cond, (1, 256, 256, 4), cfg)  # captures
-    before = tracing.snapshot()["counters"].get("launches.fused_attention", 0)
+    counters = ("launches.fused_attention", "launches.fused_attention_streamed")
+    before = [tracing.snapshot()["counters"].get(name, 0) for name in counters]
     decoder.sample_decoder(m, seeds, cond, (1, 256, 256, 4), cfg)  # one replay
-    assert tracing.snapshot()["counters"].get("launches.fused_attention", 0) - before == 136 * 2
+    after = [tracing.snapshot()["counters"].get(name, 0) for name in counters]
+    assert [a - b for a, b in zip(after, before)] == [136 * 2, 112 * 2]
     assert attention_plain.launches == plain
     designs = {n: attention_design(4, n, n + 4, 20, 64, torch.bfloat16)[0] for n in (1024, 256)}
     print("K5 designs at batch 4:", designs)
-    assert designs == {1024: "ring", 256: "wgmma"}
+    assert designs == {1024: "streamed", 256: "wgmma"}
     graph.clear()
 
 

@@ -349,8 +349,9 @@ def test_prior_graph_replay_equals_eager(cuda, published):
 @pytest.mark.cuda
 def test_prior_replay_runs_every_attention_on_k5(cuda, published):
     """One replay of the 20-step prior graph adds 64 AttnBlocks x 20 steps =
-    1,280 to `launches.fused_attention` (what GET /stats shows), and K5's
-    plain version never runs on the card."""
+    1,280 to `launches.fused_attention` (what GET /stats shows), none of
+    them to `launches.fused_attention_streamed` (Stage C's keys stay
+    resident), and K5's plain version never runs on the card."""
     from paella_tpu_torch.kernels.attention import attention_plain
     from paella_tpu_torch.sampling import graph
     from paella_tpu_torch.utils import tracing
@@ -364,9 +365,11 @@ def test_prior_replay_runs_every_attention_on_k5(cuda, published):
     seeds, cfg = torch.tensor([[0, 7]]), PriorSampleConfig(steps=20)
     plain = attention_plain.launches
     prior.sample_prior(m, seeds, cond, (1, 24, 24, 16), uncond, cfg)  # captures
-    before = tracing.snapshot()["counters"].get("launches.fused_attention", 0)
+    counters = ("launches.fused_attention", "launches.fused_attention_streamed")
+    before = [tracing.snapshot()["counters"].get(name, 0) for name in counters]
     prior.sample_prior(m, seeds, cond, (1, 24, 24, 16), uncond, cfg)  # one replay
-    assert tracing.snapshot()["counters"].get("launches.fused_attention", 0) - before == 64 * 20
+    after = [tracing.snapshot()["counters"].get(name, 0) for name in counters]
+    assert [a - b for a, b in zip(after, before)] == [64 * 20, 0]
     assert attention_plain.launches == plain
     graph.clear()
 
